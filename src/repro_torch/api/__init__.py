@@ -1,0 +1,18 @@
+"""repro_torch.api — the port's execution surface.
+
+One ``ExecutorSpec`` declares how to run (planner, NA executor, device,
+layout policy); one ``Session`` owns the cached frontend engine;
+``session.compile(graph, targets, HGNNConfig)`` returns a ``CompiledHGNN``
+whose ``init`` and ``forward`` take no backend arguments.
+"""
+from repro_torch.api.session import (CompiledHGNN, Session, SessionStats,
+                                     device_features)
+from repro_torch.api.spec import ExecutorSpec
+
+__all__ = [
+    "CompiledHGNN",
+    "ExecutorSpec",
+    "Session",
+    "SessionStats",
+    "device_features",
+]

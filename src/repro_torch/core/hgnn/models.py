@@ -1,0 +1,249 @@
+"""RGCN / RGAT / Simple-HGN on semantic graphs — the paper's GFP workload.
+
+Per layer: FP (a dense projection per vertex type), NA per semantic graph
+on the banded NA kernels (mean for RGCN, edge-softmax attention for RGAT
+and Simple-HGN with an edge-type term), then SF (HAN-style semantic
+attention over every semantic graph ending at a type, plus a self path).
+Parameters are an explicit nested dict of tensors with the JAX package's
+exact keys, so ``params_from_numpy`` carries its weights across.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from repro_torch.core.hgnn.layers import (feature_projection,
+                                          na_attention_banded, na_mean_banded,
+                                          semantic_fusion_beta)
+from repro_torch.kernels.seg_sum import PackedEdges
+
+
+@dataclasses.dataclass(frozen=True)
+class BandedBatch:
+    """Device-ready semantic graph in the restructured banded layout.
+
+    Carries the pipeline's cached ``PackedEdges`` blocks plus the
+    permutations that move per-layer features into the renumbered banded
+    numbering and NA outputs back to global vertex order.  FP and SF stay
+    in global numbering; only NA runs banded.
+    """
+
+    metapath: str
+    src_type: str
+    dst_type: str
+    num_src: int
+    num_dst: int
+    edge_type_id: int
+    packed: PackedEdges  # renumbered banded blocks (host-built, cached)
+    src_gather: torch.Tensor  # (num_src,) banded row -> global src id
+    dst_gather: torch.Tensor  # (num_dst,) banded row -> global dst id
+    dst_scatter: torch.Tensor  # (num_dst,) global dst -> banded row
+    src_banded: torch.Tensor  # (E,) banded src ids, scheduled order
+    dst_banded: torch.Tensor  # (E,) banded dst ids, scheduled order
+    deg: torch.Tensor  # (num_dst,) in-degree per banded dst row (float32)
+
+    @staticmethod
+    def from_restructured(metapath: str, rg, packed: PackedEdges,
+                          edge_type_id: int, device) -> "BandedBatch":
+        """Build from a ``RestructuredGraph`` and its renumbered packing
+        (``rg.packed(renumbered=True)``), with tensors on ``device``."""
+        rel = rg.original
+        sperm, dperm = rg.permutations()  # global -> banded
+        s, d = rg.scheduled_edges(renumbered=True)
+        deg = np.bincount(d, minlength=rel.num_dst).astype(np.float32)
+
+        def up(a):
+            return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(device)
+
+        return BandedBatch(
+            metapath=metapath,
+            src_type=metapath[0],
+            dst_type=metapath[-1],
+            num_src=rel.num_src,
+            num_dst=rel.num_dst,
+            edge_type_id=edge_type_id,
+            packed=packed,
+            src_gather=up(np.argsort(sperm)),
+            dst_gather=up(np.argsort(dperm)),
+            dst_scatter=up(dperm),
+            src_banded=up(s),
+            dst_banded=up(d),
+            deg=torch.from_numpy(deg).to(device),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class HGNNConfig:
+    """Model family and widths (paper §5.3: hidden 64, 3 layers)."""
+
+    model: str  # "rgcn" | "rgat" | "shgn"
+    hidden: int = 64
+    num_layers: int = 3
+    num_classes: int = 3
+    target_type: str = "P"
+    edge_emb_dim: int = 16  # Simple-HGN edge-type embedding
+    sf_att_dim: int = 64
+
+    def __post_init__(self):
+        if self.model not in ("rgcn", "rgat", "shgn"):
+            raise ValueError(f"unknown model {self.model!r}")
+
+
+def init_params(
+    seed: int,
+    cfg: HGNNConfig,
+    feature_dims: Dict[str, int],
+    metapaths: List[str],
+    device="cuda",
+) -> Dict:
+    """Build the parameter dict from a ``torch.Generator`` seeded with ``seed``.
+
+    Same keys, shapes and scales as the JAX package's ``init_params``
+    (normal draws times ``sqrt(2 / fan_in)`` for dense weights, times 0.1
+    for attention vectors, zero biases); the values differ from
+    ``jax.random``'s.  Draws happen on the CPU, so a seed gives the same
+    parameters on every device.
+    """
+    gen = torch.Generator().manual_seed(int(seed))
+    h = cfg.hidden
+
+    def normal(*shape, scale):
+        return (torch.randn(*shape, generator=gen) * scale).to(device)
+
+    def dense(d_in, d_out):
+        return normal(d_in, d_out, scale=(2.0 / max(1, d_in)) ** 0.5)
+
+    def zeros(n):
+        return torch.zeros(n, device=device)
+
+    params: Dict = {"layers": []}
+    types = sorted(feature_dims)
+    for layer in range(cfg.num_layers):
+        lp: Dict = {"fp": {}, "na": {}, "sf": {}}
+        for t in types:
+            d_in = feature_dims[t] if layer == 0 else h
+            # a featureless type (d_in == 0) gets a learned constant row
+            lp["fp"][t] = {"w": dense(d_in or 1, h), "b": zeros(h)}
+        for mp in metapaths:
+            na: Dict = {"w_rel": dense(h, h)}
+            if cfg.model in ("rgat", "shgn"):
+                na["a_src"] = normal(h, scale=0.1)
+                na["a_dst"] = normal(h, scale=0.1)
+            lp["na"][mp] = na
+        if cfg.model == "shgn":
+            lp["edge_emb"] = normal(len(metapaths), cfg.edge_emb_dim, scale=0.1)
+            lp["a_edge"] = normal(cfg.edge_emb_dim, scale=0.1)
+        for t in types:
+            lp["sf"][t] = {
+                "w": dense(h, cfg.sf_att_dim),
+                "b": zeros(cfg.sf_att_dim),
+                "q": normal(cfg.sf_att_dim, scale=0.1),
+                "w_self": dense(h, h),
+            }
+        params["layers"].append(lp)
+    params["head"] = {"w": dense(h, cfg.num_classes), "b": zeros(cfg.num_classes)}
+    return params
+
+
+def params_from_numpy(tree, device) -> Dict:
+    """Turn a nested dict/list of numpy arrays — the JAX package's parameter
+    pytree after ``jax.tree.map(np.asarray, ...)`` — into the port's dict
+    of float32 tensors on ``device``, keys unchanged."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_numpy(v, device) for v in tree]
+    return torch.from_numpy(np.array(tree, dtype=np.float32)).to(device)
+
+
+class HGNN:
+    """Config + forward function over an explicit parameter dict."""
+
+    def __init__(self, cfg: HGNNConfig, feature_dims: Dict[str, int],
+                 num_vertices: Dict[str, int], metapaths: List[str]):
+        self.cfg = cfg
+        self.feature_dims = dict(feature_dims)
+        self.num_vertices = dict(num_vertices)
+        self.metapaths = list(metapaths)
+
+    def init(self, seed: int, device="cuda") -> Dict:
+        """Parameters from ``seed`` on ``device`` (see :func:`init_params`)."""
+        return init_params(seed, self.cfg, self.feature_dims, self.metapaths,
+                           device=device)
+
+    def hidden_states(
+        self,
+        params: Dict,
+        features: Dict[str, torch.Tensor],
+        graphs: List[BandedBatch],
+    ) -> Dict[str, torch.Tensor]:
+        """Run every FP -> NA -> SF layer on the banded NA executor; returns
+        the final per-type hidden states in global vertex numbering.
+
+        Features are permuted once per layer into each graph's banded
+        layout and NA outputs permuted back.  The device of the parameters
+        picks the NA implementation: CUDA launches the kernels, CPU runs
+        their plain versions.
+        """
+        cfg = self.cfg
+        for g in graphs:
+            if not isinstance(g, BandedBatch):
+                raise TypeError(
+                    f"the banded executor needs BandedBatch inputs, got "
+                    f"{type(g).__name__} for {getattr(g, 'metapath', '?')!r}")
+        device = params["head"]["w"].device
+        h: Dict[str, torch.Tensor] = {}
+        for t, n in self.num_vertices.items():
+            if self.feature_dims.get(t, 0) > 0:
+                h[t] = features[t]
+            else:
+                h[t] = torch.ones((n, 1), dtype=torch.float32, device=device)
+
+        for lp in params["layers"]:
+            hp = {
+                t: torch.relu(feature_projection(lp["fp"][t]["w"], lp["fp"][t]["b"], x))
+                for t, x in h.items()
+            }
+            z_by_dst: Dict[str, List[torch.Tensor]] = {}
+            for g in graphs:
+                na_p = lp["na"][g.metapath]
+                h_src = hp[g.src_type] @ na_p["w_rel"]
+                hb = h_src[g.src_gather]
+                if cfg.model == "rgcn":
+                    zb = na_mean_banded(g.packed, hb, g.deg)
+                else:
+                    edge_bias = None
+                    if cfg.model == "shgn":
+                        edge_bias = lp["edge_emb"][g.edge_type_id] @ lp["a_edge"]
+                    zb = na_attention_banded(
+                        hb, hp[g.dst_type][g.dst_gather],
+                        g.src_banded, g.dst_banded, g.packed,
+                        na_p["a_src"], na_p["a_dst"], edge_bias=edge_bias,
+                    )
+                z_by_dst.setdefault(g.dst_type, []).append(zb[g.dst_scatter])
+            h_next: Dict[str, torch.Tensor] = {}
+            for t, x in hp.items():
+                sf = lp["sf"][t]
+                self_z = x @ sf["w_self"]
+                if t in z_by_dst:
+                    stack = torch.stack(z_by_dst[t] + [self_z])  # (P+1, N, D)
+                    beta = semantic_fusion_beta(stack, sf["w"], sf["b"], sf["q"])
+                    h_next[t] = torch.einsum("p,pnd->nd", beta, stack)
+                else:
+                    h_next[t] = self_z
+            h = {t: torch.relu(v) for t, v in h_next.items()}
+        return h
+
+    def execute(
+        self,
+        params: Dict,
+        features: Dict[str, torch.Tensor],
+        graphs: List[BandedBatch],
+    ) -> torch.Tensor:
+        """Full GFP stage; logits for every ``cfg.target_type`` vertex."""
+        h = self.hidden_states(params, features, graphs)
+        head = params["head"]
+        return h[self.cfg.target_type] @ head["w"] + head["b"]

@@ -1,0 +1,229 @@
+"""Typed heterogeneous graph structures and relation composition.
+
+A ``Relation`` is a directed bipartite edge set between two vertex types,
+stored as a sorted COO edge list.  ``compose_relations`` is the SGB
+primitive: the boolean product of two relations (reachability through the
+shared middle vertex type), with an exact cost model counting the work the
+paper's SGB stage performs (join multiply-accumulates and bytes moved).
+
+Host-side numpy, bitwise-equal to the JAX package's ``repro.hetero.graph``
+(the port keeps its own copy so that it never imports that package).
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+IDX = np.int32
+_IDX_BYTES = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class CompositionCost:
+    """Exact operation/byte counters for one relation composition.
+
+    ``macs`` counts join pairs generated (the multiply-accumulates an
+    SpGEMM datapath performs before output dedup); ``bytes_read`` and
+    ``bytes_written`` count edge-list traffic in and out.
+    """
+
+    macs: int
+    bytes_read: int
+    bytes_written: int
+
+    def __add__(self, other: "CompositionCost") -> "CompositionCost":
+        return CompositionCost(
+            self.macs + other.macs,
+            self.bytes_read + other.bytes_read,
+            self.bytes_written + other.bytes_written,
+        )
+
+    @staticmethod
+    def zero() -> "CompositionCost":
+        """The additive identity."""
+        return CompositionCost(0, 0, 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class Relation:
+    """Directed bipartite edge set ``src_type -> dst_type``.
+
+    Edges are kept sorted by (src, dst) and deduplicated; this is the
+    canonical layout the frontend relies on.
+    """
+
+    src_type: str
+    dst_type: str
+    num_src: int
+    num_dst: int
+    src: np.ndarray  # (E,) int32
+    dst: np.ndarray  # (E,) int32
+
+    def __post_init__(self):
+        if self.src.dtype != IDX or self.dst.dtype != IDX:
+            raise TypeError("Relation edge arrays must be int32")
+        if self.src.shape != self.dst.shape:
+            raise ValueError("Relation src/dst shapes differ")
+
+    @property
+    def name(self) -> str:
+        """Two-letter relation name, e.g. ``"AP"``."""
+        return f"{self.src_type}{self.dst_type}"
+
+    @property
+    def num_edges(self) -> int:
+        """Edge count."""
+        return int(self.src.shape[0])
+
+    @property
+    def nbytes(self) -> int:
+        """Edge-list bytes (two int32 per edge)."""
+        return self.num_edges * 2 * _IDX_BYTES
+
+    @staticmethod
+    def from_edges(
+        src_type: str,
+        dst_type: str,
+        num_src: int,
+        num_dst: int,
+        src: np.ndarray,
+        dst: np.ndarray,
+    ) -> "Relation":
+        """Build a canonical (sorted, deduped) relation from raw edges."""
+        src = np.asarray(src, dtype=IDX)
+        dst = np.asarray(dst, dtype=IDX)
+        if src.size:
+            key = src.astype(np.int64) * num_dst + dst.astype(np.int64)
+            key = np.unique(key)
+            src = (key // num_dst).astype(IDX)
+            dst = (key % num_dst).astype(IDX)
+        return Relation(src_type, dst_type, num_src, num_dst, src, dst)
+
+    def reverse(self) -> "Relation":
+        """The reverse relation (dst -> src), canonicalized."""
+        return Relation.from_edges(
+            self.dst_type, self.src_type, self.num_dst, self.num_src, self.dst, self.src
+        )
+
+    def to_csr(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Return (row_ptr[num_src+1], col_idx[E]) sorted by (src, dst)."""
+        counts = np.bincount(self.src, minlength=self.num_src)
+        row_ptr = np.zeros(self.num_src + 1, dtype=np.int64)
+        np.cumsum(counts, out=row_ptr[1:])
+        return row_ptr, self.dst.copy()
+
+    def out_degrees(self) -> np.ndarray:
+        """Out-degree of every source vertex."""
+        return np.bincount(self.src, minlength=self.num_src)
+
+    def in_degrees(self) -> np.ndarray:
+        """In-degree of every destination vertex."""
+        return np.bincount(self.dst, minlength=self.num_dst)
+
+
+def compose_relations(
+    r1: Relation, r2: Relation
+) -> Tuple[Relation, CompositionCost]:
+    """Boolean relation product: edges (u, w) s.t. exists v with u->v in r1, v->w in r2.
+
+    Sorted-merge join on the shared middle type.  The cost model counts the
+    join pairs *before* dedup (``macs``) plus the edge bytes streamed.
+    """
+    if r1.dst_type != r2.src_type:
+        raise ValueError(f"cannot compose {r1.name} with {r2.name}")
+    if r1.num_dst != r2.num_src:
+        raise ValueError("middle-type cardinality mismatch")
+
+    order1 = np.argsort(r1.dst, kind="stable")
+    mid1 = r1.dst[order1]
+    left = r1.src[order1]
+
+    ptr2, cols2 = r2.to_csr()
+    deg2 = (ptr2[1:] - ptr2[:-1]).astype(np.int64)
+
+    # every r1 edge (u, v) expands to deg2[v] output pairs
+    expand = deg2[mid1]
+    macs = int(expand.sum())
+    if macs == 0:
+        out = Relation.from_edges(
+            r1.src_type, r2.dst_type, r1.num_src, r2.num_dst,
+            np.empty(0, IDX), np.empty(0, IDX),
+        )
+    else:
+        out_src = np.repeat(left, expand)
+        starts = ptr2[mid1]
+        offs = np.arange(macs, dtype=np.int64) - np.repeat(
+            np.cumsum(expand) - expand, expand
+        )
+        out_dst = cols2[np.repeat(starts, expand) + offs]
+        out = Relation.from_edges(
+            r1.src_type, r2.dst_type, r1.num_src, r2.num_dst, out_src, out_dst
+        )
+
+    cost = CompositionCost(
+        macs=macs,
+        bytes_read=r1.nbytes + r2.nbytes,
+        bytes_written=out.nbytes,
+    )
+    return out, cost
+
+
+@dataclasses.dataclass
+class HetGraph:
+    """A heterogeneous graph: typed vertex sets, features, one-hop relations."""
+
+    name: str
+    num_vertices: Dict[str, int]  # vertex type -> count
+    feature_dims: Dict[str, int]  # vertex type -> raw feature dim (0 = featureless)
+    relations: Dict[str, Relation]  # "AP" -> Relation(A->P)
+    features: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
+    _fingerprint: Optional[str] = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    def fingerprint(self) -> str:
+        """Stable content hash of the topology (cache key for the pipeline).
+
+        Covers vertex counts and every relation's edge *set*, hashed through
+        the canonical sorted-unique key form.  Features are excluded: the
+        frontend operates on topology only.  Equal to the JAX package's
+        fingerprint of the same graph.
+        """
+        if self._fingerprint is None:
+            h = hashlib.blake2b(digest_size=16)
+            for t in self.vertex_types:
+                h.update(f"{t}:{self.num_vertices[t]};".encode())
+            for rname in self.relation_names:
+                r = self.relations[rname]
+                key = r.src.astype(np.int64) * r.num_dst + r.dst.astype(np.int64)
+                key = np.unique(key)
+                h.update(
+                    f"{rname}:{r.num_src}x{r.num_dst}:{key.size};".encode())
+                h.update(np.ascontiguousarray(key).tobytes())
+            object.__setattr__(
+                self, "_fingerprint", f"{self.name}-{h.hexdigest()}")
+        return self._fingerprint
+
+    @property
+    def vertex_types(self) -> List[str]:
+        """Sorted vertex type names."""
+        return sorted(self.num_vertices)
+
+    @property
+    def relation_names(self) -> List[str]:
+        """Sorted one-hop relation names."""
+        return sorted(self.relations)
+
+    def relation(self, name: str) -> Relation:
+        """The one-hop relation called ``name``."""
+        return self.relations[name]
+
+    def metapath_is_valid(self, metapath: str) -> bool:
+        """A metapath 'APSPA' is valid iff every adjacent pair is a relation."""
+        if len(metapath) < 2:
+            return False
+        return all(
+            metapath[i : i + 2] in self.relations for i in range(len(metapath) - 1)
+        )

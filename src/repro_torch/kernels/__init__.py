@@ -1,0 +1,12 @@
+"""Hand-written Hopper kernels of the port and their plain versions.
+
+* ``seg_sum``      — K1, banded weighted gather + segment sum (replaces the
+                     TPU kernel ``repro/kernels/seg_sum.py::_na_kernel``);
+                     also the packed edge-block format.
+* ``edge_softmax`` — K2, per-destination online softmax statistics
+                     (replaces ``repro/kernels/edge_softmax.py::_stats_kernel``).
+* ``ops``          — the NA operations built on the two.
+* ``cuda_build``   — nvcc build and ctypes binding of ``csrc/*.cu``.
+
+A CUDA tensor launches the kernel; a CPU tensor runs the plain version.
+"""

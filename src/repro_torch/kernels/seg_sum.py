@@ -1,0 +1,486 @@
+"""Banded NA aggregation: the packed edge-block format and kernel K1.
+
+The Graph Restructurer makes sparse aggregation banded: after restructuring,
+each edge block's sources fall in one ``SRC_BAND``-row band of the feature
+matrix and its destinations in one ``DST_TILE``-row output tile.
+``pack_edge_blocks`` cuts the scheduled edge stream into such blocks
+(host numpy, bitwise-equal to the JAX package's packer), and ``seg_sum_na``
+computes, for every block ``b`` in schedule order,
+
+    out[dst_tile[b]*128 + dst_local[b,k]] += w[b,k] * h[band[b]*512 + src_local[b,k]]
+
+over the block's ``count[b]`` valid slots.
+
+On a CUDA tensor ``seg_sum_na`` launches the hand-written Hopper kernel in
+``csrc/na_kernels.cu`` (``na_seg_sum_f32``), which replaces the TPU kernel
+``repro/kernels/seg_sum.py::_na_kernel``.  The TPU grid runs the blocks in
+order and zeroes a tile on its first touch ever; CTAs on an H100 run
+concurrently, so the port gives every destination tile one owner CTA that
+walks the tile's blocks in schedule order (``PackedEdges.tile_blocks``).
+That needs no atomics, repeats bit for bit, and writes zeros to tiles no
+block touches.  On a CPU tensor it runs the plain version,
+``seg_sum_plain``, which walks the same per-tile edge lists with a one-hot
+product per tile.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.cuda_build import check, load_library, ptr
+
+EDGE_BLOCK = 256  # edges per block (EB)
+SRC_BAND = 512  # feature rows per band; also the band alignment
+DST_TILE = 128  # output rows per tile
+
+
+@dataclasses.dataclass
+class PackedEdges:
+    """Banded edge-block format consumed by the NA kernels (host-built).
+
+    Block arrays are numpy; ``device_blocked(device)`` uploads them once per
+    device and caches the copies on the instance.
+    """
+
+    src_local: np.ndarray  # (nb, EB) int16: src - band*SRC_BAND (pad: 0)
+    dst_local: np.ndarray  # (nb, EB) int16: dst - dst_tile*DST_TILE
+    # (nb, EB) float32 edge weights, 0 for padding; None = unweighted (the
+    # ones-over-valid-slots mask, built lazily by ``valid_weight()``)
+    weight: Optional[np.ndarray]
+    band: np.ndarray  # (nb,) int32 band index
+    dst_tile: np.ndarray  # (nb,) int32
+    first_in_tile: np.ndarray  # (nb,) int32: 1 = first touch EVER of dst tile
+    count: np.ndarray  # (nb,) int32 valid edges in block (rest is padding)
+    num_src: int
+    num_dst: int
+    edge_block: int = EDGE_BLOCK
+    src_band: int = SRC_BAND
+    dst_tile_rows: int = DST_TILE
+    # edge p of the flat scheduled stream lives at
+    # [edge_block_id[p], edge_slot[p]] of the blocked arrays
+    edge_block_id: Optional[np.ndarray] = None  # (E,) int32
+    edge_slot: Optional[np.ndarray] = None  # (E,) int32
+
+    @property
+    def num_blocks(self) -> int:
+        """Number of edge blocks."""
+        return int(self.band.shape[0])
+
+    @property
+    def num_edges(self) -> int:
+        """Number of valid edges (padding excluded)."""
+        return int(self.count.sum())
+
+    @property
+    def num_dst_tiles(self) -> int:
+        """Number of destination tiles covering ``num_dst`` rows (at least 1)."""
+        return max(1, -(-self.num_dst // self.dst_tile_rows))
+
+    def edge_map(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(edge_block_id, edge_slot) for the flat scheduled stream."""
+        if self.edge_block_id is None or self.edge_slot is None:
+            cnt = self.count.astype(np.int64)
+            blk = np.repeat(np.arange(self.num_blocks, dtype=np.int64), cnt)
+            starts = np.concatenate(([0], np.cumsum(cnt)[:-1]))
+            slot = np.arange(int(cnt.sum()), dtype=np.int64) - np.repeat(starts, cnt)
+            self.edge_block_id = blk.astype(np.int32)
+            self.edge_slot = slot.astype(np.int32)
+        return self.edge_block_id, self.edge_slot
+
+    def valid_mask(self) -> np.ndarray:
+        """(nb, EB) float32: 1 on valid slots, 0 on padding (memoized).
+
+        Count-derived, not the edge weights: a weighted packing may carry
+        zero weights on valid slots, and those edges stay valid.
+        """
+        vm = getattr(self, "_valid_mask", None)
+        if vm is None:
+            eb = self.src_local.shape[1]
+            vm = (
+                np.arange(eb, dtype=np.int32)[None, :] < self.count[:, None]
+            ).astype(np.float32)
+            self._valid_mask = vm
+        return vm
+
+    def valid_weight(self) -> np.ndarray:
+        """(nb, EB) float32 weights; an unweighted packing resolves to the
+        ones-over-valid-slots mask (built lazily, cached)."""
+        if self.weight is None:
+            self.weight = self.valid_mask()
+        return self.weight
+
+    def with_weights(self, flat_weights: np.ndarray) -> "PackedEdges":
+        """Same blocking, new per-edge weights given in scheduled order."""
+        blk, slot = self.edge_map()
+        if flat_weights.shape[0] != blk.shape[0]:
+            raise ValueError("one weight per scheduled edge expected")
+        nb, eb = self.src_local.shape
+        ww = np.zeros((nb, eb), np.float32)
+        ww[blk, slot] = np.asarray(flat_weights, np.float32)
+        return dataclasses.replace(
+            self, weight=ww, edge_block_id=self.edge_block_id,
+            edge_slot=self.edge_slot)
+
+    def flat_global_edges(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(src, dst) ids of the flat scheduled stream, recovered from the
+        blocked layout (memoized)."""
+        fe = getattr(self, "_flat_edges", None)
+        if fe is None:
+            blk, slot = self.edge_map()
+            src = (
+                self.src_local[blk, slot].astype(np.int64)
+                + self.band[blk].astype(np.int64) * self.src_band
+            )
+            dst = (
+                self.dst_local[blk, slot].astype(np.int64)
+                + self.dst_tile[blk].astype(np.int64) * self.dst_tile_rows
+            )
+            fe = (src.astype(np.int32), dst.astype(np.int32))
+            self._flat_edges = fe
+        return fe
+
+    def tile_blocks(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Per-destination-tile block lists, the schedule the tile-owner
+        kernels walk (memoized).
+
+        Returns ``(tile_ptr, tile_blocks)``: ``tile_ptr`` has shape
+        ``(num_dst_tiles + 1,)`` and the blocks of tile ``t`` are
+        ``tile_blocks[tile_ptr[t]:tile_ptr[t + 1]]``, in ascending schedule
+        order (a stable argsort of ``dst_tile``).
+        """
+        tb = getattr(self, "_tile_blocks", None)
+        if tb is None:
+            order = np.argsort(self.dst_tile, kind="stable").astype(np.int32)
+            per_tile = np.bincount(self.dst_tile, minlength=self.num_dst_tiles)
+            tptr = np.zeros(self.num_dst_tiles + 1, np.int32)
+            np.cumsum(per_tile, out=tptr[1:])
+            tb = (tptr, order)
+            self._tile_blocks = tb
+        return tb
+
+    def tile_edges(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Valid slots in tile-walk order, for the plain versions (memoized).
+
+        Returns ``(edge_ptr, blk, slot)``: the valid slots of tile ``t`` are
+        ``(blk, slot)[edge_ptr[t]:edge_ptr[t + 1]]``, blocks in the order of
+        ``tile_blocks()`` and slots ascending within each block.
+        """
+        te = getattr(self, "_tile_edges", None)
+        if te is None:
+            tptr, order = self.tile_blocks()
+            cnt = self.count[order].astype(np.int64)
+            blk = np.repeat(order.astype(np.int64), cnt)
+            starts = np.concatenate(([0], np.cumsum(cnt)[:-1]))
+            slot = np.arange(int(cnt.sum()), dtype=np.int64) - np.repeat(starts, cnt)
+            block_edge_start = np.concatenate(([0], np.cumsum(cnt)))
+            te = (block_edge_start[tptr], blk, slot)
+            self._tile_edges = te
+        return te
+
+    def device_blocked(self, device) -> Dict[str, torch.Tensor]:
+        """Device copies of the arrays the NA kernels and their plain
+        versions read, uploaded once per device and cached on the instance.
+
+        Keys: ``tile_ptr``, ``tile_blocks``, ``band``, ``count`` (int32),
+        ``src_local``, ``dst_local`` (int16), ``weight`` (the
+        ``valid_weight()`` mask, float32), ``edge_blk``, ``edge_slot``,
+        ``edge_src``, ``edge_dst`` (int64, the flat scheduled stream) and
+        ``tile_blk``, ``tile_slot``, ``tile_src``, ``tile_dst_local``
+        (int64, the valid slots in tile-walk order).
+        """
+        device = torch.device(device)
+        cache = getattr(self, "_device", None)
+        if cache is None:
+            cache = {}
+            self._device = cache
+        key = str(device)
+        db = cache.get(key)
+        if db is None:
+            tptr, order = self.tile_blocks()
+            blk, slot = self.edge_map()
+            src, dst = self.flat_global_edges()
+            _, tblk, tslot = self.tile_edges()
+            tsrc = (self.src_local[tblk, tslot].astype(np.int64)
+                    + self.band[tblk].astype(np.int64) * self.src_band)
+
+            def up(a, dtype):
+                return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+
+            db = {
+                "tile_ptr": up(tptr, np.int32),
+                "tile_blocks": up(order, np.int32),
+                "band": up(self.band, np.int32),
+                "count": up(self.count, np.int32),
+                "src_local": up(self.src_local, np.int16),
+                "dst_local": up(self.dst_local, np.int16),
+                "weight": up(self.valid_weight(), np.float32),
+                "edge_blk": up(blk, np.int64),
+                "edge_slot": up(slot, np.int64),
+                "edge_src": up(src, np.int64),
+                "edge_dst": up(dst, np.int64),
+                "tile_blk": up(tblk, np.int64),
+                "tile_slot": up(tslot, np.int64),
+                "tile_src": up(tsrc, np.int64),
+                "tile_dst_local": up(self.dst_local[tblk, tslot], np.int64),
+            }
+            cache[key] = db
+        return db
+
+    def scatter_blocks(self, flat: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
+        """Scatter per-edge values (scheduled order) into the (nb, EB)
+        blocked layout on ``flat``'s device; padding slots get ``fill``."""
+        nb, eb = self.src_local.shape
+        db = self.device_blocked(flat.device)
+        out = torch.full((nb, eb), fill, dtype=torch.float32, device=flat.device)
+        out.index_put_((db["edge_blk"], db["edge_slot"]), flat.to(torch.float32))
+        return out
+
+
+def _first_touch_flags(dt: np.ndarray) -> np.ndarray:
+    """1 for the first block EVER targeting each dst tile, else 0."""
+    ft = np.zeros(dt.shape[0], np.int32)
+    if dt.shape[0]:
+        _, first_idx = np.unique(dt, return_index=True)
+        ft[first_idx] = 1
+    return ft
+
+
+def pack_edge_blocks(
+    src: np.ndarray,
+    dst: np.ndarray,
+    num_src: int,
+    num_dst: int,
+    weight: Optional[np.ndarray] = None,
+    edge_block: int = EDGE_BLOCK,
+    src_band: int = SRC_BAND,
+    dst_tile: int = DST_TILE,
+) -> PackedEdges:
+    """Cut the (already scheduled) edge stream into banded blocks.
+
+    A block closes when it reaches ``edge_block`` edges, its destination
+    tile changes, or its sources leave the current ``src_band``-aligned
+    band.  Vectorized run-boundary arithmetic, bitwise-equal to
+    ``pack_edge_blocks_reference`` and to the JAX package's packer.
+    """
+    src = np.asarray(src, np.int64)
+    dst = np.asarray(dst, np.int64)
+    n_edges = src.size
+    if n_edges == 0:
+        z2 = np.zeros((0, edge_block), np.int16)
+        return PackedEdges(
+            z2, z2.copy(), np.zeros((0, edge_block), np.float32),
+            np.zeros(0, np.int32), np.zeros(0, np.int32),
+            np.zeros(0, np.int32), np.zeros(0, np.int32), num_src, num_dst,
+            edge_block=edge_block, src_band=src_band, dst_tile_rows=dst_tile,
+            edge_block_id=np.zeros(0, np.int32), edge_slot=np.zeros(0, np.int32),
+        )
+
+    dtile = dst // dst_tile
+    band = src // src_band
+    # run = maximal stretch of constant (dst tile, band); block = run chunk
+    newrun = np.empty(n_edges, bool)
+    newrun[0] = True
+    np.logical_or(dtile[1:] != dtile[:-1], band[1:] != band[:-1], out=newrun[1:])
+    run_starts = np.flatnonzero(newrun)
+    run_len = np.diff(np.append(run_starts, n_edges))
+    blocks_per_run = -(-run_len // edge_block)
+    nb = int(blocks_per_run.sum())
+    run_of_blk = np.repeat(np.arange(run_starts.size), blocks_per_run)
+    blk_cum = np.concatenate(([0], np.cumsum(blocks_per_run)[:-1]))
+    chunk = np.arange(nb) - blk_cum[run_of_blk]
+    starts = run_starts[run_of_blk] + chunk * edge_block
+    cnt = np.diff(np.append(starts, n_edges)).astype(np.int32)
+    blk = np.repeat(np.arange(nb), cnt)
+    slot = np.arange(n_edges) - np.repeat(starts, cnt)
+
+    bandv = band[starts].astype(np.int32)
+    dt = dtile[starts].astype(np.int32)
+    ft = _first_touch_flags(dt)
+
+    sl = np.zeros((nb, edge_block), np.int16)
+    dl = np.zeros((nb, edge_block), np.int16)
+    sl[blk, slot] = src - band * src_band
+    dl[blk, slot] = dst - dtile * dst_tile
+    if weight is None:
+        ww = None
+    else:
+        ww = np.zeros((nb, edge_block), np.float32)
+        ww[blk, slot] = np.asarray(weight, np.float32)
+    return PackedEdges(
+        sl, dl, ww, bandv, dt, ft, cnt, num_src, num_dst,
+        edge_block=edge_block, src_band=src_band, dst_tile_rows=dst_tile,
+        edge_block_id=blk.astype(np.int32), edge_slot=slot.astype(np.int32),
+    )
+
+
+def pack_edge_blocks_reference(
+    src: np.ndarray,
+    dst: np.ndarray,
+    num_src: int,
+    num_dst: int,
+    weight: Optional[np.ndarray] = None,
+    edge_block: int = EDGE_BLOCK,
+    src_band: int = SRC_BAND,
+    dst_tile: int = DST_TILE,
+) -> PackedEdges:
+    """The Python-loop packer, kept as the equivalence oracle."""
+    src = np.asarray(src, np.int64)
+    dst = np.asarray(dst, np.int64)
+    w = np.ones(src.shape, np.float32) if weight is None else np.asarray(weight, np.float32)
+    n_edges = src.size
+    bounds = []
+    i = 0
+    while i < n_edges:
+        dtile = dst[i] // dst_tile
+        band = src[i] // src_band
+        j = i
+        while (
+            j < n_edges
+            and j - i < edge_block
+            and dst[j] // dst_tile == dtile
+            and src[j] // src_band == band
+        ):
+            j += 1
+        bounds.append((i, j, int(band), int(dtile)))
+        i = j
+
+    nb = len(bounds)
+    sl = np.zeros((nb, edge_block), np.int32)
+    dl = np.zeros((nb, edge_block), np.int32)
+    ww = np.zeros((nb, edge_block), np.float32)
+    bandv = np.zeros((nb,), np.int32)
+    dt = np.zeros((nb,), np.int32)
+    cnt = np.zeros((nb,), np.int32)
+    for k, (a, b, band, tile) in enumerate(bounds):
+        n = b - a
+        sl[k, :n] = src[a:b] - band * src_band
+        dl[k, :n] = dst[a:b] - tile * dst_tile
+        ww[k, :n] = w[a:b]
+        bandv[k] = band
+        dt[k] = tile
+        cnt[k] = n
+    return PackedEdges(
+        sl, dl, ww, bandv, dt, _first_touch_flags(dt), cnt, num_src, num_dst,
+        edge_block=edge_block, src_band=src_band, dst_tile_rows=dst_tile,
+    )
+
+
+# ----------------------------------------------------------- plain versions --
+def seg_sum_na_ref(
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    h: torch.Tensor,
+    num_dst: int,
+    weight: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Weighted gather + segment-sum over a flat edge list (the NA oracle).
+
+    ``out[d] = sum_{e: dst_e = d} w_e h[src_e]``, written as one dense
+    one-hot product: meant for test-sized inputs.
+    """
+    src = torch.as_tensor(src, device=h.device).long()
+    dst = torch.as_tensor(dst, device=h.device).long()
+    msg = h[src]
+    if weight is not None:
+        msg = msg * torch.as_tensor(weight, device=h.device).to(h.dtype)[:, None]
+    onehot = (torch.arange(num_dst, device=h.device)[:, None] == dst[None, :]).to(h.dtype)
+    return onehot @ msg
+
+
+def seg_sum_plain(packed: PackedEdges, h: torch.Tensor,
+                  weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of K1: the tile-owner walk without a kernel.
+
+    For each destination tile, the valid slots of its blocks (in schedule
+    order) are gathered and summed into the tile's 128 rows by one one-hot
+    product.  Tiles no block touches stay zero.  Returns ``(num_dst, D)``.
+    """
+    db = packed.device_blocked(h.device)
+    w = db["weight"] if weights is None else weights
+    td = packed.dst_tile_rows
+    edge_ptr, _, _ = packed.tile_edges()
+    w_e = w[db["tile_blk"], db["tile_slot"]].to(h.dtype)
+    msg_src, dst_local = db["tile_src"], db["tile_dst_local"]
+    rows = torch.arange(td, device=h.device)
+    out = h.new_zeros((packed.num_dst_tiles * td, h.shape[1]))
+    for t in range(packed.num_dst_tiles):
+        a, b = int(edge_ptr[t]), int(edge_ptr[t + 1])
+        if a == b:
+            continue
+        onehot = (rows[:, None] == dst_local[None, a:b]).to(h.dtype)
+        out[t * td:(t + 1) * td] = onehot @ (h[msg_src[a:b]] * w_e[a:b, None])
+    return out[: packed.num_dst]
+
+
+# ------------------------------------------------------------------ kernel --
+def _check_cuda_operands(packed: PackedEdges, h: torch.Tensor,
+                         w: torch.Tensor) -> None:
+    if packed.edge_block != EDGE_BLOCK or packed.dst_tile_rows != DST_TILE:
+        raise ValueError(
+            f"the CUDA NA kernels take {EDGE_BLOCK}-slot blocks and "
+            f"{DST_TILE}-row tiles, got {packed.edge_block}/{packed.dst_tile_rows}")
+    if h.dtype != torch.float32 or w.dtype != torch.float32:
+        raise TypeError(f"seg_sum_na kernel takes float32, got {h.dtype}/{w.dtype}")
+    if h.dim() != 2 or h.shape[0] < packed.num_src:
+        raise ValueError(
+            f"h must be (>= {packed.num_src}, D), got {tuple(h.shape)}")
+    if w.shape != packed.src_local.shape:
+        raise ValueError(
+            f"weights must be {packed.src_local.shape}, got {tuple(w.shape)}")
+    if w.device != h.device:
+        raise ValueError("h and weights must lie on one device")
+    if not (h.is_contiguous() and w.is_contiguous()):
+        raise ValueError("seg_sum_na kernel takes contiguous tensors")
+
+
+def seg_sum_cuda(packed: PackedEdges, h: torch.Tensor,
+                 weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch K1 (``na_seg_sum_f32``) on ``h``'s CUDA device; ``(num_dst, D)``."""
+    db = packed.device_blocked(h.device)
+    w = db["weight"] if weights is None else weights
+    _check_cuda_operands(packed, h, w)
+    d = int(h.shape[1])
+    out = torch.empty((packed.num_dst_tiles * packed.dst_tile_rows, d),
+                      dtype=torch.float32, device=h.device)
+    if d == 0:
+        return out[: packed.num_dst]
+    lib = load_library("na_kernels")
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        rc = lib.na_seg_sum_f32(
+            ptr(db["tile_ptr"]), ptr(db["tile_blocks"]), ptr(db["band"]),
+            ptr(db["count"]), ptr(db["src_local"]), ptr(db["dst_local"]),
+            ptr(w), ptr(h), ptr(out),
+            packed.num_dst_tiles, d, packed.src_band, ctypes.c_void_p(stream))
+    check(rc, "na_seg_sum_f32")
+    seg_sum_na.launches += 1
+    return out[: packed.num_dst]
+
+
+def seg_sum_na(
+    packed: PackedEdges,
+    h: torch.Tensor,
+    weights: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Weighted banded NA aggregation; returns ``(num_dst, D)``.
+
+    ``weights`` optionally overrides the packing's weights with an
+    ``(nb, EB)`` blocked tensor on ``h``'s device (the attention path feeds
+    alpha this way).  Only the ``count[b]`` valid slots of a block are read:
+    padding slots carry weight 0 in every packing and blocked weight the
+    reference builds, and here they are skipped.  A CUDA ``h`` launches
+    kernel K1 (and counts the launch in ``seg_sum_na.launches``); a CPU
+    ``h`` runs ``seg_sum_plain``.
+    """
+    if h.device.type == "cuda":
+        return seg_sum_cuda(packed, h, weights)
+    if h.device.type != "cpu":
+        raise ValueError(f"seg_sum_na runs on cuda or cpu, got {h.device}")
+    return seg_sum_plain(packed, h, weights)
+
+
+seg_sum_na.launches = 0

@@ -1,0 +1,198 @@
+"""FrontendPipeline: SGB -> Graph Restructurer -> edge-block packing.
+
+1. **SGB** — cache-aware planning (the CTT is pre-seeded with every
+   semantic graph already materialized for this topology) and execution on
+   the numpy sorted-merge join.
+2. **Graph Restructurer** — decouple/recouple once per semantic graph per
+   layout knob; permutations are cached and shared by every model.
+3. **Packing** — banded ``PackedEdges`` blocks for the NA kernels, built
+   with ``pack=True`` or on the first ``banded_batches()`` request.
+
+Everything is keyed by ``HetGraph.fingerprint()`` in a
+``SemanticGraphCache``.  Host numpy; every product is bitwise-equal to the
+JAX package's ``repro.pipeline`` on the same graph.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.core.restructure import RestructuredGraph, restructure
+from repro_torch.core.sgb import SGBResult, execute_plan, make_plan
+from repro_torch.hetero.graph import HetGraph, Relation
+from repro_torch.pipeline.cache import CacheStats, SemanticGraphCache
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    """Knobs for one frontend engine; hashable so configs can key caches.
+
+    ``renumbered`` selects the banded (renumbered-vertex) layout for the
+    ``PackedEdges`` blocks only; model-facing tensors keep global ids.
+    ``backend`` is the SGB executor: ``"host"`` (``"device"``, the SpGEMM
+    kernel, is not ported yet: ROADMAP item M10).
+    """
+
+    planner: str = "ctt"  # naive | ctt | ctt_cache | ctt_dp
+    backend: str = "host"
+    restructure: bool = True
+    degree_order: bool = True
+    affinity: str = "barycenter"
+    renumbered: bool = True
+    pack: bool = False
+
+    def __post_init__(self):
+        if self.pack and not self.restructure:
+            raise ValueError(
+                "pack=True requires restructure=True (PackedEdges blocks "
+                "are built from the restructured schedule)")
+
+
+@dataclasses.dataclass
+class FrontendResult:
+    """Everything the HGNN models need, built once."""
+
+    targets: List[str]
+    config: PipelineConfig
+    semantic: Dict[str, Relation]  # target metapath -> semantic graph
+    restructured: Dict[str, RestructuredGraph]
+    packed: Dict[str, object]  # target -> PackedEdges (when config.pack)
+    sgb: Optional[SGBResult]  # None when every target came from cache
+    timings: Dict[str, float]  # stage wall seconds
+    cache_stats: CacheStats  # hits/misses attributable to this run
+    _banded: Dict[str, list] = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def cold(self) -> bool:
+        """Whether this run executed SGB steps."""
+        return self.sgb is not None and bool(self.sgb.per_step)
+
+    def banded_batches(self, device) -> list:
+        """``BandedBatch`` list on ``device`` for the banded NA executor —
+        built once per device, shared by every model.
+
+        Uses the run's cached renumbered ``PackedEdges`` when the config
+        packed them; otherwise packs on demand, once per semantic graph,
+        and keeps the packing on this result.  Edge-type ids follow
+        ``sorted(targets)``.
+        """
+        key = str(torch.device(device))
+        if key not in self._banded:
+            if not self.config.restructure:
+                raise ValueError(
+                    "banded batches need restructure=True (the banded "
+                    "layout is the restructurer's renumbered schedule)")
+            from repro_torch.core.hgnn.models import BandedBatch
+
+            use_cached = self.config.renumbered
+            out = []
+            for i, mp in enumerate(sorted(self.targets)):
+                rg = self.restructured[mp]
+                pk = self.packed.get(mp) if use_cached else None
+                if pk is None:
+                    pk = rg.packed(renumbered=True)
+                    if use_cached:
+                        self.packed[mp] = pk
+                out.append(BandedBatch.from_restructured(mp, rg, pk, i, device))
+            self._banded[key] = out
+        return self._banded[key]
+
+
+class FrontendPipeline:
+    """Cached SGB -> Restructure -> packing engine over one cache."""
+
+    def __init__(self, config: Optional[PipelineConfig] = None,
+                 cache: Optional[SemanticGraphCache] = None):
+        self.config = config or PipelineConfig()
+        self.cache = cache if cache is not None else SemanticGraphCache()
+
+    def _sgb(self, graph: HetGraph, targets: Sequence[str], fp: str
+             ) -> Tuple[Dict[str, Relation], Optional[SGBResult]]:
+        cfg = self.config
+        semantic: Dict[str, Relation] = {}
+        missing: List[str] = []
+        for t in targets:
+            if len(t) == 2 and t in graph.relations:
+                semantic[t] = graph.relations[t]
+                continue
+            hit = self.cache.get_relation(fp, t)
+            if hit is not None:
+                semantic[t] = hit
+            else:
+                missing.append(t)
+        if not missing:
+            return semantic, None
+
+        preloaded = self.cache.relations_for(fp)
+        counts = {name: rel.num_edges for name, rel in preloaded.items()}
+        plan = make_plan(graph, missing, planner=cfg.planner,
+                         preloaded=sorted(preloaded), edge_counts=counts)
+        res = execute_plan(graph, plan, backend=cfg.backend, preloaded=preloaded)
+        for name, rel in res.graphs.items():
+            if len(name) > 2:  # one-hop relations live on the HetGraph
+                self.cache.put_relation(fp, name, rel)
+        for t in missing:
+            semantic[t] = res.graphs[t]
+        return semantic, res
+
+    def _restructure(self, semantic: Dict[str, Relation], fp: str
+                     ) -> Dict[str, RestructuredGraph]:
+        cfg = self.config
+        out: Dict[str, RestructuredGraph] = {}
+        for mp, rel in semantic.items():
+            rg = self.cache.get_restructured(fp, mp, cfg.degree_order, cfg.affinity)
+            if rg is None:
+                rg = restructure(rel, degree_order=cfg.degree_order,
+                                 affinity=cfg.affinity)
+                self.cache.put_restructured(fp, mp, cfg.degree_order, cfg.affinity, rg)
+            out[mp] = rg
+        return out
+
+    def _pack(self, restructured: Dict[str, RestructuredGraph], fp: str
+              ) -> Dict[str, object]:
+        cfg = self.config
+        out: Dict[str, object] = {}
+        for mp, rg in restructured.items():
+            pk = self.cache.get_packed(
+                fp, mp, cfg.degree_order, cfg.affinity, cfg.renumbered)
+            if pk is None:
+                pk = rg.packed(renumbered=cfg.renumbered)
+                self.cache.put_packed(
+                    fp, mp, cfg.degree_order, cfg.affinity, cfg.renumbered, pk)
+            out[mp] = pk
+        return out
+
+    def run(self, graph: HetGraph, targets: Sequence[str]) -> FrontendResult:
+        """Full frontend pass for ``targets``; cache-served where possible."""
+        for t in targets:
+            if not graph.metapath_is_valid(t):
+                raise ValueError(
+                    f"metapath {t!r} invalid for dataset {graph.name}")
+        before = self.cache.stats.snapshot()
+        t0 = time.perf_counter()
+        fp = graph.fingerprint()
+        semantic, sgb_res = self._sgb(graph, targets, fp)
+        t1 = time.perf_counter()
+        restructured = (
+            self._restructure(semantic, fp) if self.config.restructure else {})
+        t2 = time.perf_counter()
+        packed = self._pack(restructured, fp) if self.config.pack else {}
+        t3 = time.perf_counter()
+        return FrontendResult(
+            targets=list(targets),
+            config=self.config,
+            semantic=semantic,
+            restructured=restructured,
+            packed=packed,
+            sgb=sgb_res,
+            timings={
+                "sgb": t1 - t0,
+                "restructure": t2 - t1,
+                "pack": t3 - t2,
+                "total": t3 - t0,
+            },
+            cache_stats=self.cache.stats.delta(before),
+        )

@@ -1,0 +1,62 @@
+"""The port stands alone: importing every ``repro_torch`` module loads
+neither JAX nor the JAX package, and a CUDA session refuses to start
+without a CUDA device instead of running on the CPU."""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+import repro_torch
+names = ["repro_torch"]
+for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(info.name)
+    names.append(info.name)
+bad = sorted(k for k in sys.modules
+             if k in ("jax", "repro") or k.startswith(("jax.", "repro.")))
+print(json.dumps({"imported": names, "bad": bad}))
+"""
+
+
+def test_import_closure_is_free_of_jax_and_repro():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True,
+                         text=True, env=env, timeout=100, check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bad"] == []
+    for mod in ("repro_torch.api.session", "repro_torch.api.spec",
+                "repro_torch.core.hgnn.models", "repro_torch.core.restructure",
+                "repro_torch.core.sgb", "repro_torch.hetero.datasets",
+                "repro_torch.kernels.seg_sum", "repro_torch.kernels.edge_softmax",
+                "repro_torch.kernels.ops", "repro_torch.kernels.cuda_build",
+                "repro_torch.pipeline.frontend"):
+        assert mod in res["imported"]
+
+
+def test_cuda_session_raises_without_cuda(monkeypatch):
+    from repro_torch.api import ExecutorSpec, Session
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Session(ExecutorSpec(na_executor="banded"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Session()  # the default device is "cuda"
+    Session(ExecutorSpec(na_executor="banded", device="cpu"))  # explicit CPU runs
+
+
+def test_cuda_session_raises_here_when_no_card():
+    """On a machine without a card the default spec refuses to start."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from repro_torch.api import ExecutorSpec, Session
+
+    with pytest.raises(RuntimeError):
+        Session(ExecutorSpec(na_executor="banded"))
