@@ -10,22 +10,36 @@ Phases, in order; any failure raises and the script exits non-zero:
    from ``src/repro_torch/csrc`` with nvcc (one process per source, all
    started together), with the build time.
 2. Kernels: on the real ACM packing of semantic graph PAP at scale 1.0 and
-   D = 64, each kernel (K1 with unit and with random blocked weights, K2
+   D = 64, each NA kernel (K1 with unit and with random blocked weights, K2
    with random logits) against its plain PyTorch version on the card, two
    kernel runs compared bit for bit, and CUDA-event medians of the kernel,
    the plain version and one library yardstick (``index_add_`` for K1,
    ``scatter_reduce(amax)`` + ``index_add_`` for K2; the port never calls
    them).
-3. Model: the port's main path — ``Session(ExecutorSpec(na_executor=
-   "banded")).compile(make_dataset("ACM", 1.0), ["APA", "PAP", "PSP"], cfg)``
-   at the full width of ``HGNNConfig`` (hidden 64, 3 layers, SF attention
-   64) — serves three forwards each for rgcn, rgat and shgn with the launch
-   counters set to 0 just before and read just after.  Logits must be
-   finite, repeat bit for bit across forwards, match the same port run on
-   the CPU (the plain versions, same seed) within 1e-4, and K1 must launch
-   9 times per forward (K2 9 times per rgat or shgn forward).  One rgat
-   forward is then profiled with ``torch.profiler``.
-4. Report: one JSON line ``{"kernels": [...]}``, the card line, and last
+3. Model: the banded inference path — ``Session(ExecutorSpec(na_executor=
+   "banded")).compile(make_dataset("ACM", seed=0, scale=1.0), ["APA",
+   "PAP", "PSP"], cfg)`` at the full width of ``HGNNConfig`` (hidden 64,
+   3 layers, SF attention 64) — serves three forwards each for rgcn, rgat
+   and shgn with the launch counters set to 0 just before and read just
+   after.  Logits must be finite, repeat bit for bit across forwards, match
+   the same port run on the CPU (the plain versions, same seed) within
+   1e-4, and K1 must launch 9 times per forward (K2 9 times per rgat or
+   shgn forward).  One rgat forward is then profiled with ``torch.profiler``.
+4. SGB: ACM, IMDB and DBLP at scale 1.0 under the ``ctt`` planner.  The
+   host join and the device composer (K3) must give bitwise-equal products
+   and equal per-step costs, K3 must launch once per plan step, and on
+   every step K3 must equal its plain version exactly and repeat bit for
+   bit.  Per step: the pruning counters and CUDA-event medians of K3, the
+   plain version and the library yardstick (``torch.matmul`` of the padded
+   float32 operands, then ``> 0``; TF32 off), beside the bound.
+5. Device-SGB session: the path ``Session(ExecutorSpec(sgb_backend=
+   "device")).compile(DBLP at scale 1.0, ["APA", "APTPA", "APVPA"], cfg)``
+   at full width, target type A, three forwards each of rgcn, rgat and
+   shgn, counters set to 0 just before the compile and read after the last
+   forward.  K3 must launch once per plan step, K1 and K2 9 times per
+   forward; logits must be finite, repeat bit for bit and equal a host-SGB
+   session's on the same card bit for bit.
+6. Report: one JSON line ``{"kernels": [...]}``, the card line, and last
    the contract line ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card; exits non-zero without one, or without the repository
@@ -54,6 +68,12 @@ K2_RTOL = 1e-5  # s relative to max(1, |s|); m is a max, expected exact
 LOGIT_ATOL = 1e-4  # reference suite's logits tolerance (test_gfp_banded.py)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+INT8_OP_PER_S = 1979e12  # H100 SXM int8 tensor cores, dense (exact for 0/1)
+SGB_WORKLOADS = {  # dataset -> SGB targets, composed at scale 1.0
+    "ACM": ["APA", "PAP", "PSP"],
+    "IMDB": ["MAM", "AMA", "MKM"],
+    "DBLP": ["APA", "APTPA", "APVPA"],
+}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -294,6 +314,160 @@ def prof_forward(compiled, params, feats) -> None:
         print(f"  {dev_us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
 
 
+def _edges_equal(a, b) -> bool:
+    return ((a.num_src, a.num_dst) == (b.num_src, b.num_dst)
+            and np.array_equal(a.src, b.src) and np.array_equal(a.dst, b.dst))
+
+
+def sgb_step(dev, step, left, right):
+    """K3 on one plan step's operands: exactness, repeatability and times."""
+    from repro_torch.kernels.spgemm_bsr import (TILE, pair_stats, spgemm_bsr,
+                                                spgemm_plain, tile_occupancy)
+
+    a, b = left.dense_padded(dev, TILE), right.dense_padded(dev, TILE)
+    ao, bo = tile_occupancy(a), tile_occupancy(b)
+    mt, kt, nt = a.shape[0] // TILE, a.shape[1] // TILE, b.shape[1] // TILE
+    st = pair_stats(ao, bo, mt, kt, nt)
+    out, occ = spgemm_bsr(a, b, ao, bo)
+    again, occ2 = spgemm_bsr(a, b, ao, bo)
+    plain, plain_occ = spgemm_plain(a, b, ao, bo)
+    a32, b32 = a.to(torch.float32), b.to(torch.float32)
+    lib = (torch.matmul(a32, b32) > 0).to(torch.uint8)
+    torch.cuda.synchronize()
+    err = (out.to(torch.int32) - plain.to(torch.int32)).abs().max().item()
+    require(torch.equal(out, plain) and torch.equal(occ, plain_occ),
+            f"K3 differs from its plain version on {step!r}")
+    require(torch.equal(out, again) and torch.equal(occ, occ2),
+            f"K3 not bitwise repeatable on {step!r}")
+    require(torch.equal(lib, plain), f"library yardstick differs on {step!r}")
+    reps = 5 if st["tile_pairs_live"] > 20000 else 20
+    ms = median_ms(lambda: spgemm_bsr(a, b, ao, bo), reps=reps)
+    plain_ms = median_ms(lambda: spgemm_plain(a, b, ao, bo), reps=reps)
+    lib_ms = median_ms(lambda: torch.matmul(a32, b32) > 0, reps=reps)
+    ops = 2.0 * st["macs_live"]
+    nbytes = (int(ao.sum()) + int(bo.sum())) * TILE * TILE + out.numel() \
+        + 4 * (ao.numel() + bo.numel() + occ.numel())
+    t_ops, t_bytes = ops / INT8_OP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {
+        "step": repr(step), "shape": f"{tuple(a.shape)}x{tuple(b.shape)}",
+        "pairs_live": st["tile_pairs_live"], "pairs_total": st["tile_pairs_total"],
+        "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "err": err,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "ops": ops, "bytes": nbytes,
+        "fp32_cuda_core_ms": ops / FP32_FLOP_PER_S * 1e3,
+    }
+
+
+def phase_sgb(make_dataset, dev):
+    """Phase 4: host against device SGB (K3) at scale 1.0, and K3 per step."""
+    from repro_torch.core import sgb
+    from repro_torch.kernels.spgemm_bsr import spgemm_bsr
+
+    rows = {}
+    for name, targets in SGB_WORKLOADS.items():
+        graph = make_dataset(name, seed=SEED, scale=1.0)
+        plan = sgb.make_plan(graph, targets, planner="ctt")
+        host = sgb.execute_plan(graph, plan)
+        spgemm_bsr.launches = 0
+        t0 = time.perf_counter()
+        device = sgb.execute_plan(graph, plan, backend="device", device=dev)
+        dev_s = time.perf_counter() - t0
+        require(spgemm_bsr.launches == len(plan.steps),
+                f"{name}: K3 launched {spgemm_bsr.launches} times for "
+                f"{len(plan.steps)} steps")
+        require(device.cost == host.cost, f"{name}: SGB costs differ")
+        require([c for _, c in device.per_step] == [c for _, c in host.per_step],
+                f"{name}: per-step SGB costs differ")
+        for mp in {st.out for st in plan.steps} | set(targets):
+            require(_edges_equal(device.graphs[mp], host.graphs[mp]),
+                    f"{name}: device and host SGB differ on {mp}")
+        ds = device.device_stats
+        print(f"sgb {name}: {len(plan.steps)} steps, products bitwise equal to "
+              f"the host join, MACs {device.cost.macs}; device_stats {ds} "
+              f"(pruned {1 - ds['tile_pairs_live'] / ds['tile_pairs_total']:.4f}); "
+              f"host {host.wall_seconds * 1e3:.1f} ms, device {dev_s * 1e3:.1f} ms")
+        rows[name] = []
+        for st, cost in device.per_step:
+            r = sgb_step(dev, st, host.graphs[st.left], host.graphs[st.right])
+            r["edges_out"] = cost.bytes_written // 8
+            rows[name].append(r)
+            print(f"  {r['step']} {r['shape']}: live pairs {r['pairs_live']}/"
+                  f"{r['pairs_total']} (pruned {1 - r['pairs_live'] / r['pairs_total']:.4f}), "
+                  f"out edges {r['edges_out']}; K3 {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms; "
+                  f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}; fp32 CUDA cores "
+                  f"{r['fp32_cuda_core_ms']:.4f} ms); |K3 - plain| {r['err']}")
+    return rows
+
+
+def phase_device_session(make_dataset, dev):
+    """Phase 5: the device-SGB session on full-width DBLP, held bitwise to
+    a host-SGB session on the same card."""
+    from repro_torch.api import ExecutorSpec, Session, device_features
+    from repro_torch.core.hgnn import HGNNConfig
+    from repro_torch.kernels.edge_softmax import edge_softmax_stats
+    from repro_torch.kernels.seg_sum import seg_sum_na
+    from repro_torch.kernels.spgemm_bsr import spgemm_bsr
+
+    graph = make_dataset("DBLP", seed=SEED, scale=1.0)
+    targets = SGB_WORKLOADS["DBLP"]
+    feats = device_features(graph, dev)
+    cfgs = {m: HGNNConfig(model=m, hidden=64, num_layers=3, sf_att_dim=64,
+                          target_type="A") for m in MODELS}
+    sess = Session(ExecutorSpec(sgb_backend="device", device=str(dev)))
+    torch.cuda.synchronize()
+
+    seg_sum_na.launches = edge_softmax_stats.launches = spgemm_bsr.launches = 0
+    t0 = time.perf_counter()
+    compiled = {m: sess.compile(graph, targets, cfgs[m]) for m in MODELS}
+    compile_s = time.perf_counter() - t0
+    params = {m: compiled[m].init(SEED) for m in MODELS}
+    logits, latency = {}, {}
+    for m in MODELS:
+        outs, lat = [], []
+        for _ in range(FORWARDS):
+            t0 = time.perf_counter()
+            outs.append(compiled[m].forward(params[m], feats))
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        logits[m], latency[m] = outs, lat
+    launches = {"spgemm_bsr": spgemm_bsr.launches, "seg_sum_na": seg_sum_na.launches,
+                "edge_softmax_stats": edge_softmax_stats.launches}
+    res = compiled["rgcn"].frontend
+    steps = len(res.sgb.per_step)
+    print(f"device session DBLP: launches over compile + {len(MODELS)} models x "
+          f"{FORWARDS} forwards: {launches}; compile {compile_s * 1e3:.1f} ms; "
+          "cold frontend " + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in res.timings.items())
+          + "; semantic graph edges "
+          + str({mp: rel.num_edges for mp, rel in res.semantic.items()}))
+    require(res.sgb.backend == "device", "the device session ran host SGB")
+    require(launches["spgemm_bsr"] == steps, f"K3 launched {launches['spgemm_bsr']} "
+            f"times for {steps} plan steps")
+    require(launches["seg_sum_na"] == NA_PER_FORWARD * FORWARDS * len(MODELS),
+            f"K1 launched {launches['seg_sum_na']} times")
+    require(launches["edge_softmax_stats"] == NA_PER_FORWARD * FORWARDS * 2,
+            f"K2 launched {launches['edge_softmax_stats']} times")
+
+    host = Session(ExecutorSpec(device=str(dev)))
+    for m in MODELS:
+        first = logits[m][0]
+        require(first.shape == (graph.num_vertices["A"], 3), f"{m}: logits shape {first.shape}")
+        require(bool(torch.isfinite(first).all()), f"{m}: non-finite logits")
+        require(all(torch.equal(first, o) for o in logits[m][1:]),
+                f"{m}: logits differ between forwards")
+        c_host = host.compile(graph, targets, cfgs[m])
+        same = torch.equal(first, c_host.forward(c_host.init(SEED), feats))
+        print(f"device session {m}: logits {tuple(first.shape)}, max|logit| "
+              f"{first.abs().max().item():.4f}, bitwise equal to the host-SGB "
+              f"session: {same}; forward ms {['%.3f' % x for x in latency[m]]}")
+        require(same, f"{m}: device-SGB logits differ from the host-SGB session's")
+    hres = host.frontend(graph, targets)
+    print("host session DBLP: cold frontend " + ", ".join(
+        f"{k} {v * 1e3:.1f} ms" for k, v in hres.timings.items()))
+    return launches
+
+
 def main() -> int:
     """Run every phase; the last line of stdout is the contract line."""
     if not torch.cuda.is_available():
@@ -327,8 +501,30 @@ def main() -> int:
     launches = phase_model(graph)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        require(k["launches"] > 0, f"{k['name']} never launched on the banded path")
+    sgb_rows = phase_sgb(make_dataset, dev)
+    session_launches = phase_device_session(make_dataset, dev)
+    for k in kernels:
+        k["launches_device_sgb_path"] = session_launches[k["name"]]
+    dblp = sgb_rows["DBLP"]  # the plan the device-SGB session runs
+    t_ops = sum(r["ops"] for r in dblp) / INT8_OP_PER_S * 1e3
+    t_bytes = sum(r["bytes"] for r in dblp) / HBM_BYTES_PER_S * 1e3
+    kernels.append({
+        "name": "spgemm_bsr", "route": "cuda",
+        "source": "src/repro_torch/csrc/spgemm_kernels.cu",
+        "replaces": "src/repro/kernels/spgemm_bsr.py:28",
+        "launches": session_launches["spgemm_bsr"],
+        "max_abs_err": max(r["err"] for rows in sgb_rows.values() for r in rows),
+        "ms": sum(r["ms"] for r in dblp), "plain_ms": sum(r["plain_ms"] for r in dblp),
+        "bound_ms": sum(r["bound_ms"] for r in dblp),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": sum(r["library_ms"] for r in dblp),
+        "bytes": sum(r["bytes"] for r in dblp),
+        "shape": f"DBLP scale 1.0 ctt plan, {len(dblp)} steps (times summed)",
+    })
+    require(kernels[-1]["launches"] > 0, "spgemm_bsr never launched on the device-SGB path")
+    for k in kernels:
         k["kernel_ms"] = k["ms"]
-        require(k["launches"] > 0, f"{k['name']} never launched on the main path")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,9 @@ configured from one ``ExecutorSpec``::
     logits = compiled.forward(params, device_features(graph, "cuda"))
 
 ``compile`` runs the frontend (SGB -> Restructure -> packing, cache-served
-where possible), builds the banded batches on the spec's device and binds
-them to the model in a ``CompiledHGNN``.  Frontend products and compiled
+where possible; with ``sgb_backend="device"`` the SGB steps run on the
+spec's device, on kernel K3 for a CUDA device), builds the banded batches
+on the spec's device and binds them to the model in a ``CompiledHGNN``.  Frontend products and compiled
 models are memoized on the session, so several models over one graph pack
 each semantic graph once.
 """

@@ -2,10 +2,10 @@
 
 The JAX package's spec names a ``kernel_backend`` (``interpret`` |
 ``pallas``) that has no meaning in PyTorch.  Here ``device`` takes its
-place: on ``"cuda"`` the NA path launches the hand-written CUDA kernels, on
-``"cpu"`` it runs their plain versions.  The other validation invariants
-stay: ``banded`` implies packing and requires ``restructure``, and unknown
-values raise ``ValueError``.  Values the port does not run yet raise
+place: on ``"cuda"`` the NA path (and the device SGB composer) launches
+the hand-written CUDA kernels, on ``"cpu"`` it runs their plain versions.
+The other validation invariants stay: ``banded`` implies packing and
+requires ``restructure``, and unknown values raise ``ValueError``.  Values the port does not run yet raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
@@ -29,7 +29,9 @@ class ExecutorSpec:
     """How to plan, build and execute — everything but the workload.
 
     ``device`` is where the model runs (``"cuda"``, ``"cuda:N"`` or
-    ``"cpu"``); ``pack=None`` resolves to what ``na_executor`` needs.
+    ``"cpu"``), and with ``sgb_backend="device"`` also where the semantic
+    graphs are composed; ``pack=None`` resolves to what ``na_executor``
+    needs.
 
     Example::
 
@@ -80,10 +82,6 @@ class ExecutorSpec:
             raise NotImplementedError(
                 "na_executor='jnp' (the segment-sum executor) is not ported "
                 "yet: ROADMAP item M2")
-        if self.sgb_backend == "device":
-            raise NotImplementedError(
-                "sgb_backend='device' needs the block-sparse SpGEMM kernel "
-                "(K3), not ported yet: ROADMAP item M10")
         if self.shard != "none":
             raise NotImplementedError(
                 f"shard={self.shard!r} (multi-device execution) is not "
@@ -96,6 +94,7 @@ class ExecutorSpec:
         return PipelineConfig(
             planner=self.planner,
             backend=self.sgb_backend,
+            device=self.device,
             restructure=self.restructure,
             degree_order=self.degree_order,
             affinity=self.affinity,

@@ -9,9 +9,11 @@ Planners (copies of the JAX package's ``repro.core.sgb``):
 * ``plan_ctt_dp`` — optimal segmentation by dynamic programming over the
   materialized set, minimizing predicted join work.
 
-``execute_plan`` runs a plan with the numpy sorted-merge join and accounts
-exact MACs and bytes.  The device composer (``sgb_backend="device"``, the
-block-sparse SpGEMM kernel K3) is not ported yet: ROADMAP item M10.
+``execute_plan`` runs a plan and accounts exact MACs and bytes, either with
+the numpy sorted-merge join (``backend="host"``) or on a device with the
+block-sparse SpGEMM (``backend="device"``, :class:`DeviceComposer`: kernel
+K3 on a CUDA device, its plain version on the CPU).  Both give
+edge-identical products and identical costs.
 """
 from __future__ import annotations
 
@@ -19,9 +21,13 @@ import dataclasses
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import torch
+
 from repro_torch.core.ctt import CallbackTrieTree
 from repro_torch.hetero.graph import (CompositionCost, HetGraph, Relation,
                                       compose_relations)
+from repro_torch.kernels import ops
+from repro_torch.kernels.spgemm_bsr import TILE, spgemm_macs, tile_occupancy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,25 +175,93 @@ class SGBResult:
     per_step: List[Tuple[PlanStep, CompositionCost]]
     wall_seconds: float
     backend: str = "host"
+    device_stats: Optional[Dict[str, int]] = None  # tile-pruning counters
+
+
+class DeviceComposer:
+    """PlanStep executor on the block-sparse SpGEMM (kernel K3).
+
+    Every relation lives on ``device`` as a tile-padded uint8 0/1 matrix
+    with its tile-occupancy bitmap for the whole plan: one-hop inputs are
+    densified there on first use (``Relation.dense_padded``), every product
+    stays padded with the bitmap K3 wrote for it, and step outputs become
+    edge lists once, in :meth:`extract`.  MACs use the join-pair formula
+    (colsum_A · rowsum_B over the middle type) and bytes the edge-list
+    traffic, so per-step costs equal the host join's.  Each step brings
+    its counters back as Python ints: two host syncs per step (the live
+    tile pairs, then the MAC and output-edge counts).
+    """
+
+    def __init__(
+        self,
+        graph: HetGraph,
+        device="cuda",
+        preloaded: Optional[Dict[str, Relation]] = None,
+    ):
+        self.graph = graph
+        self.device = torch.device(device)
+        self._preloaded = dict(preloaded or {})
+        # name -> (padded 0/1, occupancy, (rows, cols), edges)
+        self._mats: Dict[str, Tuple] = {}
+        self.stats: Dict[str, int] = {
+            "tile_pairs_total": 0, "tile_pairs_live": 0, "compositions": 0,
+        }
+
+    def _get(self, name: str):
+        if name not in self._mats:
+            rel = self._preloaded.get(name) or self.graph.relation(name)
+            padded = rel.dense_padded(self.device, TILE)
+            self._mats[name] = (padded, tile_occupancy(padded),
+                                (rel.num_src, rel.num_dst), rel.num_edges)
+        return self._mats[name]
+
+    def compose(self, step: PlanStep) -> CompositionCost:
+        """Run one step; its output replaces any earlier one of that name."""
+        a, ao, (m, k), left_edges = self._get(step.left)
+        b, bo, (k2, n), right_edges = self._get(step.right)
+        if k != k2:
+            raise ValueError(f"middle-type cardinality mismatch in {step!r}")
+        out, occ, st = ops.compose_boolean_padded(a, b, ao, bo)
+        self.stats["tile_pairs_total"] += st["tile_pairs_total"]
+        self.stats["tile_pairs_live"] += st["tile_pairs_live"]
+        self.stats["compositions"] += 1
+        macs, out_edges = torch.stack(
+            [spgemm_macs(a, b), torch.count_nonzero(out)]).tolist()
+        self._mats[step.out] = (out, occ, (m, n), out_edges)
+        # byte accounting matches Relation.nbytes (2 int32 per edge)
+        return CompositionCost(
+            macs=macs,
+            bytes_read=(left_edges + right_edges) * 2 * 4,
+            bytes_written=out_edges * 2 * 4,
+        )
+
+    def extract(self, name: str) -> Relation:
+        """Materialized metapath -> canonical edge-list relation."""
+        dense, _, (rows, cols), _ = self._mats[name]
+        return Relation.from_dense(name[0], name[-1], dense[:rows, :cols])
 
 
 def execute_plan(
     graph: HetGraph,
     plan: Plan,
     backend: str = "host",
+    device="cuda",
     preloaded: Optional[Dict[str, Relation]] = None,
 ) -> SGBResult:
-    """Run every composition step with the numpy join; count exact MACs/bytes.
+    """Run every composition step; count exact MACs/bytes.
 
-    ``preloaded`` supplies already-materialized semantic graphs (from the
-    pipeline cache) that a cache-aware plan may use as step inputs.
-    ``backend="device"`` (the SpGEMM kernel) is not ported yet.
+    ``backend="host"`` joins edge lists with the numpy sorted-merge join;
+    ``backend="device"`` runs each step on ``device`` with the block-sparse
+    SpGEMM (:class:`DeviceComposer`).  Both give edge-identical relations
+    and identical per-step costs.  ``preloaded`` supplies already
+    materialized semantic graphs (from the pipeline cache) that a
+    cache-aware plan may use as step inputs.
+
+    The naive plan repeats steps on purpose; a repeat overwrites its name
+    with an identical graph.  The device backend extracts the unique step
+    outputs in plan order.
     """
-    if backend == "device":
-        raise NotImplementedError(
-            "sgb_backend='device' needs the block-sparse SpGEMM kernel (K3), "
-            "not ported yet: ROADMAP item M10")
-    if backend != "host":
+    if backend not in ("host", "device"):
         raise ValueError(f"unknown backend {backend!r}")
     t0 = time.perf_counter()
     total = CompositionCost.zero()
@@ -195,6 +269,22 @@ def execute_plan(
     mats: Dict[str, Relation] = dict(graph.relations)
     if preloaded:
         mats.update(preloaded)
+    if backend == "device":
+        composer = DeviceComposer(graph, device=device, preloaded=preloaded)
+        for st in plan.steps:
+            cost = composer.compose(st)
+            total = total + cost
+            per_step.append((st, cost))
+        for out_name in dict.fromkeys(st.out for st in plan.steps):
+            mats[out_name] = composer.extract(out_name)
+        return SGBResult(
+            graphs=mats,
+            cost=total,
+            per_step=per_step,
+            wall_seconds=time.perf_counter() - t0,
+            backend="device",
+            device_stats=dict(composer.stats),
+        )
     for st in plan.steps:
         out, cost = compose_relations(mats[st.left], mats[st.right])
         mats[st.out] = out
@@ -228,3 +318,16 @@ def make_plan(
         return plan_ctt_dp(graph, targets, edge_counts=edge_counts,
                            preloaded=preloaded)
     raise ValueError(f"unknown planner {planner!r}")
+
+
+def build_semantic_graphs(
+    graph: HetGraph,
+    targets: Sequence[str],
+    planner: str = "ctt",
+    backend: str = "host",
+    device="cuda",
+) -> SGBResult:
+    """One-call SGB stage: plan + execute.  ``planner`` in {naive, ctt,
+    ctt_dp}; ``device`` is where ``backend="device"`` composes."""
+    plan = make_plan(graph, targets, planner=planner)
+    return execute_plan(graph, plan, backend=backend, device=device)

@@ -8,6 +8,8 @@ paper's SGB stage performs (join multiply-accumulates and bytes moved).
 
 Host-side numpy, bitwise-equal to the JAX package's ``repro.hetero.graph``
 (the port keeps its own copy so that it never imports that package).
+``Relation.dense_padded`` writes a relation straight into a tile-padded 0/1
+tensor on a device, the input form of the device SGB composer.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import hashlib
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 IDX = np.int32
 _IDX_BYTES = 4
@@ -122,6 +125,45 @@ class Relation:
     def in_degrees(self) -> np.ndarray:
         """In-degree of every destination vertex."""
         return np.bincount(self.dst, minlength=self.num_dst)
+
+    def dense(self, dtype=np.float32) -> np.ndarray:
+        """Dense 0/1 adjacency on the host — oracle use (small graphs)."""
+        a = np.zeros((self.num_src, self.num_dst), dtype=dtype)
+        a[self.src, self.dst] = 1
+        return a
+
+    def dense_padded(self, device, tile: int, dtype=torch.uint8) -> torch.Tensor:
+        """Tile-padded dense 0/1 adjacency written straight on ``device``.
+
+        The edges scatter into a zero ``(ceil(num_src/tile)*tile,
+        ceil(num_dst/tile)*tile)`` tensor with one ``index_put_``; no host
+        dense matrix is built.  The device SGB composer's input form.
+        """
+        rows = -(-self.num_src // tile) * tile
+        cols = -(-self.num_dst // tile) * tile
+        out = torch.zeros((rows, cols), dtype=dtype, device=device)
+        src = torch.from_numpy(self.src).to(device=device, dtype=torch.long)
+        dst = torch.from_numpy(self.dst).to(device=device, dtype=torch.long)
+        out.index_put_((src, dst), torch.ones((), dtype=dtype, device=device))
+        return out
+
+    @staticmethod
+    def from_dense(src_type: str, dst_type: str, dense) -> "Relation":
+        """Inverse of :meth:`dense`: 0/1 adjacency (numpy array or torch
+        tensor on any device) -> canonical relation.
+
+        ``np.nonzero`` and ``torch.nonzero`` both walk row-major, so the
+        edge list comes out already in the canonical (src, dst) order.
+        """
+        if isinstance(dense, torch.Tensor):
+            nz = torch.nonzero(dense > 0).to(torch.int32).cpu().numpy()
+            src, dst = nz[:, 0], nz[:, 1]
+        else:
+            src, dst = np.nonzero(np.asarray(dense) > 0)
+        return Relation(
+            src_type, dst_type, int(dense.shape[0]), int(dense.shape[1]),
+            np.ascontiguousarray(src, dtype=IDX), np.ascontiguousarray(dst, dtype=IDX),
+        )
 
 
 def compose_relations(

@@ -5,7 +5,10 @@
                      also the packed edge-block format.
 * ``edge_softmax`` — K2, per-destination online softmax statistics
                      (replaces ``repro/kernels/edge_softmax.py::_stats_kernel``).
-* ``ops``          — the NA operations built on the two.
+* ``spgemm_bsr``   — K3, block-sparse boolean SpGEMM over tile-padded 0/1
+                     matrices, the device SGB composition (replaces
+                     ``repro/kernels/spgemm_bsr.py::_spgemm_kernel``).
+* ``ops``          — the NA operations and SGB compositions built on them.
 * ``cuda_build``   — nvcc build and ctypes binding of ``csrc/*.cu``.
 
 A CUDA tensor launches the kernel; a CPU tensor runs the plain version.

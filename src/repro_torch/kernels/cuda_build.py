@@ -43,6 +43,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         # num_tiles, stream
         "na_softmax_stats_f32": [_P] * 7 + [_I, _P],
     },
+    "spgemm_kernels": {
+        # a, b, a_occ, b_occ, out, out_occ, mt, nt, kt, stream
+        "spgemm_bool_u8": [_P] * 6 + [_I, _I, _I, _P],
+    },
 }
 
 

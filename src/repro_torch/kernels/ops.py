@@ -1,12 +1,12 @@
-"""NA operations over packed edge blocks: the HGNN forward half of the
-JAX package's ``repro.kernels.ops``.
+"""NA operations over packed edge blocks and the SGB composition: the
+HGNN forward half of the JAX package's ``repro.kernels.ops``.
 
 The device of the input tensors picks the implementation: CUDA tensors go
-through the hand-written kernels K1 (``seg_sum_na``) and K2
-(``edge_softmax_stats``), CPU tensors through their plain versions.  The
-alpha computation between the two kernels stays in PyTorch, as in the
-reference (``ops.py:200-204``).  Forward only: gradients come with a later
-slice of the port.
+through the hand-written kernels K1 (``seg_sum_na``), K2
+(``edge_softmax_stats``) and K3 (``spgemm_bsr``), CPU tensors through their
+plain versions.  The alpha computation between K2 and K1 stays in PyTorch,
+as in the reference (``ops.py:200-204``).  Forward only: gradients come
+with a later slice of the port.
 """
 from __future__ import annotations
 
@@ -17,6 +17,8 @@ import torch
 
 from repro_torch.kernels.edge_softmax import NEG, edge_softmax_stats
 from repro_torch.kernels.seg_sum import PackedEdges, pack_edge_blocks, seg_sum_na
+from repro_torch.kernels.spgemm_bsr import (compose_dense_blocked,
+                                            compose_padded_blocked)
 
 
 def na_aggregate(
@@ -73,3 +75,21 @@ def na_attention_aggregate(
     if packed is None:
         packed = pack_edge_blocks(src, dst, int(h.shape[0]), num_dst)
     return na_attention_packed(packed, edge_logits, h)
+
+
+def compose_boolean(a_dense, b_dense) -> Tuple[torch.Tensor, dict]:
+    """Boolean adjacency product (SGB composition) of unpadded 0/1
+    matrices via the block-sparse SpGEMM; ``(result, pruning stats)``."""
+    return compose_dense_blocked(a_dense, b_dense)
+
+
+def compose_boolean_padded(
+    a: torch.Tensor,  # (Mp, Kp) 0/1, tile-padded
+    b: torch.Tensor,  # (Kp, Np) 0/1, tile-padded
+    a_occ: torch.Tensor,
+    b_occ: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, dict]:
+    """SGB composition over pre-padded operands with cached occupancy —
+    the device composer's chain primitive (``core.sgb.DeviceComposer``).
+    Returns ``(padded result, its occupancy, pruning stats)``."""
+    return compose_padded_blocked(a, b, a_occ, b_occ)

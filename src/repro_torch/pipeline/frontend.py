@@ -2,15 +2,17 @@
 
 1. **SGB** — cache-aware planning (the CTT is pre-seeded with every
    semantic graph already materialized for this topology) and execution on
-   the numpy sorted-merge join.
+   the numpy sorted-merge join (``backend="host"``) or on ``device`` with
+   the block-sparse SpGEMM kernel K3 (``backend="device"``).
 2. **Graph Restructurer** — decouple/recouple once per semantic graph per
    layout knob; permutations are cached and shared by every model.
 3. **Packing** — banded ``PackedEdges`` blocks for the NA kernels, built
    with ``pack=True`` or on the first ``banded_batches()`` request.
 
 Everything is keyed by ``HetGraph.fingerprint()`` in a
-``SemanticGraphCache``.  Host numpy; every product is bitwise-equal to the
-JAX package's ``repro.pipeline`` on the same graph.
+``SemanticGraphCache``.  Every product is bitwise-equal to the JAX
+package's ``repro.pipeline`` on the same graph, whichever SGB backend built
+it, so cached products serve every backend and device.
 """
 from __future__ import annotations
 
@@ -32,12 +34,15 @@ class PipelineConfig:
 
     ``renumbered`` selects the banded (renumbered-vertex) layout for the
     ``PackedEdges`` blocks only; model-facing tensors keep global ids.
-    ``backend`` is the SGB executor: ``"host"`` (``"device"``, the SpGEMM
-    kernel, is not ported yet: ROADMAP item M10).
+    ``backend`` is the SGB executor: ``"host"`` or ``"device"``;
+    ``device`` is where ``backend="device"`` composes (a CUDA device runs
+    kernel K3, ``"cpu"`` its plain version).  Neither enters a cache key:
+    products do not depend on them.
     """
 
     planner: str = "ctt"  # naive | ctt | ctt_cache | ctt_dp
-    backend: str = "host"
+    backend: str = "host"  # SGB executor: host | device
+    device: str = "cuda"  # where the device SGB executor runs
     restructure: bool = True
     degree_order: bool = True
     affinity: str = "barycenter"
@@ -130,7 +135,8 @@ class FrontendPipeline:
         counts = {name: rel.num_edges for name, rel in preloaded.items()}
         plan = make_plan(graph, missing, planner=cfg.planner,
                          preloaded=sorted(preloaded), edge_counts=counts)
-        res = execute_plan(graph, plan, backend=cfg.backend, preloaded=preloaded)
+        res = execute_plan(graph, plan, backend=cfg.backend, device=cfg.device,
+                           preloaded=preloaded)
         for name, rel in res.graphs.items():
             if len(name) > 2:  # one-hop relations live on the HetGraph
                 self.cache.put_relation(fp, name, rel)

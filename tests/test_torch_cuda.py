@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels K1 and K2 against their plain PyTorch
+"""The hand-written CUDA kernels K1, K2 and K3 against their plain PyTorch
 versions, on a CUDA card.
 
 Every test here needs the card (marker ``cuda``) and skips without one; on
@@ -14,6 +14,10 @@ from repro_torch.kernels.edge_softmax import (edge_softmax_stats,  # noqa: E402
                                               softmax_stats_plain)
 from repro_torch.kernels.seg_sum import (pack_edge_blocks, seg_sum_na,  # noqa: E402
                                          seg_sum_plain)
+from repro_torch.kernels.spgemm_bsr import (TILE,  # noqa: E402
+                                            compose_padded_blocked,
+                                            spgemm_bsr, spgemm_plain,
+                                            tile_occupancy)
 
 SHAPES = [(64, 64, 200, 32), (300, 200, 1500, 64), (17, 5, 40, 16)]
 
@@ -101,3 +105,98 @@ def test_kernel_wrappers_check_operands(cuda_device):
         seg_sum_na(pk, torch.zeros(ns - 1, 4, device=cuda_device))
     with pytest.raises(ValueError):
         edge_softmax_stats(pk, torch.zeros(1, 256, device=cuda_device))
+
+
+def _bool_matrix(rng, rows, cols, density, device):
+    return torch.from_numpy((rng.random((rows, cols)) < density)
+                            .astype(np.uint8)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mt,kt,nt,density", [
+    (1, 1, 1, 0.01), (2, 3, 4, 0.002), (3, 2, 1, 0.0), (5, 7, 3, 0.3),
+    (8, 24, 16, 0.0003)])
+def test_spgemm_kernel_matches_plain(cuda_device, mt, kt, nt, density):
+    rng = np.random.default_rng(mt * 100 + kt * 10 + nt)
+    a = _bool_matrix(rng, mt * TILE, kt * TILE, density, cuda_device)
+    b = _bool_matrix(rng, kt * TILE, nt * TILE, density, cuda_device)
+    ao, bo = tile_occupancy(a), tile_occupancy(b)
+    before = spgemm_bsr.launches
+    out, occ = spgemm_bsr(a, b, ao, bo)
+    again, occ2 = spgemm_bsr(a, b, ao, bo)
+    torch.cuda.synchronize()
+    assert spgemm_bsr.launches == before + 2
+    want, want_occ = spgemm_plain(a, b, ao, bo)
+    assert out.dtype == torch.uint8 and torch.equal(out, want)
+    assert torch.equal(occ, want_occ)
+    assert torch.equal(out, again) and torch.equal(occ, occ2)
+
+
+@pytest.mark.cuda
+def test_spgemm_kernel_stale_and_dead_bitmaps(cuda_device):
+    rng = np.random.default_rng(5)
+    a = _bool_matrix(rng, 3 * TILE, 3 * TILE, 0.01, cuda_device)
+    b = _bool_matrix(rng, 3 * TILE, 2 * TILE, 0.01, cuda_device)
+    ao, bo = tile_occupancy(a), tile_occupancy(b)
+    stale_a, stale_b = ao.clone(), bo.clone()
+    stale_a[1] = 0  # a nonzero tile of A read as empty
+    stale_b[2] = 0
+    out, _ = spgemm_bsr(a, b, stale_a, stale_b)
+    want, _ = spgemm_plain(a, b, stale_a, stale_b)
+    assert torch.equal(out, want)
+    assert not torch.equal(out, spgemm_plain(a, b, ao, bo)[0])
+    # every pair dead: zeros and an empty bitmap, whatever the operands hold
+    dead, dead_occ = spgemm_bsr(a, b, torch.zeros_like(ao), bo)
+    torch.cuda.synchronize()
+    assert int(dead.sum()) == 0 and int(dead_occ.sum()) == 0
+
+
+@pytest.mark.cuda
+def test_compose_padded_occupancy_is_the_outputs(cuda_device):
+    rng = np.random.default_rng(9)
+    a = _bool_matrix(rng, 4 * TILE, 6 * TILE, 0.0005, cuda_device)
+    b = _bool_matrix(rng, 6 * TILE, 5 * TILE, 0.0005, cuda_device)
+    out, occ, stats = compose_padded_blocked(a, b, tile_occupancy(a), tile_occupancy(b))
+    assert torch.equal(occ, tile_occupancy(out))
+    assert 0 < int(occ.sum()) < occ.numel()
+    assert stats["tile_pairs_total"] == 4 * 6 * 5
+
+
+@pytest.mark.cuda
+def test_spgemm_wrapper_checks_operands(cuda_device):
+    a = torch.zeros((TILE, 2 * TILE), dtype=torch.uint8, device=cuda_device)
+    b = torch.zeros((2 * TILE, TILE), dtype=torch.uint8, device=cuda_device)
+    ao = torch.ones((2,), dtype=torch.int32, device=cuda_device)
+    bo = torch.ones((2,), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="one device"):
+        spgemm_bsr(a, b.cpu(), ao, bo)
+    with pytest.raises(TypeError):
+        spgemm_bsr(a.float(), b.float(), ao, bo)
+    with pytest.raises(TypeError):
+        spgemm_bsr(a, b, ao.long(), bo)
+    with pytest.raises(ValueError, match="multiples"):
+        spgemm_bsr(a[:, :200].contiguous(), b[:200], ao, bo)
+    with pytest.raises(ValueError, match="contiguous"):
+        spgemm_bsr(a, b.t().contiguous().t(), ao, bo)
+    with pytest.raises(ValueError, match="bitmaps"):
+        spgemm_bsr(a, b, ao[:1], bo)
+    with pytest.raises(ValueError):
+        spgemm_bsr(a, a, ao, bo)  # (128, 256) x (128, 256)
+
+
+@pytest.mark.cuda
+def test_device_sgb_on_the_card_matches_host(cuda_device):
+    from repro_torch.core import sgb
+    from repro_torch.hetero import make_dataset
+
+    g = make_dataset("DBLP", scale=0.1)
+    plan = sgb.make_plan(g, ["APA", "APTPA", "APVPA"])
+    before = spgemm_bsr.launches
+    dev = sgb.execute_plan(g, plan, backend="device", device=cuda_device)
+    assert spgemm_bsr.launches == before + len(plan.steps)
+    host = sgb.execute_plan(g, plan)
+    assert dev.cost == host.cost and [c for _, c in dev.per_step] == [
+        c for _, c in host.per_step]
+    for t in ("APA", "APTPA", "APVPA"):
+        assert np.array_equal(dev.graphs[t].src, host.graphs[t].src)
+        assert np.array_equal(dev.graphs[t].dst, host.graphs[t].dst)

@@ -190,8 +190,17 @@ def test_pipeline_cache_serves_second_run(graphs):
         assert second.packed[mp] is first.packed[mp]
 
 
-def test_device_sgb_backend_not_ported(graphs):
+def test_device_sgb_backend_runs_on_cpu(graphs):
+    """``backend="device"`` composes on the requested device (the plain
+    SpGEMM on the CPU) and matches the host join; unknown backends raise."""
     _, g = graphs["ACM"]
-    plan = sgb.make_plan(g, ["APA"])
-    with pytest.raises(NotImplementedError, match="M10"):
-        sgb.execute_plan(g, plan, backend="device")
+    plan = sgb.make_plan(g, ["APA", "PSP"])
+    dev = sgb.execute_plan(g, plan, backend="device", device="cpu")
+    host = sgb.execute_plan(g, plan)
+    assert dev.backend == "device" and dev.device_stats["compositions"] == 2
+    assert dev.cost == host.cost
+    for t in ("APA", "PSP"):
+        assert np.array_equal(dev.graphs[t].src, host.graphs[t].src)
+        assert np.array_equal(dev.graphs[t].dst, host.graphs[t].dst)
+    with pytest.raises(ValueError, match="unknown backend"):
+        sgb.execute_plan(g, plan, backend="tpu")

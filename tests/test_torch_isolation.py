@@ -37,6 +37,7 @@ def test_import_closure_is_free_of_jax_and_repro():
                 "repro_torch.core.sgb", "repro_torch.hetero.datasets",
                 "repro_torch.kernels.seg_sum", "repro_torch.kernels.edge_softmax",
                 "repro_torch.kernels.ops", "repro_torch.kernels.cuda_build",
+                "repro_torch.kernels.spgemm_bsr",
                 "repro_torch.pipeline.frontend"):
         assert mod in res["imported"]
 
@@ -49,6 +50,8 @@ def test_cuda_session_raises_without_cuda(monkeypatch):
         Session(ExecutorSpec(na_executor="banded"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Session()  # the default device is "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Session(ExecutorSpec(sgb_backend="device"))  # no CPU fallback for SGB
     Session(ExecutorSpec(na_executor="banded", device="cpu"))  # explicit CPU runs
 
 

@@ -104,7 +104,6 @@ def test_params_from_numpy_keeps_tree():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(sgb_backend="device"), "M10"),
     (dict(shard="relation"), "M9"),
     (dict(shard="edge_block"), "M9"),
     (dict(na_executor="jnp"), "M2"),
@@ -132,6 +131,15 @@ def test_spec_resolves_pack_and_lowers_to_pipeline():
     assert spec.na_executor == "banded" and spec.pack is True
     cfg = spec.pipeline_config()
     assert cfg.pack and cfg.restructure and cfg.renumbered
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda", "cuda:1"])
+def test_device_sgb_spec_lowers_to_pipeline(device):
+    spec = ExecutorSpec(sgb_backend="device", device=device)
+    cfg = spec.pipeline_config()
+    assert cfg.backend == "device" and cfg.device == device
+    assert cfg.pack and cfg.restructure
+    assert ExecutorSpec(device=device).pipeline_config().backend == "host"
 
 
 def test_session_reuses_frontend_and_packings(sessions):
