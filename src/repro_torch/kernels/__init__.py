@@ -8,7 +8,13 @@
 * ``spgemm_bsr``   — K3, block-sparse boolean SpGEMM over tile-padded 0/1
                      matrices, the device SGB composition (replaces
                      ``repro/kernels/spgemm_bsr.py::_spgemm_kernel``).
-* ``ops``          — the NA operations and SGB compositions built on them.
+* ``flash_attention`` — K4, block-wise attention forward with the online
+                     softmax (replaces
+                     ``repro/kernels/flash_attention.py::_fa_kernel``).
+* ``ssd_scan``     — K5, the Mamba2 SSD chunked scan (replaces
+                     ``repro/kernels/ssd_scan.py::_ssd_kernel``).
+* ``ops``          — the NA operations, SGB compositions, attention and SSD
+                     scan built on them.
 * ``cuda_build``   — nvcc build and ctypes binding of ``csrc/*.cu``.
 
 A CUDA tensor launches the kernel; a CPU tensor runs the plain version.

@@ -33,6 +33,7 @@ NVCC_FLAGS: Tuple[str, ...] = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures of every entry point, per source stem
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "na_kernels": {
@@ -46,6 +47,15 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "spgemm_kernels": {
         # a, b, a_occ, b_occ, out, out_occ, mt, nt, kt, stream
         "spgemm_bool_u8": [_P] * 6 + [_I, _I, _I, _P],
+    },
+    "flash_attention": {
+        # q, k, v, o, b, hq, hkv, s_len, t_len, dh, bf16, scale, causal,
+        # window, softcap, stream
+        "fa_forward": [_P] * 4 + [_I] * 7 + [_F, _I, _I, _F, _P],
+    },
+    "ssd_scan": {
+        # x, a, b, c, y, batch, seq, h, g, p_dim, n_dim, chunk, stream
+        "ssd_scan_f32": [_P] * 5 + [_I] * 7 + [_P],
     },
 }
 

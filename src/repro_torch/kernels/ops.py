@@ -1,10 +1,11 @@
-"""NA operations over packed edge blocks and the SGB composition: the
-HGNN forward half of the JAX package's ``repro.kernels.ops``.
+"""NA operations over packed edge blocks, the SGB composition, and the LM
+zoo's attention and SSD scan: the forward half of the JAX package's
+``repro.kernels.ops``.
 
 The device of the input tensors picks the implementation: CUDA tensors go
 through the hand-written kernels K1 (``seg_sum_na``), K2
-(``edge_softmax_stats``) and K3 (``spgemm_bsr``), CPU tensors through their
-plain versions.  The alpha computation between K2 and K1 stays in PyTorch,
+(``edge_softmax_stats``), K3 (``spgemm_bsr``), K4 (``flash_attention``) and
+K5 (``ssd_scan``), CPU tensors through their plain versions.  The alpha computation between K2 and K1 stays in PyTorch,
 as in the reference (``ops.py:200-204``).  Forward only: gradients come
 with a later slice of the port.
 """
@@ -16,9 +17,29 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.edge_softmax import NEG, edge_softmax_stats
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.seg_sum import PackedEdges, pack_edge_blocks, seg_sum_na
 from repro_torch.kernels.spgemm_bsr import (compose_dense_blocked,
                                             compose_padded_blocked)
+from repro_torch.kernels.ssd_scan import ssd_scan
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True, window: Optional[int] = None,
+              softcap: Optional[float] = None) -> torch.Tensor:
+    """Multi-head attention ``(B, Hq, S, Dh) x (B, Hkv, T, Dh) -> (B, Hq, S,
+    Dh)``, scaled by ``Dh ** -0.5``, through K4 (any layout; made
+    contiguous here)."""
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal=causal, window=window, softcap=softcap)
+
+
+def ssd(x: torch.Tensor, a_log: torch.Tensor, b_coef: torch.Tensor,
+        c_coef: torch.Tensor, chunk: int = 64) -> torch.Tensor:
+    """Mamba2 SSD scan ``(B, S, H, P)`` through K5 (any layout; made
+    contiguous here)."""
+    return ssd_scan(x.contiguous(), a_log.contiguous(), b_coef.contiguous(),
+                    c_coef.contiguous(), chunk=chunk)
 
 
 def na_aggregate(

@@ -1,0 +1,267 @@
+"""Config-driven LM: init, forward (prefill with the kernels, decode with a
+cache) and the cache layout.
+
+Parameters are the JAX package's pytree as dicts of tensors: ``embed``,
+``final_norm`` and ``blocks``, a list over the block pattern's positions of
+dicts whose leaves lead with ``num_groups`` (one slice per layer group).
+The forward walks the groups in a Python loop (the reference's
+``lax.scan``).  The cache is stacked the same way and updated in place.
+
+Mixers ``attn``, ``local`` and ``ssm`` and FFNs ``mlp`` and ``none`` run;
+the others (MLA, MoE, the encoder MLP), ``embeds``/``pos3`` inputs and the
+loss wait for ROADMAP M12.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models.config import ArchConfig
+
+MIXERS = ("attn", "local", "ssm")
+FFNS = ("mlp", "none")
+
+
+def _unported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP M12)")
+
+
+def padded_vocab(cfg: ArchConfig, multiple: int = 128) -> int:
+    """Vocab rounded up to ``multiple`` (logits beyond ``vocab_size`` are
+    masked to -1e30; padded embedding rows are never gathered)."""
+    return -(-cfg.vocab_size // multiple) * multiple
+
+
+def _check_supported(cfg: ArchConfig) -> None:
+    for mixer, ffn in cfg.block_pattern:
+        if mixer not in MIXERS:
+            raise _unported(f"mixer {mixer!r} ({cfg.name})")
+        if ffn not in FFNS:
+            raise _unported(f"ffn {ffn!r} ({cfg.name})")
+    if cfg.mrope_sections is not None:
+        raise _unported(f"M-RoPE ({cfg.name})")
+
+
+def _init_block(gen: torch.Generator, cfg: ArchConfig, mixer: str, ffn: str,
+                device) -> Dict:
+    g, d = cfg.num_groups, cfg.d_model
+
+    def dense(shape, scale=0.02):
+        w = torch.randn((g, *shape), generator=gen, device=device) * scale
+        return w.to(torch.bfloat16)
+
+    def const(n, value):
+        return torch.full((g, n), value, dtype=torch.float32, device=device)
+
+    norm0 = 0.0 if cfg.gemma_norms else 1.0
+    p: Dict[str, Any] = {"ln1": const(d, norm0), "ln2": const(d, norm0)}
+    if cfg.gemma_norms:
+        p["ln1_post"] = const(d, 0.0)
+        p["ln2_post"] = const(d, 0.0)
+    depth_scale = 0.02 / max(1.0, (2 * cfg.num_layers) ** 0.5)
+    if mixer in ("attn", "local"):
+        p["mixer"] = {
+            "wq": dense((d, cfg.num_heads * cfg.head_dim)),
+            "wk": dense((d, cfg.num_kv_heads * cfg.head_dim)),
+            "wv": dense((d, cfg.num_kv_heads * cfg.head_dim)),
+            "wo": dense((cfg.num_heads * cfg.head_dim, d), depth_scale),
+        }
+    else:  # ssm
+        h, di, cd = cfg.ssm_heads, cfg.d_inner, cfg.conv_dim
+        p["mixer"] = {
+            "w_in": dense((d, 2 * di + 2 * cfg.ssm_groups * cfg.ssm_state + h)),
+            "dt_bias": const(h, 0.0),
+            "a_log": const(h, 0.0),  # A = -exp(0) = -1
+            "w_conv": torch.randn((g, cfg.conv_width, cd), generator=gen,
+                                  device=device) * 0.2,
+            "b_conv": const(cd, 0.0),
+            "norm": const(di, 1.0),
+            "w_out": dense((di, d), depth_scale),
+        }
+    if ffn == "mlp":
+        p["ffn"] = {
+            "w_gate": dense((d, cfg.d_ff)),
+            "w_up": dense((d, cfg.d_ff)),
+            "w_down": dense((cfg.d_ff, d), depth_scale),
+        }
+    return p
+
+
+def init_params(seed: int, cfg: ArchConfig, device="cuda") -> Dict:
+    """The port's own init from ``seed`` (a ``torch.Generator`` on
+    ``device``): the reference's keys, shapes, dtypes and scales, its
+    values not (``jax.random`` cannot be reproduced)."""
+    _check_supported(cfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    vp = padded_vocab(cfg)
+    params: Dict[str, Any] = {
+        "embed": (torch.randn((vp, cfg.d_model), generator=gen, device=device)
+                  * 0.02).to(torch.bfloat16),
+        "final_norm": torch.full((cfg.d_model,), 0.0 if cfg.gemma_norms else 1.0,
+                                 dtype=torch.float32, device=device),
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = (torch.randn((cfg.d_model, vp), generator=gen, device=device)
+                             * 0.02).to(torch.bfloat16)
+    params["blocks"] = [_init_block(gen, cfg, mixer, ffn, device)
+                        for mixer, ffn in cfg.block_pattern]
+    return params
+
+
+def lm_params_from_numpy(tree, device) -> Any:
+    """The JAX package's LM parameters (``jax.tree.map(np.asarray, ...)``)
+    as tensors on ``device``, keys, nesting and dtypes unchanged.  bfloat16
+    arrays (numpy dtype ``bfloat16`` from ``ml_dtypes``) cross as their
+    ``uint16`` bits, bit for bit."""
+    if isinstance(tree, dict):
+        return {k: lm_params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [lm_params_from_numpy(v, device) for v in tree]
+    arr = np.ascontiguousarray(tree)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+def _block_apply(cfg: ArchConfig, mixer: str, ffn: str, p: Dict, x: torch.Tensor,
+                 cos, sin, cache: Optional[Dict], cache_pos, ssd_chunk: int
+                 ) -> torch.Tensor:
+    gn = cfg.gemma_norms
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps, plus_one=gn)
+    if mixer in ("attn", "local"):
+        o, _ = L.gqa_attention(
+            p["mixer"], h, cos, sin,
+            num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+            head_dim=cfg.head_dim, causal=cfg.causal,
+            window=cfg.sliding_window if mixer == "local" else None,
+            softcap=cfg.attn_softcap, q_scale=cfg.q_scale,
+            cache=cache, cache_pos=cache_pos)
+    else:  # ssm
+        o, _ = L.mamba2_mixer(
+            p["mixer"], h,
+            num_heads=cfg.ssm_heads, head_dim=cfg.ssm_head_dim,
+            state_dim=cfg.ssm_state, num_groups=cfg.ssm_groups,
+            conv_width=cfg.conv_width, chunk=ssd_chunk, state=cache)
+    if gn:
+        o = L.rms_norm(o, p["ln1_post"], cfg.norm_eps, plus_one=True)
+    x = x + o.to(x.dtype)
+
+    if ffn == "mlp":  # else "none"
+        f = L.swiglu_mlp(p["ffn"], L.rms_norm(x, p["ln2"], cfg.norm_eps, plus_one=gn))
+        if gn:
+            f = L.rms_norm(f, p["ln2_post"], cfg.norm_eps, plus_one=True)
+        x = x + f.to(x.dtype)
+    return x
+
+
+def _group(tree, g: int):
+    """Layer group ``g``'s slice of a stacked dict (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _group(v, g) for k, v in tree.items()}
+    return tree[g]
+
+
+class LM:
+    """Bound (config, device) bundle; parameters stay an explicit dict.
+
+    ``device`` (default ``"cuda"``) is where ``init`` and ``init_cache``
+    put their tensors; a CUDA device without a card raises.  ``remat`` is
+    accepted for signature parity with the reference and has no effect:
+    the forward runs in eager inference mode and keeps no activations.
+
+    Example::
+
+        model = LM(get_config("smollm-135m"))
+        params = model.init(0)
+        logits, _, _ = model.forward(params, tokens, last_only=True)
+    """
+
+    def __init__(self, cfg: ArchConfig, device="cuda", remat: str = "full",
+                 ssd_chunk: int = 128):
+        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"LM device={device!r} but no CUDA device is "
+                               "available (pass device='cpu' to run on the CPU)")
+        _check_supported(cfg)
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.remat = remat
+        self.ssd_chunk = ssd_chunk
+
+    def init(self, seed: int) -> Dict:
+        """Parameters from ``seed`` on the model's device (see
+        :func:`init_params`)."""
+        return init_params(seed, self.cfg, device=self.device)
+
+    # ---------------------------------------------------------- forward ----
+    def forward(
+        self,
+        params: Dict,
+        tokens: Optional[torch.Tensor] = None,  # (B, S) integer ids
+        embeds: Optional[torch.Tensor] = None,
+        pos3: Optional[torch.Tensor] = None,
+        cache: Optional[List[Dict]] = None,
+        cache_pos=None,
+        last_only: bool = False,  # serving prefill: logits for the last position only
+    ) -> Tuple[torch.Tensor, Optional[List[Dict]], torch.Tensor]:
+        """Returns ``(logits, cache, aux)``: float32 logits ``(B, S or 1,
+        padded vocab)``, the cache (updated in place; ``None`` without
+        one) and a zero MoE aux loss."""
+        if embeds is not None or pos3 is not None:
+            raise _unported("embeds / pos3 inputs")
+        cfg = self.cfg
+        with torch.inference_mode():
+            x = params["embed"][tokens.long()].to(torch.bfloat16)
+            if cfg.gemma_norms:
+                x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+            b, s = x.shape[0], x.shape[1]
+            start = int(cache_pos) if cache_pos is not None else 0
+            positions = (start + torch.arange(s, device=x.device))[None, :].expand(b, s)
+            cos, sin = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+            for g in range(cfg.num_groups):
+                for pos, (mixer, ffn) in enumerate(cfg.block_pattern):
+                    c_in = _group(cache[pos], g) if cache is not None else None
+                    x = _block_apply(cfg, mixer, ffn, _group(params["blocks"][pos], g),
+                                     x, cos, sin, c_in, cache_pos, self.ssd_chunk)
+            x = L.rms_norm(x, params["final_norm"], cfg.norm_eps,
+                           plus_one=cfg.gemma_norms)
+            if last_only:
+                x = x[:, -1:]
+            unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+            logits = (x @ unembed.to(x.dtype)).float()
+            if cfg.final_softcap is not None:
+                logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+            if logits.shape[-1] != cfg.vocab_size:  # mask vocab padding
+                pad = torch.arange(logits.shape[-1], device=x.device) >= cfg.vocab_size
+                logits = logits.masked_fill(pad, -1e30)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return logits, cache, aux
+
+    # ------------------------------------------------------------ cache ----
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16) -> List[Dict]:
+        """Stacked cache: one entry per pattern position, leaves with a
+        leading ``num_groups`` dim (as the parameters)."""
+        cfg = self.cfg
+        g = cfg.num_groups
+        dev = self.device
+        cache = []
+        for mixer, _ in cfg.block_pattern:
+            if mixer in ("attn", "local"):
+                kv = (g, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+                cache.append({"k": torch.zeros(kv, dtype=dtype, device=dev),
+                              "v": torch.zeros(kv, dtype=dtype, device=dev)})
+            else:  # ssm
+                cache.append({
+                    "conv": torch.zeros((g, batch, cfg.conv_width - 1, cfg.conv_dim),
+                                        dtype=dtype, device=dev),
+                    "ssm": torch.zeros((g, batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                                        cfg.ssm_state), dtype=torch.float32, device=dev),
+                })
+        return cache
+
+
+def make_model(cfg: ArchConfig, device="cuda", remat: str = "full") -> LM:
+    """An :class:`LM` for ``cfg`` on ``device``."""
+    return LM(cfg, device=device, remat=remat)

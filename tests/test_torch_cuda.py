@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels K1, K2 and K3 against their plain PyTorch
+"""The hand-written CUDA kernels K1-K5 against their plain PyTorch
 versions, on a CUDA card.
 
 Every test here needs the card (marker ``cuda``) and skips without one; on
@@ -14,10 +14,13 @@ from repro_torch.kernels.edge_softmax import (edge_softmax_stats,  # noqa: E402
                                               softmax_stats_plain)
 from repro_torch.kernels.seg_sum import (pack_edge_blocks, seg_sum_na,  # noqa: E402
                                          seg_sum_plain)
+from repro_torch.kernels.flash_attention import (attention_plain,  # noqa: E402
+                                                 flash_attention)
 from repro_torch.kernels.spgemm_bsr import (TILE,  # noqa: E402
                                             compose_padded_blocked,
                                             spgemm_bsr, spgemm_plain,
                                             tile_occupancy)
+from repro_torch.kernels.ssd_scan import ssd_plain, ssd_scan  # noqa: E402
 
 SHAPES = [(64, 64, 200, 32), (300, 200, 1500, 64), (17, 5, 40, 16)]
 
@@ -200,3 +203,147 @@ def test_device_sgb_on_the_card_matches_host(cuda_device):
     for t in ("APA", "APTPA", "APVPA"):
         assert np.array_equal(dev.graphs[t].src, host.graphs[t].src)
         assert np.array_equal(dev.graphs[t].dst, host.graphs[t].dst)
+
+
+# ----------------------------------------------------------------- K4 -----
+# the grid of test_flash_attention_sweep (tests/test_kernels.py), plus
+# smollm-135m's head layout with ragged S and T
+FA_CASES = [
+    (2, 4, 2, 128, 128, 64, True, None, None),
+    (1, 8, 2, 100, 100, 64, True, None, 50.0),
+    (1, 4, 4, 96, 224, 64, True, None, None),
+    (2, 4, 2, 128, 128, 64, True, 64, None),
+    (1, 2, 1, 64, 64, 128, False, None, None),
+    (2, 9, 3, 300, 300, 64, True, None, None),
+    (1, 9, 3, 70, 333, 64, True, 100, 30.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,s,t,dh,causal,window,cap", FA_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda_device, b, hq, hkv, s, t, dh,
+                                              causal, window, cap, dtype):
+    rng = np.random.default_rng(s * 1000 + t)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+            cuda_device, dtype)
+
+    q, k, v = rand(b, hq, s, dh), rand(b, hkv, t, dh), rand(b, hkv, t, dh)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
+    again = flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    want = attention_plain(q, k, v, causal=causal, window=window, softcap=cap)
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 3e-2 if dtype == torch.bfloat16 else 2e-5
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=tol)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_flash_attention_wrapper_checks_operands(cuda_device):
+    q = torch.zeros((1, 4, 8, 64), device=cuda_device)
+    k = torch.zeros((1, 2, 8, 64), device=cuda_device)
+    with pytest.raises(TypeError):
+        flash_attention(q, k.bfloat16(), k)
+    with pytest.raises(TypeError):
+        flash_attention(q.double(), k.double(), k.double())
+    with pytest.raises(ValueError, match="one device"):
+        flash_attention(q, k.cpu(), k)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                        k[..., :32].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3), k)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention(torch.zeros((1, 3, 8, 64), device=cuda_device), k, k)
+
+
+# ----------------------------------------------------------------- K5 -----
+SSD_CASES = [  # b, s, h, g, p, n, chunk
+    (2, 128, 4, 2, 32, 16, 32),
+    (1, 256, 2, 1, 64, 64, 64),
+    (1, 64, 8, 8, 16, 16, 16),
+    (2, 128, 4, 1, 16, 16, 64),
+    (1, 512, 4, 1, 64, 128, 128),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,g,p,n,chunk", SSD_CASES)
+def test_ssd_kernel_matches_plain(cuda_device, b, s, h, g, p, n, chunk):
+    rng = np.random.default_rng(s + h * 10 + n)
+
+    def dev(a):
+        return torch.from_numpy(a.astype(np.float32)).to(cuda_device)
+
+    x = dev(rng.standard_normal((b, s, h, p)))
+    a = dev(-np.abs(rng.standard_normal((b, s, h))) * 0.1)
+    bc = dev(rng.standard_normal((b, s, g, n)) * 0.3)
+    cc = dev(rng.standard_normal((b, s, g, n)) * 0.3)
+    before = ssd_scan.launches
+    got = ssd_scan(x, a, bc, cc, chunk=chunk)
+    again = ssd_scan(x, a, bc, cc, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 2
+    want = ssd_plain(x, a, bc, cc, chunk=chunk)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=3e-4)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_ssd_wrapper_checks_operands(cuda_device):
+    x = torch.zeros((1, 64, 4, 16), device=cuda_device)
+    a = torch.zeros((1, 64, 4), device=cuda_device)
+    bc = torch.zeros((1, 64, 1, 16), device=cuda_device)
+    with pytest.raises(TypeError):
+        ssd_scan(x.bfloat16(), a, bc, bc, chunk=32)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ssd_scan(x, a, bc, bc, chunk=48)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_scan(x, a, bc, bc, chunk=64 + 64 + 64)
+    with pytest.raises(ValueError, match="one device"):
+        ssd_scan(x, a.cpu(), bc, bc, chunk=32)
+    with pytest.raises(ValueError):
+        ssd_scan(x, a, torch.zeros((1, 64, 3, 16), device=cuda_device),
+                 torch.zeros((1, 64, 3, 16), device=cuda_device), chunk=32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,s", [("smollm-135m", 64), ("mamba2-370m", 128)])
+def test_reduced_lm_prefill_on_the_card(cuda_device, arch, s):
+    """Reduced depth and width, but K4's head dim (64): the card forward
+    launches K4 or K5 once per layer and matches the CPU forward."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import LM
+
+    cfg = dataclasses.replace(reduced(get_config(arch)), head_dim=64)
+    cpu = LM(cfg, device="cpu")
+    params = cpu.init(0)
+    card = LM(cfg, device=cuda_device)
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_card(v) for v in tree]
+        return tree.to(cuda_device)
+
+    params_card = to_card(params)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, s)))
+    k4, k5 = flash_attention.launches, ssd_scan.launches
+    got, _, _ = card.forward(params_card, toks.to(cuda_device))
+    torch.cuda.synchronize()
+    if arch == "smollm-135m":
+        assert flash_attention.launches - k4 == cfg.num_layers
+    else:
+        assert ssd_scan.launches - k5 == cfg.num_layers
+    want, _, _ = cpu.forward(params, toks)
+    v = cfg.vocab_size
+    np.testing.assert_allclose(got.cpu().numpy()[..., :v], want.numpy()[..., :v], atol=5e-2)

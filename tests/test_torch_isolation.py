@@ -38,6 +38,11 @@ def test_import_closure_is_free_of_jax_and_repro():
                 "repro_torch.kernels.seg_sum", "repro_torch.kernels.edge_softmax",
                 "repro_torch.kernels.ops", "repro_torch.kernels.cuda_build",
                 "repro_torch.kernels.spgemm_bsr",
+                "repro_torch.kernels.flash_attention", "repro_torch.kernels.ssd_scan",
+                "repro_torch.models.config", "repro_torch.models.layers",
+                "repro_torch.models.lm", "repro_torch.configs",
+                "repro_torch.configs.smollm_135m", "repro_torch.configs.mamba2_370m",
+                "repro_torch.serve.engine", "repro_torch.launch.serve",
                 "repro_torch.pipeline.frontend"):
         assert mod in res["imported"]
 
