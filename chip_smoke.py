@@ -9,13 +9,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. Setup: the card's name and power limit, then every CUDA kernel built
    from ``src/repro_torch/csrc`` with nvcc (one process per source, all
    started together), with the build time.
-2. Kernels: on the real ACM packing of semantic graph PAP at scale 1.0 and
-   D = 64, each NA kernel (K1 with unit and with random blocked weights, K2
-   with random logits) against its plain PyTorch version on the card, two
+2. Kernels: on the real packings of ACM PAP and of DBLP APTPA (in-degree
+   up to 1,483, most rows empty) at scale 1.0 and D = 64, each NA kernel
+   (K1 with unit and with random blocked weights, K2 with random logits)
+   against its plain PyTorch version on the card (K2's ``m`` bitwise), two
    kernel runs compared bit for bit, and CUDA-event medians of the kernel,
    the plain version and one library yardstick (``index_add_`` for K1,
    ``scatter_reduce(amax)`` + ``index_add_`` for K2; the port never calls
-   them).
+   them), each beside the shape of the kernels' work list (CTAs, the most
+   edges a CTA holds).
 3. Model: the banded inference path — ``Session(ExecutorSpec(na_executor=
    "banded")).compile(make_dataset("ACM", seed=0, scale=1.0), ["APA",
    "PAP", "PSP"], cfg)`` at the full width of ``HGNNConfig`` (hidden 64,
@@ -24,7 +26,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    after.  Logits must be finite, repeat bit for bit across forwards, match
    the same port run on the CPU (the plain versions, same seed) within
    1e-4, and K1 must launch 9 times per forward (K2 9 times per rgat or
-   shgn forward).  One rgat forward is then profiled with ``torch.profiler``.
+   shgn forward).  One rgat and one rgcn forward are then profiled with
+   ``torch.profiler``, with K1 + K2's device time.
 4. SGB: ACM, IMDB and DBLP at scale 1.0 under the ``ctt`` planner.  The
    host join and the device composer (K3) must give bitwise-equal products
    and equal per-step costs, K3 must launch once per plan step, and on
@@ -159,6 +162,53 @@ def median_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def _device_events(prof):
+    """``(device us, launches, name)`` of every device kernel a profile saw."""
+    rows = []
+    for ev in prof.key_averages():
+        if "CUDA" not in str(getattr(ev, "device_type", "")):
+            continue  # CPU ops: their device time is their kernels', counted here
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            rows.append((dev_us, ev.count, ev.key))
+    return rows
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time in ms of every kernel one call of ``fn`` launches, the
+    mean over ``reps`` warm calls (torch.profiler): the call's host cost
+    left out.  None where the profiler saw no device event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = _device_events(prof)
+    return sum(r[0] for r in rows) / reps / 1e3 if rows else None
+
+
+def _ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """Host time in us to issue one call of ``fn``, the mean over ``reps``
+    calls issued back to back (host clock, no sync between them)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
+
+
 def bound(nbytes: float, flops: float):
     """Least time in ms the card could take, and what bounds it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -166,21 +216,33 @@ def bound(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_kernels(graph, dev):
-    """Phase 2: K1 and K2 against their plain versions on the card."""
+def work_shape(pk) -> dict:
+    """The row kernels' work list on one packing: CTAs, items, the most
+    edges any CTA or item holds, and the skew it meets."""
+    from repro_torch.kernels.seg_sum import ITEMS_PER_CTA
+
+    rows = pk.row_edges()
+    edges = (rows.items[:, 3] - rows.items[:, 2]).astype(np.int64)
+    deg = np.diff(rows.row_ptr)
+    return {"ctas": int(edges.size // ITEMS_PER_CTA), "items": int(edges.size),
+            "max_cta_edges": int(edges.reshape(-1, ITEMS_PER_CTA).sum(1).max()),
+            "max_item_edges": int(edges.max()), "max_in_degree": int(deg.max()),
+            "empty_rows": int((deg == 0).sum())}
+
+
+def na_kernels_on(pk, label: str, dev):
+    """K1 and K2 on one packing at D = 64: agreement with the plain
+    versions, bitwise repeat, CUDA-event medians of kernel, plain version
+    and library yardstick, and the bound."""
     from repro_torch.kernels.edge_softmax import (NEG, edge_softmax_stats,
                                                   softmax_stats_plain)
     from repro_torch.kernels.seg_sum import seg_sum_na, seg_sum_plain
-    from repro_torch.pipeline import FrontendPipeline, PipelineConfig
 
-    res = FrontendPipeline(PipelineConfig(pack=True)).run(graph, TARGETS)
-    print("frontend (host, cold): " + ", ".join(
-        f"{k} {v * 1e3:.1f} ms" for k, v in res.timings.items()))
-    pk = res.packed["PAP"]
     nb, eb = pk.src_local.shape
     n_edges, tiles = pk.num_edges, pk.num_dst_tiles
-    print(f"kernels: ACM PAP packing, {n_edges} edges in {nb} blocks over "
-          f"{tiles} dst tiles, D={D}")
+    work = work_shape(pk)
+    print(f"kernels: {label} packing, {n_edges} edges in {nb} blocks over "
+          f"{tiles} dst tiles, D={D}; work list {work}")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     h = torch.randn(pk.num_src, D, device=dev, generator=gen)
     w_rand = torch.rand(nb, eb, device=dev, generator=gen)
@@ -192,18 +254,18 @@ def phase_kernels(graph, dev):
 
     # --- K1 --------------------------------------------------------------
     err = 0.0
-    for label, w in (("unit", None), ("random", w_rand)):
+    for wl, w in (("unit", None), ("random", w_rand)):
         a = seg_sum_na(pk, h, w)
         b = seg_sum_na(pk, h, w)
         ref = seg_sum_plain(pk, h, w)
         torch.cuda.synchronize()
         e = (a - ref).abs().max().item()
         excess = ((a - ref).abs() - K1_TOL * ref.abs()).max().item()
-        print(f"K1 seg_sum ({label} weights): max|kernel - plain| = {e:.3e}, "
+        print(f"K1 seg_sum {label} ({wl} weights): max|kernel - plain| = {e:.3e}, "
               f"max|plain| = {ref.abs().max().item():.3f} (tolerance {K1_TOL} "
               f"+ {K1_TOL} x |plain|); run-to-run bitwise equal: {torch.equal(a, b)}")
-        require(excess <= K1_TOL, f"K1 {label} weights disagree with the plain version")
-        require(torch.equal(a, b), f"K1 {label} weights not bitwise repeatable")
+        require(excess <= K1_TOL, f"K1 {label} {wl} weights disagree with the plain version")
+        require(torch.equal(a, b), f"K1 {label} {wl} weights not bitwise repeatable")
         err = max(err, e)
     w_e = w_rand[blk, slot]
 
@@ -217,6 +279,9 @@ def phase_kernels(graph, dev):
     k1_ms = median_ms(lambda: seg_sum_na(pk, h, w_rand))
     k1_plain = median_ms(lambda: seg_sum_plain(pk, h, w_rand), reps=10)
     k1_lib = median_ms(k1_library)
+    k1_dev = device_ms(lambda: seg_sum_na(pk, h, w_rand))
+    k1_lib_dev = device_ms(k1_library)
+    k1_host = host_us(lambda: seg_sum_na(pk, h, w_rand))
     meta = nb * 4 * 2 + nb * 4 + (tiles + 1) * 4  # band, count, tile list
     k1_bytes = n_edges * (2 + 2 + 4) + pk.num_src * D * 4 + pk.num_dst * D * 4 + meta
     k1_bound, k1_by = bound(k1_bytes, 2.0 * n_edges * D)
@@ -226,7 +291,9 @@ def phase_kernels(graph, dev):
         "replaces": "src/repro/kernels/seg_sum.py:516",
         "max_abs_err": err, "ms": k1_ms, "plain_ms": k1_plain,
         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": k1_lib,
-        "bytes": k1_bytes, "shape": f"E={n_edges} nb={nb} tiles={tiles} D={D}",
+        "bytes": k1_bytes, "shape": f"{label} E={n_edges} nb={nb} tiles={tiles} D={D}",
+        "work": work, "device_ms": k1_dev, "library_device_ms": k1_lib_dev,
+        "host_us_per_call": k1_host,
     })
 
     # --- K2 --------------------------------------------------------------
@@ -238,12 +305,12 @@ def phase_kernels(graph, dev):
     es = (s1 - sr).abs().max().item()
     es_rel = ((s1 - sr).abs() / sr.abs().clamp(min=1.0)).max().item()
     same = torch.equal(m1, m2) and torch.equal(s1, s2)
-    print(f"K2 edge_softmax_stats: max|dm| = {em:.3e}, max|ds| = {es:.3e} "
-          f"(relative {es_rel:.3e}, tolerance {K2_RTOL}); run-to-run bitwise "
-          f"equal: {same}")
-    require(em <= K2_RTOL and es_rel <= K2_RTOL,
-            "K2 disagrees with the plain version")
-    require(same, "K2 not bitwise repeatable")
+    print(f"K2 edge_softmax_stats {label}: max|dm| = {em:.3e} (m bitwise equal: "
+          f"{torch.equal(m1, mr)}), max|ds| = {es:.3e} (relative {es_rel:.3e}, "
+          f"tolerance {K2_RTOL}); run-to-run bitwise equal: {same}")
+    require(torch.equal(m1, mr) and es_rel <= K2_RTOL,
+            f"K2 {label} disagrees with the plain version")
+    require(same, f"K2 {label} not bitwise repeatable")
     l_e = logits[blk, slot]
 
     def k2_library():
@@ -259,6 +326,9 @@ def phase_kernels(graph, dev):
     k2_ms = median_ms(lambda: edge_softmax_stats(pk, logits))
     k2_plain = median_ms(lambda: softmax_stats_plain(pk, logits), reps=10)
     k2_lib = median_ms(k2_library)
+    k2_dev = device_ms(lambda: edge_softmax_stats(pk, logits))
+    k2_lib_dev = device_ms(k2_library)
+    k2_host = host_us(lambda: edge_softmax_stats(pk, logits))
     k2_bytes = n_edges * (2 + 4) + nb * 4 + nb * 4 + (tiles + 1) * 4 + pk.num_dst * 8
     k2_bound, k2_by = bound(k2_bytes, 6.0 * n_edges)
     out.append({
@@ -267,12 +337,35 @@ def phase_kernels(graph, dev):
         "replaces": "src/repro/kernels/edge_softmax.py:32",
         "max_abs_err": max(em, es), "ms": k2_ms, "plain_ms": k2_plain,
         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": k2_lib,
-        "bytes": k2_bytes, "shape": f"E={n_edges} nb={nb} tiles={tiles}",
+        "bytes": k2_bytes, "shape": f"{label} E={n_edges} nb={nb} tiles={tiles}",
+        "work": work, "device_ms": k2_dev, "library_device_ms": k2_lib_dev,
+        "host_us_per_call": k2_host,
     })
     for k in out:
-        print(f"{k['name']}: kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
-              f"library {k['library_ms']:.4f} ms, bound {k['bound_ms']:.6f} ms "
-              f"({k['bound_by']}, {k['bytes']} bytes)")
+        print(f"{k['name']} {label}: kernel {k['ms']:.4f} ms (device {_ms(k['device_ms'])}, "
+              f"host {k['host_us_per_call']:.1f} us a call), plain {k['plain_ms']:.4f} ms, "
+              f"library {k['library_ms']:.4f} ms (device {_ms(k['library_device_ms'])}), "
+              f"bound {k['bound_ms']:.6f} ms ({k['bound_by']}, {k['bytes']} bytes); "
+              f"{work['ctas']} CTAs, at most {work['max_cta_edges']} edges a CTA")
+    return out
+
+
+def phase_kernels(graph, dblp, dev):
+    """Phase 2: K1 and K2 against their plain versions on the card, on ACM
+    PAP and on DBLP APTPA."""
+    from repro_torch.pipeline import FrontendPipeline, PipelineConfig
+
+    res = FrontendPipeline(PipelineConfig(pack=True)).run(graph, TARGETS)
+    print("frontend (host, cold): " + ", ".join(
+        f"{k} {v * 1e3:.1f} ms" for k, v in res.timings.items()))
+    out = na_kernels_on(res.packed["PAP"], "ACM PAP", dev)
+    res = FrontendPipeline(PipelineConfig(pack=True)).run(dblp, ["APTPA"])
+    for k, other in zip(out, na_kernels_on(res.packed["APTPA"], "DBLP APTPA", dev)):
+        k["max_abs_err"] = max(k["max_abs_err"], other["max_abs_err"])
+        k["dblp_aptpa"] = {key: other[key] for key in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err",
+            "bytes", "shape", "work", "device_ms", "library_device_ms",
+            "host_us_per_call")}
     return out
 
 
@@ -331,13 +424,17 @@ def phase_model(graph):
               f"cpu forward {cpu_s:.1f} s")
         require(err <= LOGIT_ATOL, f"{m}: card logits disagree with the CPU run")
 
-    prof_call("rgat forward", lambda: compiled["rgat"].forward(params["rgat"], feats))
+    for m in ("rgat", "rgcn"):
+        rows = prof_call(f"{m} forward", lambda: compiled[m].forward(params[m], feats))
+        na_ms = sum(r[0] for r in rows if "_rows_kernel" in r[2]) / 1e3
+        print(f"profile {m} forward: K1 + K2 device time {na_ms:.3f} ms")
     return launches
 
 
-def prof_call(label: str, fn) -> None:
+def prof_call(label: str, fn) -> list:
     """Device time by kernel name over one warm call of ``fn``
-    (torch.profiler)."""
+    (torch.profiler); returns ``[(device us, launches, name)]``, largest
+    first."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -347,25 +444,18 @@ def prof_call(label: str, fn) -> None:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for ev in prof.key_averages():
-        if "CUDA" not in str(getattr(ev, "device_type", "")):
-            continue  # CPU ops: their device time is their kernels', counted below
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0)
-        if dev_us > 0:
-            rows.append((dev_us, ev.count, ev.key))
+    rows = _device_events(prof)
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
     if not rows:
         print(f"profile {label}: device time not measured (no device events)")
-        return
+        return rows
     print(f"profile {label}: wall {wall:.3f} ms, device busy {total / 1e3:.3f} ms "
           f"({100 * total / 1e3 / wall:.1f}% of wall), {sum(r[1] for r in rows)} "
           "kernel launches")
     for dev_us, count, key in rows[:10]:
         print(f"  {dev_us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
+    return rows
 
 
 def _edges_equal(a, b) -> bool:
@@ -799,7 +889,7 @@ def main() -> int:
     dev = torch.device("cuda")
 
     graph = make_dataset("ACM", seed=SEED, scale=1.0)
-    kernels = phase_kernels(graph, dev)
+    kernels = phase_kernels(graph, make_dataset("DBLP", seed=SEED, scale=1.0), dev)
     launches = phase_model(graph)
     for k in kernels:
         k["launches"] = launches[k["name"]]

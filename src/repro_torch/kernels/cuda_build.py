@@ -37,12 +37,10 @@ _F = ctypes.c_float
 # C signatures of every entry point, per source stem
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "na_kernels": {
-        # tile_ptr, tile_blocks, band, count, src_local, dst_local, w, h,
-        # out, num_tiles, d, src_band, stream
-        "na_seg_sum_f32": [_P] * 9 + [_I, _I, _I, _P],
-        # tile_ptr, tile_blocks, count, dst_local, logits, m, s,
-        # num_tiles, stream
-        "na_softmax_stats_f32": [_P] * 7 + [_I, _P],
+        # items, row_ptr, row_src, row_slot, w, h, out, num_items, d, stream
+        "na_seg_sum_f32": [_P] * 7 + [_I, _I, _P],
+        # items, row_ptr, row_slot, logits, m, s, num_items, stream
+        "na_softmax_stats_f32": [_P] * 6 + [_I, _P],
     },
     "spgemm_kernels": {
         # a, b, a_occ, b_occ, out, out_occ, mt, nt, kt, stream

@@ -11,11 +11,13 @@ destination tile, exactly as the TPU kernel does:
 
 On a CUDA tensor ``edge_softmax_stats`` launches the hand-written Hopper
 kernel in ``csrc/na_kernels.cu`` (``na_softmax_stats_f32``), which replaces
-the TPU kernel ``repro/kernels/edge_softmax.py::_stats_kernel``: one owner
-CTA per destination tile walks the tile's blocks in schedule order, one
-thread per destination row, so the per-block update and its rounding follow
-the reference's.  On a CPU tensor it runs ``softmax_stats_plain``, which
-computes the same statistics directly per tile (max first, then the sum).
+the TPU kernel ``repro/kernels/edge_softmax.py::_stats_kernel``.  It reads
+K1's row view and work list (``PackedEdges.row_edges``): a warp owns a run
+of whole rows and takes each row's max, then its sum of exponentials, by
+warp reductions; a heavy row's slices fold online and combine in a fixed
+order as ``m = max(m_i)``, ``s = sum(s_i * exp(m_i - m))``.  ``m`` is
+exact.  On a CPU tensor it runs ``softmax_stats_plain``, which computes the
+same statistics directly per tile (max first, then the sum).
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels.cuda_build import check, load_library, ptr
-from repro_torch.kernels.seg_sum import DST_TILE, EDGE_BLOCK, PackedEdges
+from repro_torch.kernels.seg_sum import PackedEdges
 
 NEG = -1e30  # the (m, s) init and the padding logit
 
@@ -80,10 +82,6 @@ def softmax_stats_plain(packed: PackedEdges,
 def softmax_stats_cuda(packed: PackedEdges, logits_blocked: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K2 (``na_softmax_stats_f32``) on the logits' CUDA device."""
-    if packed.edge_block != EDGE_BLOCK or packed.dst_tile_rows != DST_TILE:
-        raise ValueError(
-            f"the CUDA NA kernels take {EDGE_BLOCK}-slot blocks and "
-            f"{DST_TILE}-row tiles, got {packed.edge_block}/{packed.dst_tile_rows}")
     if logits_blocked.dtype != torch.float32:
         raise TypeError(f"edge_softmax_stats kernel takes float32, got {logits_blocked.dtype}")
     if tuple(logits_blocked.shape) != packed.src_local.shape:
@@ -93,19 +91,21 @@ def softmax_stats_cuda(packed: PackedEdges, logits_blocked: torch.Tensor
         raise ValueError("edge_softmax_stats kernel takes contiguous logits")
     dev = logits_blocked.device
     db = packed.device_blocked(dev)
-    rows = packed.num_dst_tiles * packed.dst_tile_rows
-    m = torch.empty((rows,), dtype=torch.float32, device=dev)
-    s = torch.empty((rows,), dtype=torch.float32, device=dev)
+    m = torch.empty((packed.num_dst,), dtype=torch.float32, device=dev)
+    s = torch.empty((packed.num_dst,), dtype=torch.float32, device=dev)
+    items = db["items"]
+    if items.shape[0] == 0:
+        return m, s
     lib = load_library("na_kernels")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.na_softmax_stats_f32(
-            ptr(db["tile_ptr"]), ptr(db["tile_blocks"]), ptr(db["count"]),
-            ptr(db["dst_local"]), ptr(logits_blocked), ptr(m), ptr(s),
-            packed.num_dst_tiles, ctypes.c_void_p(stream))
+            ptr(items), ptr(db["row_ptr"]), ptr(db["row_slot"]),
+            ptr(logits_blocked), ptr(m), ptr(s), int(items.shape[0]),
+            ctypes.c_void_p(stream))
     check(rc, "na_softmax_stats_f32")
     edge_softmax_stats.launches += 1
-    return m[: packed.num_dst], s[: packed.num_dst]
+    return m, s
 
 
 def edge_softmax_stats(packed: PackedEdges, logits_blocked: torch.Tensor

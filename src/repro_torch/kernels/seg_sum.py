@@ -15,18 +15,20 @@ On a CUDA tensor ``seg_sum_na`` launches the hand-written Hopper kernel in
 ``csrc/na_kernels.cu`` (``na_seg_sum_f32``), which replaces the TPU kernel
 ``repro/kernels/seg_sum.py::_na_kernel``.  The TPU grid runs the blocks in
 order and zeroes a tile on its first touch ever; CTAs on an H100 run
-concurrently, so the port gives every destination tile one owner CTA that
-walks the tile's blocks in schedule order (``PackedEdges.tile_blocks``).
-That needs no atomics, repeats bit for bit, and writes zeros to tiles no
-block touches.  On a CPU tensor it runs the plain version,
-``seg_sum_plain``, which walks the same per-tile edge lists with a one-hot
-product per tile.
+concurrently, so the port reads a row-major view of the packing
+(``PackedEdges.row_edges``): every destination row's valid slots, in
+schedule order, and a work list that balances edges across warps.  A warp
+owns a run of whole rows, or one slice of a heavy row whose slices the
+warps of one CTA combine in a fixed order.  That needs no atomics, repeats
+bit for bit, and writes zeros to rows no edge reaches.  On a CPU tensor it
+runs the plain version, ``seg_sum_plain``, which walks the per-tile edge
+lists with a one-hot product per tile.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +38,79 @@ from repro_torch.kernels.cuda_build import check, load_library, ptr
 EDGE_BLOCK = 256  # edges per block (EB)
 SRC_BAND = 512  # feature rows per band; also the band alignment
 DST_TILE = 128  # output rows per tile
+ROW_BUDGET = 64  # edges of a light work item; K2 holds them in 2 registers a lane
+ROWS_PER_ITEM = 32  # rows of a light work item: one per lane of its warp
+ITEMS_PER_CTA = 8  # work items (warps) per CTA of the row kernels
+
+
+class RowEdges(NamedTuple):
+    """Row-major view of a packing, the input of the row kernels K1, K2.
+
+    ``row_src[row_ptr[r]:row_ptr[r + 1]]`` are the global sources of row
+    ``r``'s valid in-edges in schedule order, and ``row_slot`` the flat
+    ``blk * edge_block + slot`` index of each into the ``(nb, EB)`` blocked
+    weight or logit tensor.  ``items`` is the work list, ``(n, 4)`` int32
+    rows ``(row, kind, edge_begin, edge_end)`` with ``n`` a multiple of
+    ``ITEMS_PER_CTA``; item ``i`` is run by warp ``i % 8`` of CTA ``i // 8``:
+
+    - ``kind > 0``: the ``kind`` whole rows from ``row`` (their edges are
+      ``[edge_begin, edge_end)``);
+    - ``kind == 0``: idle padding;
+    - ``kind < 0``: one slice ``[edge_begin, edge_end)`` of heavy row
+      ``row``; the first slice carries ``-k`` for the row's ``k`` slices,
+      which follow it in the same CTA, and the others carry ``-1``.
+    """
+
+    row_ptr: np.ndarray  # (num_dst + 1,) int32
+    row_src: np.ndarray  # (E,) int32
+    row_slot: np.ndarray  # (E,) int32
+    items: np.ndarray  # (n, 4) int32
+
+
+def work_list(row_ptr: np.ndarray, budget: int = ROW_BUDGET) -> np.ndarray:
+    """Cut ``num_dst`` rows into work items that balance edges.
+
+    A light item is a run of at most ``ROWS_PER_ITEM`` consecutive whole
+    rows with at most ``budget`` edges; rows without edges join the runs,
+    so every row is written.  A row with more than ``budget`` edges is
+    heavy: it splits into ``min(ITEMS_PER_CTA, ceil(deg / budget))``
+    slices of near-equal size, placed contiguously in one CTA (the CTA's
+    warps combine them).  Heavy groups go first, each CTA's remaining
+    slots are filled with light items, and the list is padded with idle
+    items to a whole number of CTAs.  Returns ``(n, 4)`` int32 (see
+    ``RowEdges``).  The kernels take ``budget <= ROW_BUDGET``; a smaller
+    one makes heavy rows at small sizes.
+    """
+    row_ptr = np.asarray(row_ptr, np.int64)
+    n_rows = row_ptr.size - 1
+    light: List[Tuple[int, int, int, int]] = []
+    heavy: List[List[Tuple[int, int, int, int]]] = []
+    r = 0
+    while r < n_rows:
+        e = int(row_ptr[r])
+        deg = int(row_ptr[r + 1]) - e
+        if deg > budget:
+            k = min(ITEMS_PER_CTA, -(-deg // budget))
+            cuts = [e + deg * i // k for i in range(k + 1)]
+            heavy.append([(r, -k if i == 0 else -1, cuts[i], cuts[i + 1])
+                          for i in range(k)])
+            r += 1
+            continue
+        end = int(np.searchsorted(row_ptr, e + budget, side="right")) - 1
+        end = min(end, r + ROWS_PER_ITEM, n_rows)
+        light.append((r, end - r, e, int(row_ptr[end])))
+        r = end
+    items: List[Tuple[int, int, int, int]] = []
+    li = 0
+    for group in heavy:
+        if len(items) % ITEMS_PER_CTA + len(group) > ITEMS_PER_CTA:
+            while len(items) % ITEMS_PER_CTA:
+                items.append(light[li] if li < len(light) else (0, 0, 0, 0))
+                li += 1
+        items.extend(group)
+    items.extend(light[li:])
+    items.extend([(0, 0, 0, 0)] * (-len(items) % ITEMS_PER_CTA))
+    return np.asarray(items, np.int32).reshape(-1, 4)
 
 
 @dataclasses.dataclass
@@ -181,16 +256,46 @@ class PackedEdges:
             self._tile_edges = te
         return te
 
+    def row_edges(self) -> RowEdges:
+        """Row-major view of the valid slots and its work list (memoized).
+
+        A stable sort of the tile-walk stream (``tile_edges()``) by global
+        destination, so each row keeps its edges in schedule order; only
+        valid slots appear, so zero-weight edges stay in K2's softmax.
+        The work list is ``work_list(row_ptr)``.
+        """
+        re_ = getattr(self, "_row_edges", None)
+        if re_ is None:
+            _, blk, slot = self.tile_edges()
+            dst = (self.dst_tile[blk].astype(np.int64) * self.dst_tile_rows
+                   + self.dst_local[blk, slot])
+            if dst.size and int(dst.max()) >= self.num_dst:
+                raise ValueError(f"an edge reaches row {int(dst.max())} of "
+                                 f"{self.num_dst} destinations")
+            order = np.argsort(dst, kind="stable")
+            blk, slot = blk[order], slot[order]
+            row_ptr = np.zeros(self.num_dst + 1, np.int64)
+            np.cumsum(np.bincount(dst, minlength=self.num_dst), out=row_ptr[1:])
+            src = (self.band[blk].astype(np.int64) * self.src_band
+                   + self.src_local[blk, slot])
+            flat = blk * self.edge_block + slot
+            if flat.size and int(flat.max()) >= 2 ** 31:
+                raise ValueError("the row kernels index at most 2**31 slots")
+            re_ = RowEdges(row_ptr.astype(np.int32), src.astype(np.int32),
+                           flat.astype(np.int32), work_list(row_ptr))
+            self._row_edges = re_
+        return re_
+
     def device_blocked(self, device) -> Dict[str, torch.Tensor]:
         """Device copies of the arrays the NA kernels and their plain
         versions read, uploaded once per device and cached on the instance.
 
-        Keys: ``tile_ptr``, ``tile_blocks``, ``band``, ``count`` (int32),
-        ``src_local``, ``dst_local`` (int16), ``weight`` (the
+        Keys: ``row_ptr``, ``row_src``, ``row_slot``, ``items`` (int32, the
+        ``row_edges()`` view the kernels read), ``weight`` (the
         ``valid_weight()`` mask, float32), ``edge_blk``, ``edge_slot``,
         ``edge_src``, ``edge_dst`` (int64, the flat scheduled stream) and
         ``tile_blk``, ``tile_slot``, ``tile_src``, ``tile_dst_local``
-        (int64, the valid slots in tile-walk order).
+        (int64, the valid slots in tile-walk order, for the plain versions).
         """
         device = torch.device(device)
         cache = getattr(self, "_device", None)
@@ -200,7 +305,7 @@ class PackedEdges:
         key = str(device)
         db = cache.get(key)
         if db is None:
-            tptr, order = self.tile_blocks()
+            rows = self.row_edges()
             blk, slot = self.edge_map()
             src, dst = self.flat_global_edges()
             _, tblk, tslot = self.tile_edges()
@@ -211,12 +316,10 @@ class PackedEdges:
                 return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
 
             db = {
-                "tile_ptr": up(tptr, np.int32),
-                "tile_blocks": up(order, np.int32),
-                "band": up(self.band, np.int32),
-                "count": up(self.count, np.int32),
-                "src_local": up(self.src_local, np.int16),
-                "dst_local": up(self.dst_local, np.int16),
+                "row_ptr": up(rows.row_ptr, np.int32),
+                "row_src": up(rows.row_src, np.int32),
+                "row_slot": up(rows.row_slot, np.int32),
+                "items": up(rows.items, np.int32),
                 "weight": up(self.valid_weight(), np.float32),
                 "edge_blk": up(blk, np.int64),
                 "edge_slot": up(slot, np.int64),
@@ -393,7 +496,8 @@ def seg_sum_na_ref(
 
 def seg_sum_plain(packed: PackedEdges, h: torch.Tensor,
                   weights: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain PyTorch version of K1: the tile-owner walk without a kernel.
+    """Plain PyTorch version of K1, written independently of the kernel's
+    row view.
 
     For each destination tile, the valid slots of its blocks (in schedule
     order) are gathered and summed into the tile's 128 rows by one one-hot
@@ -419,10 +523,6 @@ def seg_sum_plain(packed: PackedEdges, h: torch.Tensor,
 # ------------------------------------------------------------------ kernel --
 def _check_cuda_operands(packed: PackedEdges, h: torch.Tensor,
                          w: torch.Tensor) -> None:
-    if packed.edge_block != EDGE_BLOCK or packed.dst_tile_rows != DST_TILE:
-        raise ValueError(
-            f"the CUDA NA kernels take {EDGE_BLOCK}-slot blocks and "
-            f"{DST_TILE}-row tiles, got {packed.edge_block}/{packed.dst_tile_rows}")
     if h.dtype != torch.float32 or w.dtype != torch.float32:
         raise TypeError(f"seg_sum_na kernel takes float32, got {h.dtype}/{w.dtype}")
     if h.dim() != 2 or h.shape[0] < packed.num_src:
@@ -444,21 +544,20 @@ def seg_sum_cuda(packed: PackedEdges, h: torch.Tensor,
     w = db["weight"] if weights is None else weights
     _check_cuda_operands(packed, h, w)
     d = int(h.shape[1])
-    out = torch.empty((packed.num_dst_tiles * packed.dst_tile_rows, d),
-                      dtype=torch.float32, device=h.device)
-    if d == 0:
-        return out[: packed.num_dst]
+    out = torch.empty((packed.num_dst, d), dtype=torch.float32, device=h.device)
+    items = db["items"]
+    if d == 0 or items.shape[0] == 0:
+        return out
     lib = load_library("na_kernels")
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         rc = lib.na_seg_sum_f32(
-            ptr(db["tile_ptr"]), ptr(db["tile_blocks"]), ptr(db["band"]),
-            ptr(db["count"]), ptr(db["src_local"]), ptr(db["dst_local"]),
-            ptr(w), ptr(h), ptr(out),
-            packed.num_dst_tiles, d, packed.src_band, ctypes.c_void_p(stream))
+            ptr(items), ptr(db["row_ptr"]), ptr(db["row_src"]),
+            ptr(db["row_slot"]), ptr(w), ptr(h), ptr(out),
+            int(items.shape[0]), d, ctypes.c_void_p(stream))
     check(rc, "na_seg_sum_f32")
     seg_sum_na.launches += 1
-    return out[: packed.num_dst]
+    return out
 
 
 def seg_sum_na(

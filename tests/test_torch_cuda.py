@@ -5,6 +5,8 @@ Every test here needs the card (marker ``cuda``) and skips without one; on
 the card run ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.  The
 file imports no JAX, so it runs where only PyTorch is installed.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -98,16 +100,101 @@ def test_softmax_stats_kernel_matches_plain(cuda_device, ns, nd, ne):
     assert torch.equal(m, m2) and torch.equal(s, s2)
 
 
+def _na_case(case):
+    """(packing, rows without edges) of a skewed or sparse stream."""
+    rng = np.random.default_rng(len(case))
+    if case == "hub":  # row 7 takes 6,000 in-edges from every band
+        src, dst = _edges(rng, 3000, 900, 4000)
+        src = np.concatenate([src, rng.integers(0, 3000, 6000)])
+        dst = np.concatenate([dst, np.full(6000, 7)])
+        o = np.lexsort((src, dst))
+        src, dst, ns, nd, w = src[o], dst[o], 3000, 900, None
+    else:  # rows 0-39 and 600-639 only: tiles 1-3 and row 640.. get nothing
+        src, dst = _edges(rng, 800, 80, 3000)
+        dst = np.where(dst < 40, dst, dst + 560)
+        ns, nd = 800, 700
+        w = None
+        if case == "zero_weight":  # a third of the edges weigh 0 but stay edges
+            w = rng.random(src.size).astype(np.float32)
+            w[::3] = 0.0
+    pk = pack_edge_blocks(src, dst, ns, nd, weight=w)
+    return pk, np.bincount(dst, minlength=nd) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 33, 64, 128])
+@pytest.mark.parametrize("case", ["hub", "empty", "zero_weight"])
+def test_seg_sum_kernel_skew_empty_rows_and_widths(cuda_device, case, d):
+    pk, empty = _na_case(case)
+    rng = np.random.default_rng(d)
+    # features over sqrt(max in-degree): the hub's sum stays of unit size
+    scale = 1.0 / np.sqrt(np.diff(pk.row_edges().row_ptr).max())
+    h = torch.from_numpy((rng.standard_normal((pk.num_src, d)) * scale)
+                         .astype(np.float32)).to(cuda_device)
+    w = torch.from_numpy((rng.random(pk.src_local.shape) * pk.valid_mask())
+                         .astype(np.float32)).to(cuda_device)
+    for weights in (None, w):
+        got = seg_sum_na(pk, h, weights)
+        again = seg_sum_na(pk, h, weights)
+        torch.cuda.synchronize()
+        assert got.shape == (pk.num_dst, d)
+        assert torch.equal(got, again)
+        want = seg_sum_plain(pk, h, weights)
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   atol=1e-4, rtol=1e-4)
+        assert (got[torch.from_numpy(empty).to(cuda_device)] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["hub", "empty", "zero_weight"])
+def test_softmax_stats_kernel_skew_empty_rows_zero_weights(cuda_device, case):
+    pk, empty = _na_case(case)
+    rng = np.random.default_rng(3)
+    logits = torch.from_numpy((rng.standard_normal(pk.num_edges) * 3)
+                              .astype(np.float32)).to(cuda_device)
+    lb = pk.scatter_blocks(logits, fill=-1e30)
+    m, s = edge_softmax_stats(pk, lb)
+    m2, s2 = edge_softmax_stats(pk, lb)
+    torch.cuda.synchronize()
+    assert torch.equal(m, m2) and torch.equal(s, s2)
+    m_p, s_p = softmax_stats_plain(pk, lb)
+    assert torch.equal(m, m_p)  # a max is exact
+    assert ((s - s_p).abs() / s_p.abs().clamp(min=1.0)).max().item() <= 1e-5
+    e = torch.from_numpy(empty).to(cuda_device)
+    assert (m[e] == -1e30).all() and (s[e] == 0).all()
+    assert (s[~e] >= 1).all()  # the max edge contributes exp(0)
+    if case == "zero_weight":  # validity comes from count, not the weights
+        bare = dataclasses.replace(pk, weight=None)
+        m_b, s_b = edge_softmax_stats(bare, lb)
+        assert torch.equal(m, m_b) and torch.equal(s, s_b)
+
+
 @pytest.mark.cuda
 def test_kernel_wrappers_check_operands(cuda_device):
     src, dst, ns, nd = _revisit()
     pk = pack_edge_blocks(src, dst, ns, nd)
+    h = torch.zeros(ns, 4, device=cuda_device)
+    w = torch.zeros(pk.src_local.shape, device=cuda_device)
     with pytest.raises(TypeError):
         seg_sum_na(pk, torch.zeros(ns, 4, dtype=torch.float64, device=cuda_device))
     with pytest.raises(ValueError):
         seg_sum_na(pk, torch.zeros(ns - 1, 4, device=cuda_device))
     with pytest.raises(ValueError):
         edge_softmax_stats(pk, torch.zeros(1, 256, device=cuda_device))
+    with pytest.raises(TypeError):
+        seg_sum_na(pk, h, w.double())
+    with pytest.raises(ValueError, match="weights must be"):
+        seg_sum_na(pk, h, torch.zeros(1, 256, device=cuda_device))
+    with pytest.raises(ValueError, match="one device"):
+        seg_sum_na(pk, h, w.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        seg_sum_na(pk, torch.zeros(4, ns, device=cuda_device).t(), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        seg_sum_na(pk, h, torch.zeros(w.shape[::-1], device=cuda_device).t())
+    with pytest.raises(TypeError):
+        edge_softmax_stats(pk, w.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        edge_softmax_stats(pk, torch.zeros(w.shape[::-1], device=cuda_device).t())
 
 
 def _bool_matrix(rng, rows, cols, density, device):
