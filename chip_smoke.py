@@ -50,8 +50,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    of 64, one group, state 128, chunk 128, float32) within 3e-4.  Each
    kernel repeats bit for bit; CUDA-event medians of kernel, plain version
    and library yardstick (``scaled_dot_product_attention`` with
-   ``enable_gqa``; none exists for SSD) beside the bound.  K4 once more at
-   ``prefill_32k``'s sequence (B = 1, S = 32,768), kernel and library only.
+   ``enable_gqa``; none exists for SSD) beside the bound, and for K4 also
+   the kernel's and the library call's device time (torch.profiler), which
+   leaves out the calls' host cost.  K4 once more at
+   ``prefill_32k``'s sequence (B = 1, S = 32,768), kernel and library only,
+   and at head dim 128 with minitron-4b's head layout (B = 1, 24 query and
+   8 KV heads, S = 4096).  The bf16 K4's registers, dynamic shared memory
+   and local (spill) bytes are printed as the runtime reports them.
 7. LM serving, a functional check and not a load: ``ServeEngine`` on
    full-width smollm-135m with ``launch/serve.py``'s defaults (6 requests,
    4 slots, prompt 6, 8 new tokens, max_len 64), twice: every request
@@ -64,7 +69,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    with the counters set to 0 just before and read just after: K4 must
    launch 30 times and K5 48 times per forward, logits must be finite and
    repeat bit for bit; the launches a forward should make follow from the
-   config's block pattern.  One forward of each is profiled.  Then the
+   config's block pattern.  One forward of each is profiled, with K4's and
+   K5's share of the device time.  Then the
    last-position logits of a B = 2, S = 256 prefill must match the card's
    own token-by-token decode of the same prompt (no kernel on that path)
    within 5e-2: at full depth for an attention stack, on the first 2
@@ -116,6 +122,7 @@ DECODE_BATCH, DECODE_SEQ = 2, 256  # prefill-vs-decode check
 # decode-vs-forward test, and the full depth is measured and printed.
 SSM_DECODE_GATE_LAYERS = 2
 K4_SHAPES = [(4, 9, 3, 2048, 64), (4, 9, 3, 4096, 64)]  # B, Hq, Hkv, S = T, Dh
+K4_DH128 = (1, 24, 8, 4096, 128)  # minitron-4b's head layout
 K4_F32_CASES = [  # test_flash_attention_sweep's softcap, S < T, window, Dh 128
     (1, 8, 2, 100, 100, 64, True, None, 50.0),
     (1, 4, 4, 96, 224, 64, True, None, None),
@@ -179,7 +186,10 @@ def _device_events(prof):
 def device_ms(fn, reps: int = 20) -> float:
     """Device time in ms of every kernel one call of ``fn`` launches, the
     mean over ``reps`` warm calls (torch.profiler): the call's host cost
-    left out.  None where the profiler saw no device event."""
+    left out.  None where the profiler saw no device event.  The sum is
+    divided by the launches the trace recorded of the call's longest
+    kernel, not by ``reps``: a trace can miss a launch of a kernel started
+    outside PyTorch (seen with K4: 10 of 11)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -189,7 +199,9 @@ def device_ms(fn, reps: int = 20) -> float:
             fn()
         torch.cuda.synchronize()
     rows = _device_events(prof)
-    return sum(r[0] for r in rows) / reps / 1e3 if rows else None
+    if not rows:
+        return None
+    return sum(r[0] for r in rows) / max(rows)[1] / 1e3
 
 
 def _ms(x) -> str:
@@ -645,6 +657,9 @@ def k4_shape(dev, gen, b, hq, hkv, s, dh):
         q, k, v, is_causal=True, enable_gqa=True), reps=reps)
     plain_ms = (median_ms(lambda: attention_plain(q, k, v, causal=True), reps=5)
                 if plain is not None else None)
+    dev_ms = device_ms(lambda: flash_attention(q, k, v, causal=True), reps=reps // 3 + 1)
+    lib_dev_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), reps=reps // 3 + 1)
     live_pairs = s * (s + 1) // 2
     flops = 4.0 * dh * live_pairs * hq * b
     nbytes = 2 * (2 * b * hq * s * dh + 2 * b * hkv * s * dh)  # q, o, k, v in bf16
@@ -652,6 +667,7 @@ def k4_shape(dev, gen, b, hq, hkv, s, dh):
     row = {"shape": f"B={b} Hq={hq} Hkv={hkv} S=T={s} Dh={dh} bf16 causal",
            "max_abs_err": err, "against": "plain" if ref is not lib else "library",
            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "device_ms": dev_ms, "library_device_ms": lib_dev_ms,
            "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "flops": flops, "bytes": nbytes,
@@ -660,7 +676,8 @@ def k4_shape(dev, gen, b, hq, hkv, s, dh):
           f"{tol}), |library - plain| = {lib_err:.3e}; run-to-run bitwise equal; "
           f"kernel {ms:.4f} ms, plain {plain_ms if plain_ms is None else round(plain_ms, 4)} ms, "
           f"library {lib_ms:.4f} ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']}; "
-          f"fp32 CUDA cores {row['fp32_cuda_core_ms']:.4f} ms)")
+          f"fp32 CUDA cores {row['fp32_cuda_core_ms']:.4f} ms); device time (profiler) "
+          f"kernel {_ms(dev_ms)}, library {_ms(lib_dev_ms)}")
     return row
 
 
@@ -701,7 +718,8 @@ def k5_shape(dev, gen, b, s, h, g, p, n, chunk):
 
 def phase_lm_kernels(dev):
     """Phase 6: K4 and K5 against their plain versions at the LM shapes."""
-    from repro_torch.kernels.flash_attention import attention_plain, flash_attention
+    from repro_torch.kernels.flash_attention import (attention_plain, flash_attention,
+                                                     kernel_info)
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     k4_rows = [k4_shape(dev, gen, *shape) for shape in K4_SHAPES]
@@ -719,6 +737,13 @@ def phase_lm_kernels(dev):
         require(torch.equal(out, again), "K4 f32 not bitwise repeatable")
         f32_err = max(f32_err, err)
     k4_rows.append(k4_shape(dev, gen, 1, 9, 3, PREFILL_32K, 64))
+    k4_rows.append(k4_shape(dev, gen, *K4_DH128))
+    for dh in (64, 128):
+        info = kernel_info(dh)
+        print(f"K4 bf16 kernel, head dim {dh}: {info['registers']} registers a thread, "
+              f"{info['shared_bytes']} bytes of dynamic shared memory, "
+              f"{info['local_bytes']} bytes of local memory a thread, "
+              f"{info['threads']} threads a CTA")
     k5_rows = [k5_shape(dev, gen, *shape) for shape in K5_SHAPES]
     return k4_rows, f32_err, k5_rows
 
@@ -845,8 +870,14 @@ def phase_lm_prefill(dev, models):
         require(bool(torch.isfinite(outs[0][..., :cfg.vocab_size]).all()),
                 f"{arch}: non-finite logits")
         require(torch.equal(outs[0], outs[1]), f"{arch}: logits differ between forwards")
-        prof_call(f"{arch} prefill B={LM_BATCH} S={LM_SEQ}",
-                  lambda: model.forward(params, tokens, last_only=True))
+        rows = prof_call(f"{arch} prefill B={LM_BATCH} S={LM_SEQ}",
+                         lambda: model.forward(params, tokens, last_only=True))
+        busy = sum(r[0] for r in rows)
+        for label, key in (("K4", "fa_forward"), ("K5", "ssd_chunk_scan")):
+            us = sum(r[0] for r in rows if key in r[2])
+            if us and busy:
+                print(f"profile {arch} prefill: {label} {us / 1e3:.3f} ms, "
+                      f"{100 * us / busy:.1f}% of the device time")
 
     for arch, (model, params) in models.items():
         cfg = model.cfg

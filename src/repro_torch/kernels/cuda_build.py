@@ -48,8 +48,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     },
     "flash_attention": {
         # q, k, v, o, b, hq, hkv, s_len, t_len, dh, bf16, scale, causal,
-        # window, softcap, stream
-        "fa_forward": [_P] * 4 + [_I] * 7 + [_F, _I, _I, _F, _P],
+        # window, softcap, strides (12 int64), stream
+        "fa_forward": [_P] * 4 + [_I] * 7 + [_F, _I, _I, _F, _P, _P],
+        # dh, info (4 ints: registers, dynamic shared bytes, local bytes, threads)
+        "fa_wgmma_info": [_I, _P],
     },
     "ssd_scan": {
         # x, a, b, c, y, batch, seq, h, g, p_dim, n_dim, chunk, stream

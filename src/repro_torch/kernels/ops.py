@@ -28,10 +28,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, window: Optional[int] = None,
               softcap: Optional[float] = None) -> torch.Tensor:
     """Multi-head attention ``(B, Hq, S, Dh) x (B, Hkv, T, Dh) -> (B, Hq, S,
-    Dh)``, scaled by ``Dh ** -0.5``, through K4 (any layout; made
-    contiguous here)."""
-    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                           causal=causal, window=window, softcap=softcap)
+    Dh)``, scaled by ``Dh ** -0.5``, through K4.  The kernel reads strided
+    views as they are (the last dimension contiguous), so nothing is copied
+    here; the output has ``q``'s layout."""
+    return flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
 
 
 def ssd(x: torch.Tensor, a_log: torch.Tensor, b_coef: torch.Tensor,

@@ -43,11 +43,16 @@ def rope_cos_sin(positions: torch.Tensor, dim: int, theta: float = 1e4
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """x (B, H, S, Dh); cos/sin (B, S, Dh/2) — rotate-half convention."""
+    """x (B, H, S, Dh); cos/sin (B, S, Dh/2) — rotate-half convention.  The
+    result keeps ``x``'s memory layout, so a (B, S, H, Dh) view stays one and
+    K4 reads it, and writes its output in it, without a copy."""
     d2 = x.shape[-1] // 2
     x1, x2 = x[..., :d2], x[..., d2:]
     c, s = cos[:, None], sin[:, None]
-    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+    out = torch.empty_like(x)
+    out[..., :d2] = x1 * c - x2 * s
+    out[..., d2:] = x2 * c + x1 * s
+    return out
 
 
 def write_at(buf: torch.Tensor, new: torch.Tensor, pos) -> torch.Tensor:

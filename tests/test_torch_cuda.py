@@ -350,6 +350,91 @@ def test_flash_attention_wrapper_checks_operands(cuda_device):
         flash_attention(torch.zeros((1, 3, 8, 64), device=cuda_device), k, k)
 
 
+# the bf16 kernel's 128-row query tiles and 128-key tiles: S = T one past a
+# tile, one short of two and ragged at 1000, at both head dims; S < T with
+# windows whose edge falls mid-tile; and B * Hq large enough for several
+# waves of CTAs on 132 SMs
+FA_TILE_CASES = [
+    (1, 2, 1, 129, 129, 64, True, None, None),
+    (1, 2, 1, 129, 129, 128, True, None, None),
+    (1, 2, 1, 255, 255, 64, True, None, None),
+    (1, 2, 1, 255, 255, 128, True, None, None),
+    (1, 3, 1, 1000, 1000, 64, True, None, None),
+    (1, 3, 1, 1000, 1000, 128, True, None, None),
+    (1, 4, 2, 200, 700, 64, True, 100, None),
+    (1, 4, 2, 200, 700, 128, True, 100, None),
+    (1, 4, 2, 300, 650, 64, False, 190, 20.0),
+    (8, 32, 8, 512, 512, 64, True, None, None),
+    (4, 24, 8, 1024, 1024, 128, True, None, None),
+]
+
+
+def _rand_cuda(rng, shape, device, dtype):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,s,t,dh,causal,window,cap", FA_TILE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_tile_edges(cuda_device, b, hq, hkv, s, t, dh, causal,
+                                           window, cap, dtype):
+    rng = np.random.default_rng(b * 100000 + s * 10 + dh)
+    q = _rand_cuda(rng, (b, hq, s, dh), cuda_device, dtype)
+    k = _rand_cuda(rng, (b, hkv, t, dh), cuda_device, dtype)
+    v = _rand_cuda(rng, (b, hkv, t, dh), cuda_device, dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
+    again = flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    want = attention_plain(q, k, v, causal=causal, window=window, softcap=cap)
+    tol = 3e-2 if dtype == torch.bfloat16 else 2e-5
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=tol)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_reads_strided_views(cuda_device, dh, dtype):
+    """q, k, v as (B, S, H, Dh) tensors seen as (B, H, S, Dh), as the LM's
+    attention makes them: the kernel reads them as they are, gives the
+    output q's layout, and matches the contiguous copies bit for bit."""
+    rng = np.random.default_rng(dh)
+    b, hq, hkv, s = 2, 6, 2, 300
+    q = _rand_cuda(rng, (b, s, hq, dh), cuda_device, dtype).transpose(1, 2)
+    k = _rand_cuda(rng, (b, s, hkv, dh), cuda_device, dtype).transpose(1, 2)
+    v = _rand_cuda(rng, (b, s, hkv, dh), cuda_device, dtype).transpose(1, 2)
+    assert not q.is_contiguous()
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=True)
+    want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    assert got.stride() == q.stride()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_flash_attention_wrapper_checks_layout_and_scale(cuda_device):
+    """The bf16 kernel's tensor maps need 16-byte strides and addresses, and
+    its softmax a positive scale."""
+    base = torch.zeros((1, 2, 16, 72), device=cuda_device, dtype=torch.bfloat16)
+    k = torch.zeros((1, 1, 16, 64), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_attention(base[..., 1:65], k, k)  # 2-byte offset
+    odd = torch.zeros((1, 2, 16 * 68), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16 bytes"):  # rows 68 elements apart
+        flash_attention(odd.view(1, 2, 16, 68)[..., :64], k, k)
+    with pytest.raises(ValueError, match="positive scale"):
+        flash_attention(base[..., :64], k, k, scale=-0.125)
+    # float32 reads any stride
+    qf = torch.zeros((1, 2, 16, 65), device=cuda_device)[..., 1:]
+    out = flash_attention(qf, k.float(), k.float())
+    assert out.shape == (1, 2, 16, 64)
+
+
 # ----------------------------------------------------------------- K5 -----
 SSD_CASES = [  # b, s, h, g, p, n, chunk
     (2, 128, 4, 2, 32, 16, 32),
