@@ -44,17 +44,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    session's on the same card bit for bit.
 6. LM kernels: K4 (flash attention) at smollm-135m's prefill shapes (B = 4,
    9 query and 3 KV heads, head dim 64, S = T = 2048 and 4096, bf16,
-   causal) against its plain version within 3e-2, and in float32 on the
+   causal) against its plain version within 3e-2 and against the plain
+   version in float32 per element (4e-3 + 2^-6 |ref|) and per 128-row
+   query tile (relative RMS error at most 1e-2, which a planted fault, one
+   key tile dropped from the last rows, must exceed), and in float32 on the
    sweep's softcap, S < T, window and head-dim-128 cases within 2e-5; K5
    (SSD scan) at mamba2-370m's shapes (B = 4, S = 2048 and 4096, 32 heads
    of 64, one group, state 128, chunk 128, float32) within 3e-4.  Each
    kernel repeats bit for bit; CUDA-event medians of kernel, plain version
    and library yardstick (``scaled_dot_product_attention`` with
    ``enable_gqa``; none exists for SSD) beside the bound, and for K4 also
-   the kernel's and the library call's device time (torch.profiler), which
-   leaves out the calls' host cost.  K4 once more at
-   ``prefill_32k``'s sequence (B = 1, S = 32,768), kernel and library only,
-   and at head dim 128 with minitron-4b's head layout (B = 1, 24 query and
+   the kernel's and the library call's time with the card's queue full
+   (calls issued behind a device sleep), which leaves out the calls' host
+   cost, and their host time to issue a call.  K4 once more at
+   ``prefill_32k``'s sequence (B = 1, S = 32,768), against the library
+   call and, on three blocks of 256 rows, the float32 plain version, and
+   at head dim 128 with minitron-4b's head layout (B = 1, 24 query and
    8 KV heads, S = 4096).  The bf16 K4's registers, dynamic shared memory
    and local (spill) bytes are printed as the runtime reports them.
 7. LM serving, a functional check and not a load: ``ServeEngine`` on
@@ -109,6 +114,12 @@ FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 INT8_OP_PER_S = 1979e12  # H100 SXM int8 tensor cores, dense (exact for 0/1)
 BF16_FLOP_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 K4_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}  # test_kernels.py:98
+# K4 bf16 against its float32 plain version, per element and per 128-row
+# query tile.  Sound: the bf16 rounding of P and of the output, about 2e-3
+# of a tile's RMS; a dropped key tile at S = 32k moves the last rows by
+# about sqrt(128 / S) = 6e-2 of it (PERF.md, section 6).
+K4_BF16_ATOL, K4_BF16_RTOL = 4e-3, 2 ** -6
+K4_TILE_RMS = 1e-2
 K5_TOL = 3e-4  # test_kernels.py:125
 LM_LOGIT_TOL = 5e-2  # decode-vs-forward tolerance, test_models_lm.py:80
 LM_BATCH, LM_SEQ = 4, 2048  # the prefill phase's batch and sequence
@@ -183,13 +194,13 @@ def _device_events(prof):
     return rows
 
 
-def device_ms(fn, reps: int = 20) -> float:
+def device_ms(label: str, fn, reps: int = 20):
     """Device time in ms of every kernel one call of ``fn`` launches, the
     mean over ``reps`` warm calls (torch.profiler): the call's host cost
-    left out.  None where the profiler saw no device event.  The sum is
-    divided by the launches the trace recorded of the call's longest
-    kernel, not by ``reps``: a trace can miss a launch of a kernel started
-    outside PyTorch (seen with K4: 10 of 11)."""
+    left out.  Prints the launches the trace recorded beside the time.  A
+    trace can miss a launch, so every kernel must show a multiple of
+    ``reps``; else, as when it saw no device event, the time is not
+    measured (None)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -199,9 +210,34 @@ def device_ms(fn, reps: int = 20) -> float:
             fn()
         torch.cuda.synchronize()
     rows = _device_events(prof)
-    if not rows:
+    counts = sorted({r[1] for r in rows})
+    if not rows or any(c % reps for c in counts):
+        print(f"device time {label}: not measured (launches a kernel recorded over "
+              f"{reps} calls: {counts or 'none'})")
         return None
-    return sum(r[0] for r in rows) / max(rows)[1] / 1e3
+    ms = sum(r[0] for r in rows) / reps / 1e3
+    print(f"device time {label}: {ms:.4f} ms a call; {len(rows)} kernel(s), launches "
+          f"recorded over {reps} calls: {counts}")
+    return ms
+
+
+def queued_ms(fn, reps: int = 20) -> float:
+    """ms a call of ``fn`` with the card's queue full: CUDA events around
+    ``reps`` calls issued while the card sleeps (``torch.cuda._sleep``), so
+    the calls run back to back and their host cost is hidden.  Unlike
+    ``device_ms`` it needs no trace (which loses the last of a run of long
+    kernels) and counts the gaps between launches."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # about 50 ms: longer than issuing the calls
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def _ms(x) -> str:
@@ -291,8 +327,8 @@ def na_kernels_on(pk, label: str, dev):
     k1_ms = median_ms(lambda: seg_sum_na(pk, h, w_rand))
     k1_plain = median_ms(lambda: seg_sum_plain(pk, h, w_rand), reps=10)
     k1_lib = median_ms(k1_library)
-    k1_dev = device_ms(lambda: seg_sum_na(pk, h, w_rand))
-    k1_lib_dev = device_ms(k1_library)
+    k1_dev = device_ms(f"K1 {label}", lambda: seg_sum_na(pk, h, w_rand))
+    k1_lib_dev = device_ms(f"K1 library {label}", k1_library)
     k1_host = host_us(lambda: seg_sum_na(pk, h, w_rand))
     meta = nb * 4 * 2 + nb * 4 + (tiles + 1) * 4  # band, count, tile list
     k1_bytes = n_edges * (2 + 2 + 4) + pk.num_src * D * 4 + pk.num_dst * D * 4 + meta
@@ -338,8 +374,8 @@ def na_kernels_on(pk, label: str, dev):
     k2_ms = median_ms(lambda: edge_softmax_stats(pk, logits))
     k2_plain = median_ms(lambda: softmax_stats_plain(pk, logits), reps=10)
     k2_lib = median_ms(k2_library)
-    k2_dev = device_ms(lambda: edge_softmax_stats(pk, logits))
-    k2_lib_dev = device_ms(k2_library)
+    k2_dev = device_ms(f"K2 {label}", lambda: edge_softmax_stats(pk, logits))
+    k2_lib_dev = device_ms(f"K2 library {label}", k2_library)
     k2_host = host_us(lambda: edge_softmax_stats(pk, logits))
     k2_bytes = n_edges * (2 + 4) + nb * 4 + nb * 4 + (tiles + 1) * 4 + pk.num_dst * 8
     k2_bound, k2_by = bound(k2_bytes, 6.0 * n_edges)
@@ -628,6 +664,60 @@ def _randn(gen, shape, dev, dtype=torch.float32, scale=1.0):
     return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
 
+def k4_blocks(s: int) -> list:
+    """Query-row blocks ``(first row, rows)`` of a causal S = T shape that
+    K4 is held to its float32 plain version on: all rows up to S = 4096,
+    else 256 rows at the start, the middle and the end (each block's keys
+    end at its last row, so the plain version of a block is exact)."""
+    if s <= 4096:
+        return [(0, s)]
+    return [(0, 256), (s // 2 - 128, 256), (s - 256, 256)]
+
+
+def tile_rms(out, ref) -> torch.Tensor:
+    """Per (batch, head, 128-row query tile): ||out - ref|| / ||ref||."""
+    import torch.nn.functional as F
+
+    b, h, s, dh = ref.shape
+    n = -(-s // 128)
+
+    def per_tile(x):
+        return F.pad(x, (0, 0, 0, n * 128 - s)).reshape(b, h, n, -1).sum(-1)
+    return (per_tile((out.float() - ref).square()) / per_tile(ref.square())).sqrt()
+
+
+def k4_gate_f32(q, k, v, out, lib):
+    """K4's bf16 causal output ``out`` on ``k4_blocks`` against the float32
+    plain version: the largest ``|out - ref| / (K4_BF16_ATOL + K4_BF16_RTOL
+    |ref|)`` (at most 1) and the largest per-tile relative RMS error (at
+    most K4_TILE_RMS); the library output's tile reading; and the tile
+    reading of a planted fault: the plain version of the last 256 rows with
+    one interior key tile of 128 dropped, the fault the kernel's tile plan
+    could make, which the gate must reject."""
+    from repro_torch.kernels.flash_attention import attention_plain
+
+    s = q.shape[2]
+    elem = rms = lib_rms = 0.0
+    for a, r in k4_blocks(s):
+        ref = attention_plain(q[:, :, a:a + r].float(), k[:, :, :a + r].float(),
+                              v[:, :, :a + r].float(), causal=True)
+        got = out[:, :, a:a + r].float()
+        elem = max(elem, ((got - ref).abs() / (K4_BF16_ATOL + K4_BF16_RTOL * ref.abs()))
+                   .max().item())
+        rms = max(rms, tile_rms(got, ref).max().item())
+        lib_rms = max(lib_rms, tile_rms(lib[:, :, a:a + r], ref).max().item())
+    # every key of the dropped tile lies before the block's first row, so
+    # the plain version over the keys without it is the faulty kernel's output
+    d0 = (s - 256) // 256 * 128
+    keep = torch.cat([torch.arange(d0, device=q.device),
+                      torch.arange(d0 + 128, s, device=q.device)])
+    qb = q[:, :, s - 256:].float()
+    fault = attention_plain(qb, k[:, :, keep].float(), v[:, :, keep].float(), causal=True)
+    fault_rms = tile_rms(fault, attention_plain(qb, k.float(), v.float(),
+                                                causal=True)).max().item()
+    return elem, rms, lib_rms, fault_rms
+
+
 def k4_shape(dev, gen, b, hq, hkv, s, dh):
     """K4 at one bf16 causal prefill shape (S = T): agreement with the plain
     version and the library call, repeatability, times and bound."""
@@ -651,23 +741,37 @@ def k4_shape(dev, gen, b, hq, hkv, s, dh):
             f"at B={b} S={s}: {err}")
     require(lib_err <= tol, f"K4 library yardstick disagrees at S={s}: {lib_err}")
     require(torch.equal(out, again), f"K4 not bitwise repeatable at S={s}")
+    elem, rms, lib_rms, fault_rms = k4_gate_f32(q, k, v, out, lib)
+    print(f"K4 S={s} Dh={dh} against the float32 plain version on rows {k4_blocks(s)}: "
+          f"max|d| / ({K4_BF16_ATOL} + {K4_BF16_RTOL}|ref|) = {elem:.3f} (at most 1); "
+          f"largest 128-row tile ||d|| / ||ref|| = {rms:.3e} (library {lib_rms:.3e}; "
+          f"at most {K4_TILE_RMS}); planted fault (one key tile dropped from the last "
+          f"256 rows) reads {fault_rms:.3e}")
+    require(elem <= 1.0, f"K4 disagrees with its float32 plain version at S={s}: {elem}")
+    require(rms <= K4_TILE_RMS, f"K4 tile error {rms} over {K4_TILE_RMS} at S={s}")
+    require(fault_rms > K4_TILE_RMS, f"K4 gate would pass a dropped key tile at S={s}")
     reps = 30 if s <= 4096 else 5
     ms = median_ms(lambda: flash_attention(q, k, v, causal=True), reps=reps)
     lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), reps=reps)
     plain_ms = (median_ms(lambda: attention_plain(q, k, v, causal=True), reps=5)
                 if plain is not None else None)
-    dev_ms = device_ms(lambda: flash_attention(q, k, v, causal=True), reps=reps // 3 + 1)
-    lib_dev_ms = device_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), reps=reps // 3 + 1)
+    q_ms = queued_ms(lambda: flash_attention(q, k, v, causal=True), reps=reps)
+    lib_q_ms = queued_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), reps=reps)
+    host = host_us(lambda: flash_attention(q, k, v, causal=True), reps=4 * reps)
+    lib_host = host_us(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), reps=4 * reps)
     live_pairs = s * (s + 1) // 2
     flops = 4.0 * dh * live_pairs * hq * b
     nbytes = 2 * (2 * b * hq * s * dh + 2 * b * hkv * s * dh)  # q, o, k, v in bf16
     t_ops, t_bytes = flops / BF16_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     row = {"shape": f"B={b} Hq={hq} Hkv={hkv} S=T={s} Dh={dh} bf16 causal",
            "max_abs_err": err, "against": "plain" if ref is not lib else "library",
+           "f32_elem_ratio": elem, "f32_tile_rms": rms, "fault_tile_rms": fault_rms,
            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-           "device_ms": dev_ms, "library_device_ms": lib_dev_ms,
+           "queued_ms": q_ms, "library_queued_ms": lib_q_ms,
+           "host_us_per_call": host, "library_host_us_per_call": lib_host,
            "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "flops": flops, "bytes": nbytes,
@@ -676,8 +780,9 @@ def k4_shape(dev, gen, b, hq, hkv, s, dh):
           f"{tol}), |library - plain| = {lib_err:.3e}; run-to-run bitwise equal; "
           f"kernel {ms:.4f} ms, plain {plain_ms if plain_ms is None else round(plain_ms, 4)} ms, "
           f"library {lib_ms:.4f} ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']}; "
-          f"fp32 CUDA cores {row['fp32_cuda_core_ms']:.4f} ms); device time (profiler) "
-          f"kernel {_ms(dev_ms)}, library {_ms(lib_dev_ms)}")
+          f"fp32 CUDA cores {row['fp32_cuda_core_ms']:.4f} ms); queue full kernel "
+          f"{q_ms:.4f} ms, library {lib_q_ms:.4f} ms; host issue "
+          f"kernel {host:.1f} us, library {lib_host:.1f} us a call")
     return row
 
 
