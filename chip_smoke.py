@@ -60,8 +60,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``prefill_32k``'s sequence (B = 1, S = 32,768), against the library
    call and, on three blocks of 256 rows, the float32 plain version, and
    at head dim 128 with minitron-4b's head layout (B = 1, 24 query and
-   8 KV heads, S = 4096).  The bf16 K4's registers, dynamic shared memory
-   and local (spill) bytes are printed as the runtime reports them.
+   8 KV heads, S = 4096), and at gemma2-2b's local layer (B = 1, 8 query
+   and 4 KV heads of 256, S = 8192, causal, window 4096, softcap 50; the
+   library call there is causal attention without window or softcap, a
+   yardstick of time only).  The bf16 K4's registers, dynamic shared memory
+   and local (spill) bytes are printed as the runtime reports them, at
+   head dims 64, 128 and 256.  K5's plain version runs with TF32 off;
+   beside K5 run the same passes on the CUDA cores (float32 FFMA), and a
+   planted fault (the plain version of the second half of the sequence
+   alone, which drops the state carried across the midpoint) must break
+   K5's tolerance.
 7. LM serving, a functional check and not a load: ``ServeEngine`` on
    full-width smollm-135m with ``launch/serve.py``'s defaults (6 requests,
    4 slots, prompt 6, 8 new tokens, max_len 64), twice: every request
@@ -69,18 +77,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    per second are printed as a smoke reading; at this size they are mostly
    per-call host overhead.
 8. LM prefill: ``LM.forward(params, tokens, last_only=True)`` of
-   full-width smollm-135m (30 layers) and mamba2-370m (48 layers), weights
-   from the port's init with seed 0, at B = 4, S = 2048, two forwards each
-   with the counters set to 0 just before and read just after: K4 must
-   launch 30 times and K5 48 times per forward, logits must be finite and
+   full-width smollm-135m (30 layers), mamba2-370m (48 layers) and
+   gemma2-2b (26 layers, head dim 256), weights from the port's init with
+   seed 0, at B = 4, S = 2048, two forwards each with the counters set to
+   0 just before and read just after: K4 must launch 30 times (smollm) and
+   26 times (gemma2) and K5 48 times per forward, logits must be finite and
    repeat bit for bit; the launches a forward should make follow from the
-   config's block pattern.  One forward of each is profiled, with K4's and
-   K5's share of the device time.  Then the
+   config's block pattern.  One forward of each is profiled, with K4's
+   share of the device time and K5's, summed over its four passes and
+   each pass's own.  Then the
    last-position logits of a B = 2, S = 256 prefill must match the card's
    own token-by-token decode of the same prompt (no kernel on that path)
-   within 5e-2: at full depth for an attention stack, on the first 2
-   layers for one with SSM mixers (see ``SSM_DECODE_GATE_LAYERS``; the full
-   depth is printed).
+   within 5e-2: on the first 2 layers for a stack with SSM mixers (see
+   ``SSM_DECODE_GATE_LAYERS``; the full depth is printed), at full depth
+   for an attention stack, whose prefill also runs with the float32 plain
+   attention in place of K4 as a control: K4's gap to decode and its
+   distance from the control must stay within 3 times the control's gap
+   to decode, and within 5e-2 where the control's gap is (not gemma2-2b,
+   whose bf16 logits reach 7.6; see ``DECODE_DEPTH_FACTOR``).
 9. Report: one JSON line ``{"kernels": [...]}``, the card line, and last
    the contract line ``{"ok": true, "device": {...}}``.
 
@@ -91,6 +105,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -113,6 +128,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 INT8_OP_PER_S = 1979e12  # H100 SXM int8 tensor cores, dense (exact for 0/1)
 BF16_FLOP_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
+TF32_FLOP_PER_S = 495e12  # H100 SXM TF32 tensor cores, dense
 K4_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}  # test_kernels.py:98
 # K4 bf16 against its float32 plain version, per element and per 128-row
 # query tile.  Sound: the bf16 rounding of P and of the output, about 2e-3
@@ -132,8 +148,20 @@ DECODE_BATCH, DECODE_SEQ = 2, 256  # prefill-vs-decode check
 # takes the first 2 layers, the depth of the reference suite's own
 # decode-vs-forward test, and the full depth is measured and printed.
 SSM_DECODE_GATE_LAYERS = 2
+# An attention stack's prefill also runs with the float32 plain attention in
+# place of K4 (a control).  K4's gap to decode and its distance from the
+# control must each stay within DECODE_DEPTH_FACTOR times the control's gap
+# to decode (a fault of K4 or of its wiring gives a gap the size of the
+# logits), and within LM_LOGIT_TOL where the control's gap is.  The logits
+# are a bf16 product: at gemma2-2b's full-width magnitudes (up to 7.6, a
+# bf16 step of 2^-5) a few steps exceed LM_LOGIT_TOL, and the control misses
+# it against decode by as much as K4 does (PERF.md, section 6).
+DECODE_DEPTH_FACTOR = 3  # tests/test_torch_lm.py's DEPTH_FACTOR
 K4_SHAPES = [(4, 9, 3, 2048, 64), (4, 9, 3, 4096, 64)]  # B, Hq, Hkv, S = T, Dh
 K4_DH128 = (1, 24, 8, 4096, 128)  # minitron-4b's head layout
+# gemma2-2b's local layer at twice its window: B, Hq, Hkv, S = T, Dh, window, softcap
+K4_GEMMA_LOCAL = (1, 8, 4, 8192, 256, 4096, 50.0)
+K4_PLAIN_LOGITS = 4 * 9 * 4096 * 4096  # the largest B * Hq * S * T run in full plain
 K4_F32_CASES = [  # test_flash_attention_sweep's softcap, S < T, window, Dh 128
     (1, 8, 2, 100, 100, 64, True, None, 50.0),
     (1, 4, 4, 96, 224, 64, True, None, None),
@@ -141,6 +169,8 @@ K4_F32_CASES = [  # test_flash_attention_sweep's softcap, S < T, window, Dh 128
     (1, 2, 1, 64, 64, 128, False, None, None),
 ]
 K5_SHAPES = [(4, 2048, 32, 1, 64, 128, 128), (4, 4096, 32, 1, 64, 128, 128)]  # B,S,H,G,P,N,L
+K5_TF32_PRODUCTS = 3  # 3xTF32: each float32 product is three TF32 products
+LM_ARCHS = ("smollm-135m", "mamba2-370m", "gemma2-2b")  # phase 8's full-width models
 PREFILL_32K = 32768
 SGB_WORKLOADS = {  # dataset -> SGB targets, composed at scale 1.0
     "ACM": ["APA", "PAP", "PSP"],
@@ -506,6 +536,13 @@ def prof_call(label: str, fn) -> list:
     return rows
 
 
+def kernel_name(key: str) -> str:
+    """A device kernel's own name out of the profiler's demangled key
+    (``void (anonymous namespace)::ssd_output_kernel<true>(...)``)."""
+    m = re.search(r"(\w+)(<[^()]*>)?\(", key)
+    return m.group(1) + (m.group(2) or "") if m else key[:60]
+
+
 def _edges_equal(a, b) -> bool:
     return ((a.num_src, a.num_dst) == (b.num_src, b.num_dst)
             and np.array_equal(a.src, b.src) and np.array_equal(a.dst, b.dst))
@@ -686,90 +723,129 @@ def tile_rms(out, ref) -> torch.Tensor:
     return (per_tile((out.float() - ref).square()) / per_tile(ref.square())).sqrt()
 
 
-def k4_gate_f32(q, k, v, out, lib):
+def plain_rows(q, k, v, first, window=None, softcap=None, drop=None):
+    """float32 plain attention of the query rows ``q`` (key positions
+    ``first`` on; S = T, causal) over all of ``k`` and ``v``, with the key
+    range ``drop`` masked out where given: the output of a kernel that
+    skipped that key tile."""
+    from repro_torch.kernels.flash_attention import NEG
+
+    rows, dh, t = q.shape[2], q.shape[3], k.shape[2]
+    g = q.shape[1] // k.shape[1]
+    kf = k.float().repeat_interleave(g, dim=1)
+    logits = (q.float() @ kf.transpose(-1, -2)) * dh ** -0.5
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    qpos = torch.arange(first, first + rows, device=q.device)[:, None]
+    kpos = torch.arange(t, device=q.device)[None, :]
+    live = kpos <= qpos
+    if window is not None:
+        live &= kpos > qpos - window
+    if drop is not None:
+        live[:, drop] = False
+    p = torch.softmax(logits.masked_fill(~live, NEG), dim=-1)
+    return p @ v.float().repeat_interleave(g, dim=1)
+
+
+def k4_gate_f32(q, k, v, out, lib, window=None, softcap=None):
     """K4's bf16 causal output ``out`` on ``k4_blocks`` against the float32
     plain version: the largest ``|out - ref| / (K4_BF16_ATOL + K4_BF16_RTOL
     |ref|)`` (at most 1) and the largest per-tile relative RMS error (at
-    most K4_TILE_RMS); the library output's tile reading; and the tile
-    reading of a planted fault: the plain version of the last 256 rows with
-    one interior key tile of 128 dropped, the fault the kernel's tile plan
-    could make, which the gate must reject."""
+    most K4_TILE_RMS); the library output's tile reading (None where it
+    computes another function); and the tile reading of a planted fault:
+    the last 256 rows with one interior key tile (of the kernel's tile
+    width at this head dim) dropped from the keys every one of them sees,
+    the fault the kernel's tile plan could make, which the gate must
+    reject."""
     from repro_torch.kernels.flash_attention import attention_plain
 
-    s = q.shape[2]
+    s, dh = q.shape[2], q.shape[3]
+    kw = dict(causal=True, window=window, softcap=softcap)
     elem = rms = lib_rms = 0.0
     for a, r in k4_blocks(s):
         ref = attention_plain(q[:, :, a:a + r].float(), k[:, :, :a + r].float(),
-                              v[:, :, :a + r].float(), causal=True)
+                              v[:, :, :a + r].float(), **kw)
         got = out[:, :, a:a + r].float()
         elem = max(elem, ((got - ref).abs() / (K4_BF16_ATOL + K4_BF16_RTOL * ref.abs()))
                    .max().item())
         rms = max(rms, tile_rms(got, ref).max().item())
-        lib_rms = max(lib_rms, tile_rms(lib[:, :, a:a + r], ref).max().item())
-    # every key of the dropped tile lies before the block's first row, so
-    # the plain version over the keys without it is the faulty kernel's output
-    d0 = (s - 256) // 256 * 128
-    keep = torch.cat([torch.arange(d0, device=q.device),
-                      torch.arange(d0 + 128, s, device=q.device)])
-    qb = q[:, :, s - 256:].float()
-    fault = attention_plain(qb, k[:, :, keep].float(), v[:, :, keep].float(), causal=True)
-    fault_rms = tile_rms(fault, attention_plain(qb, k.float(), v.float(),
-                                                causal=True)).max().item()
-    return elem, rms, lib_rms, fault_rms
+        if lib is not None:
+            lib_rms = max(lib_rms, tile_rms(lib[:, :, a:a + r], ref).max().item())
+    bk = 64 if dh == 256 else 128  # keys per tile (csrc/flash_attention.cu, kBlockK)
+    first = s - 256
+    lo = max(0, s - window) if window is not None else 0  # every last row sees keys lo..first
+    d0 = (lo + first) // 2 // bk * bk  # a tile in the middle of them
+    qb = q[:, :, first:]
+    fault = plain_rows(qb, k, v, first, window, softcap, drop=slice(d0, d0 + bk))
+    fault_rms = tile_rms(fault, plain_rows(qb, k, v, first, window, softcap)).max().item()
+    return elem, rms, (lib_rms if lib is not None else None), fault_rms
 
 
-def k4_shape(dev, gen, b, hq, hkv, s, dh):
+def k4_shape(dev, gen, b, hq, hkv, s, dh, window=None, softcap=None):
     """K4 at one bf16 causal prefill shape (S = T): agreement with the plain
-    version and the library call, repeatability, times and bound."""
+    version and the library call, repeatability, times and bound.  With a
+    window or softcap the library call (which takes neither) is causal
+    attention at the same shape, a yardstick of time that is not compared."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import attention_plain, flash_attention
 
+    kw = dict(causal=True, window=window, softcap=softcap)
+    same_fn = window is None and softcap is None
     q = _randn(gen, (b, hq, s, dh), dev, torch.bfloat16)
     k = _randn(gen, (b, hkv, s, dh), dev, torch.bfloat16)
     v = _randn(gen, (b, hkv, s, dh), dev, torch.bfloat16)
-    out = flash_attention(q, k, v, causal=True)
-    again = flash_attention(q, k, v, causal=True)
+    out = flash_attention(q, k, v, **kw)
+    again = flash_attention(q, k, v, **kw)
     lib = F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
-    plain = attention_plain(q, k, v, causal=True) if s <= 4096 else None
+    plain = attention_plain(q, k, v, **kw) if b * hq * s * s <= K4_PLAIN_LOGITS else None
     torch.cuda.synchronize()
     ref = plain if plain is not None else lib
     err = (out.float() - ref.float()).abs().max().item()
-    lib_err = (lib.float() - ref.float()).abs().max().item() if plain is not None else 0.0
+    lib_err = ((lib.float() - ref.float()).abs().max().item()
+               if plain is not None and same_fn else 0.0)
     tol = K4_TOL[torch.bfloat16]
+    label = f"S={s} Dh={dh}" + ("" if same_fn else f" window={window} softcap={softcap}")
     require(err <= tol, f"K4 disagrees with its {'plain version' if plain is not None else 'library yardstick'} "
-            f"at B={b} S={s}: {err}")
-    require(lib_err <= tol, f"K4 library yardstick disagrees at S={s}: {lib_err}")
-    require(torch.equal(out, again), f"K4 not bitwise repeatable at S={s}")
-    elem, rms, lib_rms, fault_rms = k4_gate_f32(q, k, v, out, lib)
-    print(f"K4 S={s} Dh={dh} against the float32 plain version on rows {k4_blocks(s)}: "
+            f"at B={b} {label}: {err}")
+    require(lib_err <= tol, f"K4 library yardstick disagrees at {label}: {lib_err}")
+    require(torch.equal(out, again), f"K4 not bitwise repeatable at {label}")
+    elem, rms, lib_rms, fault_rms = k4_gate_f32(q, k, v, out, lib if same_fn else None,
+                                                window, softcap)
+    print(f"K4 {label} against the float32 plain version on rows {k4_blocks(s)}: "
           f"max|d| / ({K4_BF16_ATOL} + {K4_BF16_RTOL}|ref|) = {elem:.3f} (at most 1); "
-          f"largest 128-row tile ||d|| / ||ref|| = {rms:.3e} (library {lib_rms:.3e}; "
+          f"largest 128-row tile ||d|| / ||ref|| = {rms:.3e} (library "
+          f"{'not the same function' if lib_rms is None else f'{lib_rms:.3e}'}; "
           f"at most {K4_TILE_RMS}); planted fault (one key tile dropped from the last "
-          f"256 rows) reads {fault_rms:.3e}")
-    require(elem <= 1.0, f"K4 disagrees with its float32 plain version at S={s}: {elem}")
-    require(rms <= K4_TILE_RMS, f"K4 tile error {rms} over {K4_TILE_RMS} at S={s}")
-    require(fault_rms > K4_TILE_RMS, f"K4 gate would pass a dropped key tile at S={s}")
+          f"256 rows) reads {fault_rms:.3e}, {fault_rms / K4_TILE_RMS:.1f}x the limit")
+    require(elem <= 1.0, f"K4 disagrees with its float32 plain version at {label}: {elem}")
+    require(rms <= K4_TILE_RMS, f"K4 tile error {rms} over {K4_TILE_RMS} at {label}")
+    require(fault_rms > K4_TILE_RMS, f"K4 gate would pass a dropped key tile at {label}")
     reps = 30 if s <= 4096 else 5
-    ms = median_ms(lambda: flash_attention(q, k, v, causal=True), reps=reps)
+    ms = median_ms(lambda: flash_attention(q, k, v, **kw), reps=reps)
     lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), reps=reps)
-    plain_ms = (median_ms(lambda: attention_plain(q, k, v, causal=True), reps=5)
+    plain_ms = (median_ms(lambda: attention_plain(q, k, v, **kw), reps=5)
                 if plain is not None else None)
-    q_ms = queued_ms(lambda: flash_attention(q, k, v, causal=True), reps=reps)
+    q_ms = queued_ms(lambda: flash_attention(q, k, v, **kw), reps=reps)
     lib_q_ms = queued_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), reps=reps)
-    host = host_us(lambda: flash_attention(q, k, v, causal=True), reps=4 * reps)
+    host = host_us(lambda: flash_attention(q, k, v, **kw), reps=4 * reps)
     lib_host = host_us(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), reps=4 * reps)
-    live_pairs = s * (s + 1) // 2
+    w = window or s  # live (q, k) pairs: row i sees min(i + 1, w) keys
+    live_pairs = w * (w + 1) // 2 + (s - w) * w
     flops = 4.0 * dh * live_pairs * hq * b
     nbytes = 2 * (2 * b * hq * s * dh + 2 * b * hkv * s * dh)  # q, o, k, v in bf16
     t_ops, t_bytes = flops / BF16_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    row = {"shape": f"B={b} Hq={hq} Hkv={hkv} S=T={s} Dh={dh} bf16 causal",
+    row = {"shape": f"B={b} Hq={hq} Hkv={hkv} S=T={s} Dh={dh} bf16 causal"
+                    + ("" if same_fn else f" window={window} softcap={softcap}"),
            "max_abs_err": err, "against": "plain" if ref is not lib else "library",
            "f32_elem_ratio": elem, "f32_tile_rms": rms, "fault_tile_rms": fault_rms,
            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "library_fn": ("scaled_dot_product_attention, causal, enable_gqa" if same_fn else
+                          "scaled_dot_product_attention, causal, enable_gqa, no window or "
+                          "softcap: not the same function, timed as a yardstick"),
            "queued_ms": q_ms, "library_queued_ms": lib_q_ms,
            "host_us_per_call": host, "library_host_us_per_call": lib_host,
            "bound_ms": max(t_ops, t_bytes),
@@ -779,7 +855,8 @@ def k4_shape(dev, gen, b, hq, hkv, s, dh):
     print(f"K4 {row['shape']}: max|kernel - {row['against']}| = {err:.3e} (tolerance "
           f"{tol}), |library - plain| = {lib_err:.3e}; run-to-run bitwise equal; "
           f"kernel {ms:.4f} ms, plain {plain_ms if plain_ms is None else round(plain_ms, 4)} ms, "
-          f"library {lib_ms:.4f} ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']}; "
+          f"library {lib_ms:.4f} ms{'' if same_fn else ' (causal only)'}, bound "
+          f"{row['bound_ms']:.5f} ms ({row['bound_by']}; "
           f"fp32 CUDA cores {row['fp32_cuda_core_ms']:.4f} ms); queue full kernel "
           f"{q_ms:.4f} ms, library {lib_q_ms:.4f} ms; host issue "
           f"kernel {host:.1f} us, library {lib_host:.1f} us a call")
@@ -787,8 +864,10 @@ def k4_shape(dev, gen, b, hq, hkv, s, dh):
 
 
 def k5_shape(dev, gen, b, s, h, g, p, n, chunk):
-    """K5 at one mamba2 prefill shape: agreement, repeatability, times."""
-    from repro_torch.kernels.ssd_scan import ssd_plain, ssd_scan
+    """K5 at one mamba2 prefill shape: agreement, repeatability, a planted
+    fault, times of the kernel, of the same passes on the CUDA cores and of
+    the plain version, each pass's device time, and the bound."""
+    from repro_torch.kernels.ssd_scan import ssd_plain, ssd_scan, ssd_scan_cuda
 
     x = _randn(gen, (b, s, h, p), dev)
     a = -_randn(gen, (b, s, h), dev).abs() * 0.1
@@ -796,28 +875,56 @@ def k5_shape(dev, gen, b, s, h, g, p, n, chunk):
     cc = _randn(gen, (b, s, g, n), dev, scale=0.3)
     y = ssd_scan(x, a, bc, cc, chunk=chunk)
     again = ssd_scan(x, a, bc, cc, chunk=chunk)
+    ffma = ssd_scan_cuda(x, a, bc, cc, chunk=chunk, tensor_cores=False)
+    torch.backends.cuda.matmul.allow_tf32 = False  # the yardstick in full float32
+    print(f"K5 plain version: torch.backends.cuda.matmul.allow_tf32 = "
+          f"{torch.backends.cuda.matmul.allow_tf32}")
     plain = ssd_plain(x, a, bc, cc, chunk=chunk)
+    # planted fault: the second half alone, without the state carried into it
+    half = s // 2
+    fault = ssd_plain(x[:, half:], a[:, half:], bc[:, half:], cc[:, half:], chunk=chunk)
     torch.cuda.synchronize()
     err = (y - plain).abs().max().item()
+    ffma_err = (ffma - plain).abs().max().item()
+    fault_err = (fault - plain[:, half:]).abs().max().item()
+    print(f"K5 S={s}: planted fault (no state across the midpoint) reads "
+          f"{fault_err:.3e}, {fault_err / K5_TOL:.1f}x the tolerance {K5_TOL}; the kernel "
+          f"reads {err:.3e}, {K5_TOL / max(err, 1e-30):.1f}x below it")
     require(err <= K5_TOL, f"K5 disagrees with its plain version at S={s}: {err}")
+    require(ffma_err <= K5_TOL, f"K5 on the CUDA cores disagrees at S={s}: {ffma_err}")
     require(torch.equal(y, again), f"K5 not bitwise repeatable at S={s}")
+    require(fault_err > K5_TOL, f"K5 gate would pass a dropped state at S={s}")
     ms = median_ms(lambda: ssd_scan(x, a, bc, cc, chunk=chunk))
+    ffma_ms = median_ms(lambda: ssd_scan_cuda(x, a, bc, cc, chunk=chunk, tensor_cores=False))
     plain_ms = median_ms(lambda: ssd_plain(x, a, bc, cc, chunk=chunk), reps=5)
-    chunks = b * h * (s // chunk)
+    passes = prof_call(f"K5 S={s}", lambda: ssd_scan(x, a, bc, cc, chunk=chunk))
+    nc = s // chunk
     live = chunk * (chunk + 1) // 2  # s <= t pairs of a chunk
-    flops = chunks * (2.0 * live * (n + p) + 4.0 * chunk * n * p)
+    # C B^T counted once per group; the rest per head
+    flops = (b * h * nc * (2.0 * live * p + 4.0 * chunk * p * n)
+             + b * g * nc * 2.0 * live * n)
     nbytes = 4 * (2 * b * s * h * p + b * s * h + 2 * b * s * g * n)
-    t_ops, t_bytes = flops / FP32_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = K5_TF32_PRODUCTS * flops / TF32_FLOP_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     row = {"shape": f"B={b} S={s} H={h} G={g} P={p} N={n} chunk={chunk} f32",
            "max_abs_err": err, "max_abs_plain": plain.abs().max().item(),
-           "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+           "fault_err": fault_err, "ffma_max_abs_err": ffma_err,
+           "ms": ms, "ffma_ms": ffma_ms, "plain_ms": plain_ms, "library_ms": None,
+           "pass_device_ms": {kernel_name(r[2]): r[0] / 1e3 for r in passes},
            "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "flops": flops, "bytes": nbytes}
+           "flops": flops, "bytes": nbytes,
+           "fp32_cuda_core_ms": flops / FP32_FLOP_PER_S * 1e3}
     print(f"K5 {row['shape']}: max|kernel - plain| = {err:.3e} (tolerance {K5_TOL}, "
           f"max|plain| {row['max_abs_plain']:.3f}); run-to-run bitwise equal; kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library none (no single call), "
-          f"bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
+          f"{ms:.4f} ms (3xTF32 tensor cores; the trace recorded {len(passes)} of a call's "
+          f"kernels), same passes "
+          f"on the CUDA cores {ffma_ms:.4f} ms (max|d| {ffma_err:.3e}), plain "
+          f"{plain_ms:.4f} ms, library none (no single call), bound "
+          f"{row['bound_ms']:.5f} ms ({row['bound_by']}; {flops / 1e9:.2f} GFLOP as "
+          f"{K5_TF32_PRODUCTS} TF32 products at {TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s "
+          f"{t_ops:.5f} ms, bytes {t_bytes:.5f} ms; float32 CUDA cores "
+          f"{row['fp32_cuda_core_ms']:.4f} ms)")
     return row
 
 
@@ -843,7 +950,9 @@ def phase_lm_kernels(dev):
         f32_err = max(f32_err, err)
     k4_rows.append(k4_shape(dev, gen, 1, 9, 3, PREFILL_32K, 64))
     k4_rows.append(k4_shape(dev, gen, *K4_DH128))
-    for dh in (64, 128):
+    b, hq, hkv, s, dh, window, cap = K4_GEMMA_LOCAL
+    k4_rows.append(k4_shape(dev, gen, b, hq, hkv, s, dh, window=window, softcap=cap))
+    for dh in (64, 128, 256):
         info = kernel_info(dh)
         print(f"K4 bf16 kernel, head dim {dh}: {info['registers']} registers a thread, "
               f"{info['shared_bytes']} bytes of dynamic shared memory, "
@@ -910,9 +1019,10 @@ def cut_depth(model, params, layers: int):
     return LM(cfg, device=model.device), dict(params, blocks=[cut(b) for b in params["blocks"]])
 
 
-def prefill_vs_decode(model, params, prompt, label: str) -> float:
+def prefill_vs_decode(model, params, prompt, label: str):
     """max |last-position logits of the prefill - of the token-by-token
-    decode| over the real vocab; checks that decoding launches no kernel."""
+    decode| over the real vocab, and the prefill's and the decode's last
+    logits; checks that decoding launches no kernel."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ssd_scan import ssd_scan
 
@@ -938,7 +1048,22 @@ def prefill_vs_decode(model, params, prompt, label: str) -> float:
     if label == "full depth":  # rewrites the last position with the same token
         prof_call(f"{cfg.name} decode step B={b}", lambda: model.forward(
             params, prompt[:, -1:], cache=cache, cache_pos=s - 1))
-    return err
+    return err, pre, step[:, 0]
+
+
+def plain_attention_prefill(model, params, prompt):
+    """Last-position logits of a prefill whose attention runs the float32
+    plain version on the card in place of K4 (a control: the port never
+    calls it on a CUDA tensor)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import attention_plain
+
+    kernel = ops.flash_attention
+    ops.flash_attention = attention_plain
+    try:
+        return model.forward(params, prompt, last_only=True)[0][:, 0]
+    finally:
+        ops.flash_attention = kernel
 
 
 def phase_lm_prefill(dev, models):
@@ -978,21 +1103,51 @@ def phase_lm_prefill(dev, models):
         rows = prof_call(f"{arch} prefill B={LM_BATCH} S={LM_SEQ}",
                          lambda: model.forward(params, tokens, last_only=True))
         busy = sum(r[0] for r in rows)
-        for label, key in (("K4", "fa_forward"), ("K5", "ssd_chunk_scan")):
-            us = sum(r[0] for r in rows if key in r[2])
+        for label, key in (("K4", "fa_forward"), ("K5", "ssd_")):  # K5: its four passes
+            mine = [r for r in rows if key in r[2]]
+            us = sum(r[0] for r in mine)
             if us and busy:
                 print(f"profile {arch} prefill: {label} {us / 1e3:.3f} ms, "
-                      f"{100 * us / busy:.1f}% of the device time")
+                      f"{100 * us / busy:.1f}% of the device time, over "
+                      f"{sum(r[1] for r in mine)} launches")
+                for dev_us, count, key_name in mine:
+                    print(f"  {label} {kernel_name(key_name)}: {dev_us / 1e3:.3f} ms "
+                          f"x{count}, {100 * dev_us / busy:.1f}% of the device time")
 
     for arch, (model, params) in models.items():
         cfg = model.cfg
         prompt = torch.randint(0, cfg.vocab_size, (DECODE_BATCH, DECODE_SEQ),
                                generator=gen, device=dev)
-        err = prefill_vs_decode(model, params, prompt, "full depth")
+        err, pre, dec = prefill_vs_decode(model, params, prompt, "full depth")
         if any(mixer == "ssm" for mixer, _ in cfg.block_pattern):
-            err = prefill_vs_decode(*cut_depth(model, params, SSM_DECODE_GATE_LAYERS),
-                                    prompt, "gated cut")
-        require(err <= LM_LOGIT_TOL, f"{arch}: prefill and decode logits differ by {err}")
+            err, _, _ = prefill_vs_decode(*cut_depth(model, params, SSM_DECODE_GATE_LAYERS),
+                                          prompt, "gated cut")
+            require(err <= LM_LOGIT_TOL, f"{arch}: prefill and decode logits differ by {err}")
+            continue
+        v = cfg.vocab_size
+        control = plain_attention_prefill(model, params, prompt)[:, :v]
+        plain_err = (dec[:, :v] - control).abs().max().item()
+        k4_err = (pre[:, :v] - control).abs().max().item()
+        print(f"prefill vs decode {arch} (full depth, control: prefill attention by the "
+              f"float32 plain version in place of K4): max|decode - control| = "
+              f"{plain_err:.4e}, K4's gap {err / plain_err:.2f}x it; max|K4 prefill - "
+              f"control| = {k4_err:.4e}, {k4_err / plain_err:.2f}x it (each at most "
+              f"{DECODE_DEPTH_FACTOR}x, and {LM_LOGIT_TOL} where the control's gap is)")
+        require(err <= DECODE_DEPTH_FACTOR * plain_err,
+                f"{arch}: K4's prefill drifts from decode {err / plain_err:.2f}x as far "
+                f"as the plain attention's")
+        require(k4_err <= DECODE_DEPTH_FACTOR * plain_err,
+                f"{arch}: K4's prefill and the plain attention's differ by {k4_err}, "
+                f"{k4_err / plain_err:.2f}x the control's gap to decode")
+        if plain_err <= LM_LOGIT_TOL:
+            require(err <= LM_LOGIT_TOL, f"{arch}: prefill and decode logits differ by {err}")
+            require(k4_err <= LM_LOGIT_TOL,
+                    f"{arch}: K4's prefill and the plain attention's differ by {k4_err}")
+        else:
+            print(f"prefill vs decode {arch}: the float32 control misses {LM_LOGIT_TOL} "
+                  f"against decode too (bf16 logits up to "
+                  f"{control.abs().max().item():.2f}): held to it relatively, not to "
+                  f"{LM_LOGIT_TOL}")
     return launches
 
 
@@ -1053,27 +1208,28 @@ def main() -> int:
     require(kernels[-1]["launches"] > 0, "spgemm_bsr never launched on the device-SGB path")
 
     k4_rows, k4_f32_err, k5_rows = phase_lm_kernels(dev)
-    models = {arch: _lm(arch, dev) for arch in ("smollm-135m", "mamba2-370m")}
+    models = {arch: _lm(arch, dev) for arch in LM_ARCHS}
     phase_lm_serving(dev, *models["smollm-135m"])
     lm_launches = phase_lm_prefill(dev, models)
-    for name, rows, arch, src, line in (
-            ("flash_attention", k4_rows, "smollm-135m", "flash_attention.cu",
+    for name, rows, src, line in (
+            ("flash_attention", k4_rows, "flash_attention.cu",
              "src/repro/kernels/flash_attention.py:30"),
-            ("ssd_scan", k5_rows, "mamba2-370m", "ssd_scan.cu",
-             "src/repro/kernels/ssd_scan.py:29")):
+            ("ssd_scan", k5_rows, "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:29")):
         top = rows[1]  # B = 4, S = 4096
         err = max(r["max_abs_err"] for r in rows)
         if name == "flash_attention":
             err = max(err, k4_f32_err)
+        by_model = {arch: counts[name] for arch, counts in lm_launches.items() if counts[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
-            "replaces": line, "launches": lm_launches[arch][name],
+            "replaces": line, "launches": sum(by_model.values()),
+            "launches_by_model": by_model,
             "max_abs_err": err, "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top["library_ms"], "bytes": top["bytes"],
             "shape": top["shape"], "shapes": rows,
         })
-        require(kernels[-1]["launches"] > 0, f"{name} never launched on the {arch} prefill")
+        require(kernels[-1]["launches"] > 0, f"{name} never launched on an LM prefill")
     for k in kernels:
         k["kernel_ms"] = k["ms"]
     print(json.dumps({"kernels": kernels}))

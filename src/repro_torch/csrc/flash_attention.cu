@@ -14,7 +14,7 @@
 // loop bounds skip them.  Fully masked rows keep m = -1e30: alpha is 0 while
 // m_prev <= -1e30 / 2 and masked p are 0, as in the TPU kernel, so such a row
 // ends 0.  Causal query tiles differ in work by up to S / 128 times, so the
-// heaviest are launched first.  Dh is 64 or 128.  Every tensor comes with its
+// heaviest are launched first.  Dh is 64, 128 or 256.  Every tensor comes with its
 // batch, head and row strides (the last dimension has stride 1), so views
 // such as (B, S, H, Dh).transpose(1, 2) need no copy.  Sums run in a fixed
 // order and there are no atomics: a run repeats bit for bit.
@@ -30,16 +30,19 @@
 //   128 query rows: three warpgroups, one producer and two consumers of 64
 //   rows each; setmaxnreg moves registers from the producer (40) to the
 //   consumers (232).  The producer's one thread loads the Q tile once by
-//   TMA and keeps K and V tiles of 128 keys in flight in a 2-stage ring;
+//   TMA and keeps K and V tiles of BK keys in flight in a 2-stage ring
+//   (BK = 128 at head dim 64 and 128, 64 at head dim 256, where 128 would not
+//   fit in shared memory);
 //   each stage has a "full" and an "empty" mbarrier for K and for V, so
 //   that K is released right after Q K^T and V after P V.  The tensor maps
 //   use the 128-byte swizzle that the wgmma descriptors name, and carry the
 //   tensors' strides; TMA's zero fill covers the ragged S and T edges.  Per
-//   key tile a consumer computes S = Q K^T with wgmma m64n128k16 (A = Q,
+//   key tile a consumer computes S = Q K^T with wgmma m64nBKk16 (A = Q,
 //   B = K, both K-major in shared memory, float32 accumulators), runs the
 //   online softmax on the accumulators in registers, re-packs P to bf16 A
 //   fragments in registers and adds P V with wgmma m64nDh k16 (B = V read
-//   MN-major through the descriptor's transpose bit).  The loop is software
+//   MN-major through the descriptor's transpose bit; at head dim 256 two
+//   m64n128k16 on the two halves of V's columns).  The loop is software
 //   pipelined: Q K^T of tile j and P V of tile j - 1 are issued together,
 //   and the softmax of tile j runs while P V still executes.  The two
 //   consumers take turns to issue (two named barriers), so one's softmax
@@ -57,7 +60,7 @@
 //      element mask, softcap is a template parameter, and the softmax runs
 //      in base 2: the row max is taken on the raw scores and p = 2^(s *
 //      scale * log2(e) - m) is one FFMA and one ex2 (hence scale > 0);
-//   6. tiles: 128 query rows and 128 keys per tile (was 64 x 64), so each
+//   6. tiles: 128 query rows and BK keys per tile (was 64 x 64), so each
 //      staged K/V tile serves twice the queries.
 //   Left for later: a persistent tile scheduler (a CTA's Q load and first
 //   Q K^T are not hidden behind another tile's work), a TMA store of the
@@ -271,8 +274,14 @@ fa_forward_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // ---- bf16 path: wgmma fed by TMA, warp-specialised ------------------------
 
 constexpr int kBlockQ = 128;                // query rows per CTA
-constexpr int kBlockK = 128;                // keys per K/V tile
+constexpr int kBlockKWide = 128;            // keys per K/V tile at head dim 64 and 128
+constexpr int kBlockKDh256 = 64;            // keys per K/V tile at head dim 256
 constexpr int kStages = 2;                  // depth of the K/V ring
+// At head dim 256 a tile of 128 keys would need Q (64 KB) + 2 stages of K
+// and V (4 x 64 KB) = 320 KB; with 64 keys it is 64 + 4 x 32 = 192 KB, and a
+// consumer thread holds O (128 floats), S (32) and P (16 registers).
+template <int DH>
+constexpr int kBlockK = DH == 256 ? kBlockKDh256 : kBlockKWide;
 constexpr int kWgThreads = 128;             // one warpgroup
 constexpr int kFaThreads = 3 * kWgThreads;  // producer + 2 consumer warpgroups
 constexpr int kRowBytes = 128;              // one swizzled row: 64 bf16
@@ -285,7 +294,7 @@ template <int DH>
 struct FaSmem {
   static constexpr int kPanels = DH / 64;
   static constexpr uint32_t kQBytes = kBlockQ * DH * 2;
-  static constexpr uint32_t kTileBytes = kBlockK * DH * 2;
+  static constexpr uint32_t kTileBytes = kBlockK<DH> * DH * 2;
   static constexpr uint32_t kK = kQBytes;
   static constexpr uint32_t kV = kK + kStages * kTileBytes;
   static constexpr uint32_t kBars = kV + kStages * kTileBytes;
@@ -387,6 +396,20 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// D (64 x 64) = A (64 x 16) * B (16 x 64), both K-major in shared memory;
+// accumulate = 0 overwrites D
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : FA_D32
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // D (64 x 64) += A (64 x 16, bf16 in registers) * B (16 x 64, MN-major in shared memory)
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
@@ -429,17 +452,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Online softmax over one 64 x 128 score tile in the accumulator layout, in
+// Online softmax over one 64 x BK score tile in the accumulator layout, in
 // base 2.  Without softcap the scores stay raw: the row max is taken on them
 // and scaled once (scale > 0 keeps the order), and p = 2^(s * scale_log2 -
 // m) is one FFMA and one MUFU per score.  With softcap, x = softcap *
 // tanh(s * scale / softcap) * log2(e) comes first.  Each thread holds 2 rows
-// (qpos, qpos + 8) x 32 keys; row max and row sum are reduced over the 4
+// (qpos, qpos + 8) x BK / 4 keys; row max and row sum are reduced over the 4
 // threads of a quad.  kMask applies the element mask (causal, window, kpos <
 // T); a tile that needs none skips it.  On return s holds p (float32), alpha
 // the rescale of the previous row state.
-template <bool kMask, bool kCap>
-__device__ __forceinline__ void online_softmax(float (&s)[kBlockK / 2], float (&m)[2],
+template <int BK, bool kMask, bool kCap>
+__device__ __forceinline__ void online_softmax(float (&s)[BK / 2], float (&m)[2],
                                                float (&l)[2], float (&alpha)[2], int kpos0,
                                                int qpos, int t_len, int causal, int window,
                                                float scale_log2, float cap_in, float cap_out) {
@@ -449,7 +472,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[kBlockK / 2], float (&
     const int q = qpos + 8 * i;
     float mx = kNeg;
 #pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j) {
+    for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         float x = s[4 * j + 2 * i + c];
@@ -470,7 +493,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[kBlockK / 2], float (&
     alpha[i] = m[i] > kNeg / 2 ? exp2_fast(m[i] - m_new) : 0.f;
     float sum = 0.f;
 #pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j) {
+    for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const float x = s[4 * j + 2 * i + c];
@@ -496,6 +519,7 @@ __device__ __forceinline__ void consume(int c, uint32_t s_q, uint32_t s_k, uint3
                                         float scale_log2, int causal, int window, float cap_in,
                                         float cap_out) {
   using L = FaSmem<DH>;
+  constexpr int BK = kBlockK<DH>;
   auto full_k = [&](int st) { return bar_q + 8u * (1 + st); };
   auto full_v = [&](int st) { return bar_q + 8u * (1 + kStages + st); };
   auto empty_k = [&](int st) { return bar_q + 8u * (1 + 2 * kStages + st); };
@@ -509,12 +533,12 @@ __device__ __forceinline__ void consume(int c, uint32_t s_q, uint32_t s_k, uint3
   const int qpos = wg_lo + 16 * warp + g;    // this thread's rows: qpos and qpos + 8
 
   float o_acc[DH / 2];
-  float s_acc[kBlockK / 2];
-  uint32_t pa[kBlockK / 16][4];  // P in bf16 A fragments: keys 16 kk .. 16 kk + 15
+  float s_acc[BK / 2];
+  uint32_t pa[BK / 16][4];  // P in bf16 A fragments: keys 16 kk .. 16 kk + 15
 #pragma unroll
   for (int i = 0; i < DH / 2; ++i) o_acc[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < kBlockK / 2; ++i) s_acc[i] = 0.f;
+  for (int i = 0; i < BK / 2; ++i) s_acc[i] = 0.f;
   float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
 
   // S = Q K^T on stage st, committed as one wgmma group
@@ -522,21 +546,32 @@ __device__ __forceinline__ void consume(int c, uint32_t s_q, uint32_t s_k, uint3
 #pragma unroll
     for (int ks = 0; ks < DH / 16; ++ks) {
       const uint32_t qa = s_q + (ks / 4) * kBlockQ * kRowBytes + c * 64 * kRowBytes + (ks % 4) * 32;
-      const uint32_t kb = s_k + st * L::kTileBytes + (ks / 4) * kBlockK * kRowBytes + (ks % 4) * 32;
-      wgmma_ss_n128(s_acc, sw128_desc(qa, 16, 1024), sw128_desc(kb, 16, 1024), ks > 0);
+      const uint32_t kb = s_k + st * L::kTileBytes + (ks / 4) * BK * kRowBytes + (ks % 4) * 32;
+      if constexpr (BK == 64) {
+        wgmma_ss_n64(s_acc, sw128_desc(qa, 16, 1024), sw128_desc(kb, 16, 1024), ks > 0);
+      } else {
+        wgmma_ss_n128(s_acc, sw128_desc(qa, 16, 1024), sw128_desc(kb, 16, 1024), ks > 0);
+      }
     }
     wgmma_commit();
   };
-  // O += P V on stage st, committed as one wgmma group
+  // O += P V on stage st, committed as one wgmma group.  At head dim 256
+  // the product is two of 128 columns: panels 0-1 into o_acc[0..63], panels
+  // 2-3 into o_acc[64..127] (the accumulator layout then reads column 8 n +
+  // 2 t + c at o_acc[4 n + 2 i + c] over all 256 columns, as at 64 and 128).
   auto issue_pv = [&](int st) {
 #pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      const uint64_t vb = sw128_desc(s_v + st * L::kTileBytes + kk * 16 * kRowBytes,
-                                     kBlockK * kRowBytes, 1024);
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t va = s_v + st * L::kTileBytes + kk * 16 * kRowBytes;
+      const uint64_t vb = sw128_desc(va, BK * kRowBytes, 1024);
       if constexpr (DH == 64) {
         wgmma_rs_n64(o_acc, pa[kk], vb);
-      } else {
+      } else if constexpr (DH == 128) {
         wgmma_rs_n128(o_acc, pa[kk], vb);
+      } else {
+        wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&o_acc[0]), pa[kk], vb);
+        wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&o_acc[64]), pa[kk],
+                      sw128_desc(va + 2 * BK * kRowBytes, BK * kRowBytes, 1024));
       }
     }
     wgmma_commit();
@@ -545,20 +580,20 @@ __device__ __forceinline__ void consume(int c, uint32_t s_q, uint32_t s_k, uint3
   // tile needs the element mask only where some pair of the warpgroup's 64
   // rows and its keys is dead or lies past T.
   auto softmax = [&](int kt, float (&alpha)[2]) {
-    const int k0 = kt * kBlockK;
-    const bool full = k0 + kBlockK <= t_len && (!causal || k0 + kBlockK - 1 <= wg_lo) &&
+    const int k0 = kt * BK;
+    const bool full = k0 + BK <= t_len && (!causal || k0 + BK - 1 <= wg_lo) &&
                       (window <= 0 || k0 > wg_lo + 63 - window);
     if (full) {
-      online_softmax<false, kCap>(s_acc, m, l, alpha, k0 + 2 * t4, qpos, t_len, causal, window,
-                                  scale_log2, cap_in, cap_out);
+      online_softmax<BK, false, kCap>(s_acc, m, l, alpha, k0 + 2 * t4, qpos, t_len, causal,
+                                      window, scale_log2, cap_in, cap_out);
     } else {
-      online_softmax<true, kCap>(s_acc, m, l, alpha, k0 + 2 * t4, qpos, t_len, causal, window,
-                                 scale_log2, cap_in, cap_out);
+      online_softmax<BK, true, kCap>(s_acc, m, l, alpha, k0 + 2 * t4, qpos, t_len, causal,
+                                     window, scale_log2, cap_in, cap_out);
     }
   };
   auto pack_p = [&]() {
 #pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
+    for (int kk = 0; kk < BK / 16; ++kk) {
       pa[kk][0] = pack_bf16(s_acc[8 * kk + 0], s_acc[8 * kk + 1]);
       pa[kk][1] = pack_bf16(s_acc[8 * kk + 2], s_acc[8 * kk + 3]);
       pa[kk][2] = pack_bf16(s_acc[8 * kk + 4], s_acc[8 * kk + 5]);
@@ -667,6 +702,7 @@ fa_forward_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                         int s_len, int t_len, float scale_log2, int causal, int window,
                         float cap_in, float cap_out) {
   using L = FaSmem<DH>;
+  constexpr int BK = kBlockK<DH>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t s_q = base;
@@ -689,10 +725,10 @@ fa_forward_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int rows = min(kBlockQ, s_len - q0);
   const int q_lo = q0 + (t_len - s_len);  // key position of the tile's first row
   const int q_hi = q_lo + rows - 1;
-  int kt_end = (t_len + kBlockK - 1) / kBlockK;
-  if (causal) kt_end = min(kt_end, q_hi < 0 ? 0 : q_hi / kBlockK + 1);
+  int kt_end = (t_len + BK - 1) / BK;
+  if (causal) kt_end = min(kt_end, q_hi < 0 ? 0 : q_hi / BK + 1);
   int kt_begin = 0;
-  if (window > 0 && q_lo - window + 1 > 0) kt_begin = (q_lo - window + 1) / kBlockK;
+  if (window > 0 && q_lo - window + 1 > 0) kt_begin = (q_lo - window + 1) / BK;
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
@@ -726,14 +762,14 @@ fa_forward_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         mbar_expect_tx(full_k(st), L::kTileBytes);
 #pragma unroll
         for (int p = 0; p < L::kPanels; ++p)
-          tma_load_4d(s_k + st * L::kTileBytes + p * kBlockK * kRowBytes, &tm_k, full_k(st),
-                      64 * p, kt * kBlockK, kvh, bi);
+          tma_load_4d(s_k + st * L::kTileBytes + p * BK * kRowBytes, &tm_k, full_k(st),
+                      64 * p, kt * BK, kvh, bi);
         mbar_wait(empty_v(st), ph ^ 1);
         mbar_expect_tx(full_v(st), L::kTileBytes);
 #pragma unroll
         for (int p = 0; p < L::kPanels; ++p)
-          tma_load_4d(s_v + st * L::kTileBytes + p * kBlockK * kRowBytes, &tm_v, full_v(st),
-                      64 * p, kt * kBlockK, kvh, bi);
+          tma_load_4d(s_v + st * L::kTileBytes + p * BK * kRowBytes, &tm_v, full_v(st),
+                      64 * p, kt * BK, kvh, bi);
         if (++st == kStages) {
           st = 0;
           ph ^= 1;
@@ -825,8 +861,8 @@ int launch(const void* q, const void* k, const void* v, void* o, const Strides* 
   if (bf16) {
     CUtensorMap mq, mk, mv;
     int rc = tensor_map(&mq, q, s_len, hq, b, DH, st[0], kBlockQ);
-    if (rc == 0) rc = tensor_map(&mk, k, t_len, hkv, b, DH, st[1], kBlockK);
-    if (rc == 0) rc = tensor_map(&mv, v, t_len, hkv, b, DH, st[2], kBlockK);
+    if (rc == 0) rc = tensor_map(&mk, k, t_len, hkv, b, DH, st[1], kBlockK<DH>);
+    if (rc == 0) rc = tensor_map(&mv, v, t_len, hkv, b, DH, st[2], kBlockK<DH>);
     if (rc != 0) return rc;
     return softcap > 0.f
                ? launch_wgmma<DH, true>(mq, mk, mv, o, st[3], b, hq, hkv, s_len, t_len, scale,
@@ -873,6 +909,10 @@ extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o,
     return launch<128>(q, k, v, o, st, b, hq, hkv, s_len, t_len, bf16, scale, causal,
                        window, softcap, cs);
   }
+  if (dh == 256) {
+    return launch<256>(q, k, v, o, st, b, hq, hkv, s_len, t_len, bf16, scale, causal,
+                       window, softcap, cs);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -888,6 +928,9 @@ extern "C" int fa_wgmma_info(int dh, int* info) {
   } else if (dh == 128) {
     err = cudaFuncGetAttributes(&attr, fa_forward_wgmma_kernel<128, false>);
     info[1] = (int)FaSmem<128>::kBytes;
+  } else if (dh == 256) {
+    err = cudaFuncGetAttributes(&attr, fa_forward_wgmma_kernel<256, false>);
+    info[1] = (int)FaSmem<256>::kBytes;
   } else {
     return (int)cudaErrorInvalidValue;
   }

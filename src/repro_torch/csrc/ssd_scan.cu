@@ -1,9 +1,9 @@
-// Hand-written Hopper (sm_90a) kernel for the Mamba2 prefill path.
+// Hand-written Hopper (sm_90a) kernels for the Mamba2 prefill path.
 //
 // K5  ssd_scan_f32  replaces repro/kernels/ssd_scan.py::_ssd_kernel
 //
 // Mamba2 SSD chunked scan.  For every (batch, head) the sequence is cut into
-// chunks of L steps that run in order and carry a float32 (P, N) state h:
+// chunks of L steps that carry a float32 (P, N) state h from one to the next:
 //
 //   cum     = inclusive cumsum of a over the chunk (a <= 0)
 //   G[t,s]  = (C_t . B_s) * exp(cum[t] - cum[s]) * [s <= t]
@@ -11,279 +11,582 @@
 //   h      <- exp(cum[L-1]) * h + (x * exp(cum[L-1] - cum)[:, None])^T @ B
 //
 // The TPU kernel runs a grid (B*H, chunks) with the chunk axis innermost and
-// carries h in VMEM scratch; its wrapper repeats B and C over the heads of a
-// group and moves the head axis in front of time.  Here one CTA owns one
-// (batch, head) and walks the chunks itself, h living in registers (each
-// thread owns 32 of its entries) and in shared memory for the C h^T product.
-// B and C are read by group (head / (H / G)) straight from the (B, S, G, N)
-// inputs, and x, a and y keep their (B, S, H, .) layouts: the moveaxis
-// relayouts become strides.
+// carries h in VMEM scratch.  Only the state update is sequential over the
+// chunks, and it is elementwise; everything else is independent per chunk
+// (Mamba2's own chunked algorithm, arXiv:2405.21060 section 6).  So
+// ssd_scan_f32 launches four passes in turn on the caller's stream, over
+// scratch that the wrapper allocates:
 //
-// Shared memory (design taken: one chunk of x and B resident, C and G tiled
-// over rows): x (L x P), B (L x (N+4)), h (P x (N+4)), and for one block of
-// 32 rows C (32 x (N+4)) and G (32 x (L+4)), plus cum and the two exp
-// vectors.  At mamba2-370m's shapes (L = 128, P = 64, N = 128) that is
-// 169,472 bytes, above the 48 KB default, so the entry point raises the
-// kernel's dynamic shared-memory limit first.  G is computed only where
-// s < t0 + 32 (the tril skips the upper column groups of each row block).
+//   1. chunk pass, a CTA per (b, h, chunk): cum by a warp scan (each lane
+//      sums 4 steps in order, then a shuffle scan of the lane totals), and
+//      the chunk's own state contribution S_c = (x * exp(cum[L-1] - cum))^T B,
+//      a (P x L)(L x N) product.  Writes cum and S_c.
+//   2. C B^T pass, a CTA per (b, group, chunk): G = C B^T (L x L), which
+//      depends on the group only, computed once for the H / G heads that
+//      share it, lower 32 x 32 tiles only.  8.4 MB at mamba2-370m's B = 4,
+//      S = 4096, read back from L2.
+//   3. state pass, a CTA per (b, h) and 1024 state entries: h_0 = 0,
+//      h_{c+1} = exp(cum_c[L-1]) h_c + S_c in chunk order, each thread
+//      owning 4 entries; the state entering chunk c overwrites S_c.  This
+//      pass is bound by memory: B*H*(S/L)*P*N*4 bytes each way, 134 MB at
+//      B = 4, S = 4096 (about 0.08 ms at 3.35 TB/s).
+//   4. output pass, a CTA per (b, h, chunk): y = (G o decay) x + (exp(cum) o
+//      C) h_c^T, the masked L x L product first (summing only to the end of
+//      each 16-row slab: the rest is 0; a warp takes slabs q and L/16 - 1 - q
+//      so that all do the same work) then the state term.
 //
-// Arithmetic: all float32; cum is summed in order by one thread; every exp
-// argument is <= 0, so every factor is <= 1 and no rescaling is needed.
-// Sums run in a fixed order and a run repeats bit for bit.
+// Arithmetic: the four products run on the tensor cores as 3xTF32
+// (mma.sync.m16n8k8.tf32, float32 accumulators): each float32 operand is
+// split into hi = tf32(a) and lo = tf32(a - hi), both cut to TF32 (the low
+// 13 mantissa bits dropped), and every k step adds lo*hi, hi*lo, then hi*hi.
+// That keeps about 20 bits of each product, where TF32 alone keeps 11,
+// which at |y| of tens would miss the 3e-4 tolerance.  A template flag builds the same passes with
+// float32 FFMA on the CUDA cores instead (the split design alone, kept to
+// measure what more CTAs buy without tensor cores).  A warp owns a 32 x 32
+// output tile, eight warps a CTA.  No atomics; every sum runs in a fixed
+// order, so a run repeats bit for bit.  Every exp argument is clamped to
+// <= 0 (the warp scan need not give a non-increasing cum bit for bit).
 //
-// Bound: per chunk the work is L*L*N + L*L*P (intra, about half of it live),
-// 2*L*P*N (inter and state), so at L = P = 64..128 the kernel is bound by
-// operations, on the CUDA cores (float32, 67 TFLOP/s peak).  What bounds it
-// in practice is parallelism: the launch has B*H CTAs (128 at B = 4, H = 32),
-// about one per SM of the 132, each walking S / L chunks in sequence with 8
-// warps.  Splitting the scan over chunks (a second pass that carries the
-// states) and tensor cores (TF32 / 3xTF32 mma) are later work.
+// Bound: the operations (per (b, h, chunk) 2*live*P + 4*L*P*N, per (b, g,
+// chunk) 2*live*N, live = L(L+1)/2): 21.7 GFLOP at B = 4, S = 4096, three
+// TF32 products each, 0.13 ms at 495 TFLOP/s; the inputs and output take
+// 0.086 ms at 3.35 TB/s.  What the design does about the one-CTA-per-(b, h)
+// kernel it replaces (128 CTAs, 8 warps an SM, scalar FFMA, C B^T per head):
+// B*H*S/L CTAs (4096 at that shape) of 104 KB shared memory, two an SM;
+// products on the tensor cores; C B^T once per group.  What holds it above
+// the bound now: each CTA stages its operands through registers between
+// barriers, so its loads and its products do not overlap, and an SM's two
+// CTAs tend to run the same phase at the same time.
 //
-// The C entry point launches on the caller's stream, allocates nothing and
-// returns cudaGetLastError().
+// The C entry point allocates nothing and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps; ty = warp, tx = lane
-constexpr int kTR = 32;        // rows of G per block
+constexpr int kThreads = 256;  // 8 warps, each owning a 32 x 32 output tile
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxL = 128;
 constexpr int kMaxP = 64;
 constexpr int kMaxN = 128;
-constexpr int kHP = kMaxP / 8;   // state rows per thread
-constexpr int kHN = kMaxN / 32;  // state columns per thread
-constexpr int kGC = kMaxL / 32;  // G column groups per thread
+constexpr int kScanSteps = kMaxL / 32;  // steps a lane sums in the chunk scan
+constexpr int kStateThreads = 256;      // state pass: 4 entries a thread
 
-size_t smem_floats(int l, int p, int n) {
-  const int np = n + 4;
-  return (size_t)l * p + (size_t)l * np + (size_t)kTR * np + (size_t)p * np +
-         (size_t)kTR * (l + 4) + 3 * (size_t)l;
+// Padded extents: every product dimension is a multiple of 32 in shared
+// memory, zero filled past the real one.
+__host__ __device__ constexpr int pad32(int v) { return (v + 31) / 32 * 32; }
+
+// Row pitches (floats).  A fragment read walks 8 rows (lane / 4) and 4
+// columns (lane % 4), or the transpose; a pitch of 4 mod 32 (data read along
+// the row) or 8 mod 32 (data read down the column) puts the 32 lanes on 32
+// banks.
+__host__ __device__ constexpr int pitch_k(int cols) { return pad32(cols) + 4; }
+__host__ __device__ constexpr int pitch_mn(int cols) { return pad32(cols) + 8; }
+
+size_t chunk_smem(int l, int p, int n) {  // x * w, B, cum, w
+  return sizeof(float) * ((size_t)pad32(l) * (pitch_mn(p) + pitch_mn(n)) + 2 * pad32(l));
+}
+size_t cb_smem(int l, int n) {  // C, B
+  return sizeof(float) * 2 * (size_t)pad32(l) * pitch_k(n);
+}
+size_t out_smem(int l, int p, int n) {  // max(G o decay + x, C o e + h), then cum, e
+  const size_t a = (size_t)pad32(l) * (pitch_k(l) + pitch_mn(p));
+  const size_t b = (size_t)(pad32(l) + pad32(p)) * pitch_k(n);
+  return sizeof(float) * ((a > b ? a : b) + 2 * pad32(l));
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-ssd_chunk_scan_kernel(const float* __restrict__ x, const float* __restrict__ a,
-                      const float* __restrict__ bm, const float* __restrict__ cm,
-                      float* __restrict__ y, int seq, int h, int g, int p_dim,
-                      int n_dim, int chunk) {
-  extern __shared__ float4 smem4[];
-  const int np = n_dim + 4;
-  const int lp = chunk + 4;
-  float* s_x = reinterpret_cast<float*>(smem4);  // [chunk][p_dim]
-  float* s_b = s_x + chunk * p_dim;               // [chunk][np]
-  float* s_c = s_b + chunk * np;                  // [kTR][np]
-  float* s_h = s_c + kTR * np;                    // [p_dim][np]
-  float* s_g = s_h + p_dim * np;                  // [kTR][lp]
-  float* s_cum = s_g + kTR * lp;                  // [chunk]
-  float* s_e = s_cum + chunk;                     // exp(cum[t])
-  float* s_w = s_e + chunk;                       // exp(cum[L-1] - cum[t])
+// ---- warp products ---------------------------------------------------------
 
-  const int bi = blockIdx.x / h;
-  const int hi = blockIdx.x % h;
-  const int gi = hi / (h / g);
-  const int tid = threadIdx.x;
-  const int tx = tid & 31;
-  const int ty = tid >> 5;
-  const size_t x_t = (size_t)h * p_dim;   // x / y stride between time steps
-  const size_t b_t = (size_t)g * n_dim;   // B / C stride between time steps
-  const float* xg = x + (size_t)bi * seq * x_t + (size_t)hi * p_dim;
-  float* yg = y + (size_t)bi * seq * x_t + (size_t)hi * p_dim;
-  const float* ag = a + (size_t)bi * seq * h + hi;
-  const float* bg = bm + (size_t)bi * seq * b_t + (size_t)gi * n_dim;
-  const float* cg = cm + (size_t)bi * seq * b_t + (size_t)gi * n_dim;
+// v = hi + lo: hi is v cut to TF32 (its 13 low mantissa bits dropped), lo
+// the exact rest, which the tensor core reads as TF32 the same way (it
+// ignores those bits of a float32 register).  Two instructions an operand.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(v) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
 
-  float hreg[kHP][kHN];  // h[ty + 8 i][tx + 32 j]
-#pragma unroll
-  for (int i = 0; i < kHP; ++i)
-#pragma unroll
-    for (int j = 0; j < kHN; ++j) hreg[i][j] = 0.f;
-  for (int e = tid; e < p_dim * np; e += kThreads) s_h[e] = 0.f;
+// d (16 x 8) += a (16 x 8) b (8 x 8), tf32 in, float32 accumulators
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
 
-  for (int c0 = 0; c0 < seq; c0 += chunk) {
-    // ---- stage the chunk: x, B, a ------------------------------------
-    for (int e = tid; e < chunk * p_dim; e += kThreads) {
-      const int t = e / p_dim;
-      s_x[e] = xg[(size_t)(c0 + t) * x_t + (e - t * p_dim)];
-    }
-    for (int e = tid; e < chunk * n_dim; e += kThreads) {
-      const int t = e / n_dim;
-      const int n = e - t * n_dim;
-      s_b[t * np + n] = bg[(size_t)(c0 + t) * b_t + n];
-    }
-    for (int t = tid; t < chunk; t += kThreads) s_cum[t] = ag[(size_t)(c0 + t) * h];
-    __syncthreads();
-    if (tid == 0) {  // inclusive cumsum, in order
-      float run = 0.f;
-      for (int t = 0; t < chunk; ++t) {
-        run += s_cum[t];
-        s_cum[t] = run;
-      }
-    }
-    __syncthreads();
-    for (int t = tid; t < chunk; t += kThreads) {
-      s_e[t] = expf(s_cum[t]);
-      s_w[t] = expf(s_cum[chunk - 1] - s_cum[t]);
-    }
-    // s_e / s_w are first read after the next barrier
-
-    // ---- outputs, 32 rows at a time ------------------------------------
-    for (int t0 = 0; t0 < chunk; t0 += kTR) {
-      const int rows = min(kTR, chunk - t0);
-      for (int e = tid; e < kTR * n_dim; e += kThreads) {
-        const int r = e / n_dim;
-        const int n = e - r * n_dim;
-        s_c[r * np + n] = r < rows ? cg[(size_t)(c0 + t0 + r) * b_t + n] : 0.f;
-      }
-      __syncthreads();
-
-      // G rows r = ty + 8 i, columns s = tx + 32 j with s < t0 + kTR
-      const int jg = min((chunk + 31) / 32, (t0 + kTR + 31) / 32);
-      float gacc[4][kGC];
+// One warp: acc += A B for a tile of two 16-row halves by 32 columns,
+// A(m, k) = a_i[m am + k ak] for half i (a_i at its first row) over k in
+// [0, k_i), and B(k, n) = b[k bk + n bn] (b at the tile's first column), in
+// shared memory; k_0 and k_1 are multiples of 8.  acc[i][j][2 h + c] is row
+// g + 8 h of half i, column 8 j + 2 t + c (g = lane / 4, t = lane % 4): the
+// accumulator layout of mma.m16n8k8, which the FFMA build keeps so that both
+// share the stores.
+template <bool kTC>
+__device__ __forceinline__ void warp_tile(float (&acc)[2][4][4], const float* a0,
+                                          const float* a1, int am, int ak, const float* b,
+                                          int bk, int bn, int k_0, int k_1) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const float* a[2] = {a0, a1};
+  const int k_end = max(k_0, k_1);
+  if constexpr (kTC) {
+    for (int k = 0; k < k_end; k += 8) {
+      const bool live[2] = {k < k_0, k < k_1};  // uniform across the warp
+      uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int j = 0; j < kGC; ++j) gacc[i][j] = 0.f;
-      for (int n = 0; n < n_dim; n += 4) {
-        float4 cv[4];
+        for (int r = 0; r < 4; ++r)
+          if (live[i])
+            split_tf32(a[i][(g + 8 * (r & 1)) * am + (k + t + 4 * (r >> 1)) * ak], ah[i][r],
+                       al[i][r]);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          cv[i] = *reinterpret_cast<const float4*>(s_c + (ty + 8 * i) * np + n);
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int j = 0; j < kGC; ++j) {
-          const int s = tx + 32 * j;
-          if (j >= jg || s >= chunk) continue;
-          const float4 bv = *reinterpret_cast<const float4*>(s_b + s * np + n);
+        for (int r = 0; r < 2; ++r)
+          split_tf32(b[(k + t + 4 * r) * bk + (8 * j + g) * bn], bh[j][r], bl[j][r]);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            gacc[i][j] = fmaf(cv[i].x, bv.x, gacc[i][j]);
-            gacc[i][j] = fmaf(cv[i].y, bv.y, gacc[i][j]);
-            gacc[i][j] = fmaf(cv[i].z, bv.z, gacc[i][j]);
-            gacc[i][j] = fmaf(cv[i].w, bv.w, gacc[i][j]);
-          }
+      for (int i = 0; i < 2; ++i) {
+        if (!live[i]) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          mma_tf32(acc[i][j], al[i], bh[j]);
+          mma_tf32(acc[i][j], ah[i], bl[j]);
+          mma_tf32(acc[i][j], ah[i], bh[j]);
         }
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty + 8 * i;
-        const int t = t0 + r;
-#pragma unroll
-        for (int j = 0; j < kGC; ++j) {
-          const int s = tx + 32 * j;
-          if (j >= jg || s >= chunk) continue;
-          s_g[r * lp + s] =
-              (r < rows && s <= t) ? gacc[i][j] * expf(s_cum[t] - s_cum[s]) : 0.f;
-        }
-      }
-      __syncthreads();
-
-      // y rows r = ty + 8 i, columns p = tx + 32 k
-      const int s_end = t0 + rows;
-      float yi[4][2], yh[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int k = 0; k < 2; ++k) yi[i][k] = yh[i][k] = 0.f;
-      const bool p0 = tx < p_dim;
-      const bool p1 = tx + 32 < p_dim;
-      for (int s = 0; s < s_end; ++s) {
-        const float x0 = p0 ? s_x[s * p_dim + tx] : 0.f;
-        const float x1 = p1 ? s_x[s * p_dim + tx + 32] : 0.f;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float gv = s_g[(ty + 8 * i) * lp + s];
-          yi[i][0] = fmaf(gv, x0, yi[i][0]);
-          yi[i][1] = fmaf(gv, x1, yi[i][1]);
-        }
-      }
-      for (int n = 0; n < n_dim; n += 4) {
-        float4 hv[2];
-        hv[0] = p0 ? *reinterpret_cast<const float4*>(s_h + tx * np + n)
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
-        hv[1] = p1 ? *reinterpret_cast<const float4*>(s_h + (tx + 32) * np + n)
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float4 cv = *reinterpret_cast<const float4*>(s_c + (ty + 8 * i) * np + n);
-#pragma unroll
-          for (int k = 0; k < 2; ++k) {
-            yh[i][k] = fmaf(cv.x, hv[k].x, yh[i][k]);
-            yh[i][k] = fmaf(cv.y, hv[k].y, yh[i][k]);
-            yh[i][k] = fmaf(cv.z, hv[k].z, yh[i][k]);
-            yh[i][k] = fmaf(cv.w, hv[k].w, yh[i][k]);
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty + 8 * i;
-        if (r >= rows) continue;
-        const float e = s_e[t0 + r];
-        float* yrow = yg + (size_t)(c0 + t0 + r) * x_t;
-        if (p0) yrow[tx] = yi[i][0] + e * yh[i][0];
-        if (p1) yrow[tx + 32] = yi[i][1] + e * yh[i][1];
-      }
-      __syncthreads();  // s_c and s_g are rewritten by the next row block
     }
-
-    // ---- carry the state ------------------------------------------------
-    const float decay = expf(s_cum[chunk - 1]);
-    float hacc[kHP][kHN];
+  } else {
+#pragma unroll 4
+    for (int k = 0; k < k_end; ++k) {
+      const bool live[2] = {k < k_0, k < k_1};
+      float av[2][2], bv[4][2];
 #pragma unroll
-    for (int i = 0; i < kHP; ++i)
+      for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int j = 0; j < kHN; ++j) hacc[i][j] = 0.f;
-    for (int t = 0; t < chunk; ++t) {
-      const float w = s_w[t];
-      float xv[kHP], bv[kHN];
+        for (int h = 0; h < 2; ++h) av[i][h] = live[i] ? a[i][(g + 8 * h) * am + k * ak] : 0.f;
 #pragma unroll
-      for (int i = 0; i < kHP; ++i) {
-        const int p = ty + 8 * i;
-        xv[i] = p < p_dim ? s_x[t * p_dim + p] * w : 0.f;
-      }
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int j = 0; j < kHN; ++j) {
-        const int n = tx + 32 * j;
-        bv[j] = n < n_dim ? s_b[t * np + n] : 0.f;
-      }
+        for (int c = 0; c < 2; ++c) bv[j][c] = b[k * bk + (8 * j + 2 * t + c) * bn];
 #pragma unroll
-      for (int i = 0; i < kHP; ++i)
+      for (int i = 0; i < 2; ++i) {
+        if (!live[i]) continue;
 #pragma unroll
-        for (int j = 0; j < kHN; ++j) hacc[i][j] = fmaf(xv[i], bv[j], hacc[i][j]);
-    }
+        for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int i = 0; i < kHP; ++i) {
-      const int p = ty + 8 * i;
+          for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int j = 0; j < kHN; ++j) {
-        const int n = tx + 32 * j;
-        hreg[i][j] = decay * hreg[i][j] + hacc[i][j];
-        if (p < p_dim && n < n_dim) s_h[p * np + n] = hreg[i][j];
+            for (int c = 0; c < 2; ++c)
+              acc[i][j][2 * h + c] = fmaf(av[i][h], bv[j][c], acc[i][j][2 * h + c]);
       }
     }
-    __syncthreads();  // h, x and B are read / rewritten by the next chunk
   }
+}
+
+__device__ __forceinline__ void zero(float (&acc)[2][4][4]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+}
+
+// Stores a warp's tile, its halves at rows r0 and r1 on, at out[row * ld +
+// col] for row < rows, col < cols (cols even), two columns at a time.
+__device__ __forceinline__ void store_tile(const float (&acc)[2][4][4], float* out, size_t ld,
+                                           int r0, int r1, int n0, int rows, int cols) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = (i == 0 ? r0 : r1) + g + 8 * h;
+      if (r >= rows) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = n0 + 8 * j + 2 * t;
+        if (c < cols)
+          *reinterpret_cast<float2*>(out + r * ld + c) =
+              make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
+    }
+}
+
+// Copies rows x cols floats (row stride `stride`) into shared memory at
+// `pitch`, scaled by row_scale[r] where given, zero filled to rows_p x
+// pad32(cols); cols and the addresses are multiples of 4 floats.  Each
+// thread issues kStageBatch 16-byte loads before it stores any, so that the
+// copy is not one load's latency per element.
+constexpr int kStageBatch = 4;
+
+__device__ __forceinline__ void stage(float* dst, int pitch, const float* __restrict__ src,
+                                      size_t stride, int rows, int cols, int rows_p,
+                                      const float* row_scale) {
+  const int c4 = pad32(cols) / 4;
+  const int total = rows_p * c4;
+  for (int e0 = threadIdx.x; e0 < total; e0 += kStageBatch * kThreads) {
+    float4 v[kStageBatch];
+#pragma unroll
+    for (int u = 0; u < kStageBatch; ++u) {
+      const int e = e0 + u * kThreads;
+      const int r = e / c4;
+      const int q = (e - r * c4) * 4;
+      v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (e < total && r < rows && q < cols)
+        v[u] = *reinterpret_cast<const float4*>(src + r * stride + q);
+    }
+#pragma unroll
+    for (int u = 0; u < kStageBatch; ++u) {
+      const int e = e0 + u * kThreads;
+      const int r = e / c4;
+      const int q = (e - r * c4) * 4;
+      if (e >= total) break;
+      if (row_scale != nullptr && r < rows) {
+        const float s = row_scale[r];
+        v[u].x *= s;
+        v[u].y *= s;
+        v[u].z *= s;
+        v[u].w *= s;
+      }
+      *reinterpret_cast<float4*>(dst + r * pitch + q) = v[u];
+    }
+  }
+}
+
+// ---- pass 1: cum and the chunk's own state contribution ---------------------
+
+template <bool kTC>
+__global__ void __launch_bounds__(kThreads, 2)
+ssd_chunk_state_kernel(const float* __restrict__ x, const float* __restrict__ a,
+                       const float* __restrict__ bm, float* __restrict__ cum_out,
+                       float* __restrict__ states, int seq, int h, int g, int p_dim,
+                       int n_dim, int chunk) {
+  extern __shared__ float4 smem4[];
+  const int lp = pad32(chunk);
+  const int xp = pitch_mn(p_dim);
+  const int bp = pitch_mn(n_dim);
+  float* s_x = reinterpret_cast<float*>(smem4);  // [lp][xp]: x * w, then A = its transpose
+  float* s_b = s_x + lp * xp;                     // [lp][bp]
+  float* s_cum = s_b + lp * bp;                   // [lp]
+  float* s_w = s_cum + lp;                        // [lp]: exp(cum[L-1] - cum)
+
+  const int c = blockIdx.x;
+  const int nc = gridDim.x;
+  const int hi = blockIdx.y;
+  const int bi = blockIdx.z;
+  const int gi = hi / (h / g);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const size_t t0 = (size_t)bi * seq + (size_t)c * chunk;  // first time step
+  const size_t bhc = ((size_t)bi * h + hi) * nc + c;
+
+  if (warp == 0) {  // inclusive cumsum: 4 steps a lane in order, then the lane totals
+    const float* ag = a + t0 * h + hi;
+    float v[kScanSteps];
+    float run = 0.f;
+#pragma unroll
+    for (int i = 0; i < kScanSteps; ++i) {
+      const int t = kScanSteps * lane + i;
+      run += t < chunk ? ag[(size_t)t * h] : 0.f;
+      v[i] = run;
+    }
+    float incl = run;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const float o = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += o;
+    }
+    float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+    if (lane == 0) excl = 0.f;
+#pragma unroll
+    for (int i = 0; i < kScanSteps; ++i) {
+      const int t = kScanSteps * lane + i;
+      if (t < lp) s_cum[t] = excl + v[i];  // past the chunk: unused
+    }
+  }
+  stage(s_b, bp, bm + t0 * g * n_dim + (size_t)gi * n_dim, (size_t)g * n_dim, chunk, n_dim,
+        lp, nullptr);
+  __syncthreads();
+  const float last = s_cum[chunk - 1];
+  for (int t = threadIdx.x; t < lp; t += kThreads) {
+    s_w[t] = t < chunk ? expf(fminf(last - s_cum[t], 0.f)) : 0.f;
+    if (t < chunk) cum_out[bhc * chunk + t] = s_cum[t];
+  }
+  __syncthreads();
+  stage(s_x, xp, x + t0 * h * p_dim + (size_t)hi * p_dim, (size_t)h * p_dim, chunk, p_dim, lp,
+        s_w);
+  __syncthreads();
+
+  // S_c (P x N): A(p, t) = s_x[t][p], B(t, n) = s_b[t][n]; at most 2 x 4 tiles
+  const int tn = pad32(n_dim) / 32;
+  if (warp < pad32(p_dim) / 32 * tn) {
+    const int m0 = warp / tn * 32;
+    const int n0 = warp % tn * 32;
+    float acc[2][4][4];
+    zero(acc);
+    warp_tile<kTC>(acc, s_x + m0, s_x + m0 + 16, 1, xp, s_b + n0, bp, 1, lp, lp);
+    store_tile(acc, states + bhc * p_dim * n_dim, n_dim, m0, m0 + 16, n0, p_dim, n_dim);
+  }
+}
+
+// ---- pass 2: G = C B^T once per group ---------------------------------------
+
+template <bool kTC>
+__global__ void __launch_bounds__(kThreads, 1)
+ssd_cb_kernel(const float* __restrict__ bm, const float* __restrict__ cm,
+              float* __restrict__ gmat, int seq, int g, int n_dim, int chunk) {
+  extern __shared__ float4 smem4[];
+  const int lp = pad32(chunk);
+  const int cp = pitch_k(n_dim);
+  float* s_c = reinterpret_cast<float*>(smem4);  // [lp][cp]
+  float* s_b = s_c + lp * cp;                     // [lp][cp]
+  const int c = blockIdx.x;
+  const int nc = gridDim.x;
+  const int gi = blockIdx.y;
+  const int bi = blockIdx.z;
+  const size_t off = ((size_t)bi * seq + (size_t)c * chunk) * g * n_dim + (size_t)gi * n_dim;
+  stage(s_c, cp, cm + off, (size_t)g * n_dim, chunk, n_dim, lp, nullptr);
+  stage(s_b, cp, bm + off, (size_t)g * n_dim, chunk, n_dim, lp, nullptr);
+  __syncthreads();
+  // A(t, n) = s_c[t][n], B(n, s) = s_b[s][n]; tiles (mt, nt) with nt <= mt
+  const int tl = lp / 32;
+  float* out = gmat + (((size_t)bi * g + gi) * nc + c) * lp * lp;
+  for (int tile = threadIdx.x >> 5; tile < tl * (tl + 1) / 2; tile += kWarps) {
+    int mt = 0;
+    while ((mt + 1) * (mt + 2) / 2 <= tile) ++mt;
+    const int nt = tile - mt * (mt + 1) / 2;
+    float acc[2][4][4];
+    zero(acc);
+    const float* a = s_c + mt * 32 * cp;
+    warp_tile<kTC>(acc, a, a + 16 * cp, cp, 1, s_b + nt * 32 * cp, 1, cp, pad32(n_dim),
+                   pad32(n_dim));
+    store_tile(acc, out, lp, mt * 32, mt * 32 + 16, nt * 32, lp, lp);
+  }
+}
+
+// ---- pass 3: the states entering each chunk ---------------------------------
+
+__global__ void __launch_bounds__(kStateThreads)
+ssd_state_pass_kernel(const float* __restrict__ cum, float* __restrict__ states, int nc,
+                      int h, int pn, int chunk) {
+  const int e4 = blockIdx.x * kStateThreads + threadIdx.x;  // 4 entries of the (P, N) state
+  if (4 * e4 >= pn) return;
+  const size_t bh = (size_t)blockIdx.z * h + blockIdx.y;
+  float4* st = reinterpret_cast<float4*>(states + bh * nc * pn) + e4;
+  const float* last = cum + bh * nc * chunk + chunk - 1;
+  const int step = pn / 4;  // float4s between consecutive chunks' states
+  constexpr int kAhead = 8;  // chunks loaded before the dependent updates
+  float4 hc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c0 = 0; c0 < nc; c0 += kAhead) {
+    float4 s[kAhead];
+    float d[kAhead];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      if (c0 + u < nc) {
+        s[u] = st[(size_t)(c0 + u) * step];
+        d[u] = expf(last[(size_t)(c0 + u) * chunk]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      if (c0 + u < nc) {
+        st[(size_t)(c0 + u) * step] = hc;
+        hc.x = fmaf(d[u], hc.x, s[u].x);
+        hc.y = fmaf(d[u], hc.y, s[u].y);
+        hc.z = fmaf(d[u], hc.z, s[u].z);
+        hc.w = fmaf(d[u], hc.w, s[u].w);
+      }
+    }
+  }
+}
+
+// ---- pass 4: outputs --------------------------------------------------------
+
+template <bool kTC>
+__global__ void __launch_bounds__(kThreads, 2)
+ssd_output_kernel(const float* __restrict__ x, const float* __restrict__ cm,
+                  const float* __restrict__ cum, const float* __restrict__ states,
+                  const float* __restrict__ gmat, float* __restrict__ y, int seq, int h, int g,
+                  int p_dim, int n_dim, int chunk) {
+  extern __shared__ float4 smem4[];
+  const int lp = pad32(chunk);
+  const int gp = pitch_k(chunk);
+  const int xp = pitch_mn(p_dim);
+  const int cp = pitch_k(n_dim);
+  const size_t region = max((size_t)lp * (gp + xp), (size_t)(lp + pad32(p_dim)) * cp);
+  float* s_g = reinterpret_cast<float*>(smem4);  // phase 1: [lp][gp] G o decay
+  float* s_x = s_g + lp * gp;                     //          [lp][xp] x
+  float* s_c = reinterpret_cast<float*>(smem4);  // phase 2: [lp][cp] exp(cum) o C
+  float* s_h = s_c + lp * cp;                     //          [pad32(p)][cp] h_c
+  float* s_cum = s_g + region;                    // [lp]
+  float* s_e = s_cum + lp;                        // [lp]: exp(cum)
+
+  const int c = blockIdx.x;
+  const int nc = gridDim.x;
+  const int hi = blockIdx.y;
+  const int bi = blockIdx.z;
+  const int gi = hi / (h / g);
+  const int warp = threadIdx.x >> 5;
+  const size_t t0 = (size_t)bi * seq + (size_t)c * chunk;
+  const size_t bhc = ((size_t)bi * h + hi) * nc + c;
+
+  for (int t = threadIdx.x; t < lp; t += kThreads) {
+    const float v = cum[bhc * chunk + min(t, chunk - 1)];
+    s_cum[t] = v;
+    s_e[t] = t < chunk ? expf(v) : 0.f;
+  }
+  __syncthreads();
+  // G o decay, zero above the diagonal and past the chunk
+  const float* gsrc = gmat + (((size_t)bi * g + gi) * nc + c) * lp * lp;
+  const int l4 = lp / 4;
+  for (int e0 = threadIdx.x; e0 < lp * l4; e0 += kStageBatch * kThreads) {
+    float4 v[kStageBatch];  // loads first, as in stage()
+#pragma unroll
+    for (int u = 0; u < kStageBatch; ++u) {
+      const int e = e0 + u * kThreads;
+      const int t = e / l4;
+      const int s0 = (e - t * l4) * 4;
+      v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (e < lp * l4 && t < chunk && s0 <= t)
+        v[u] = *reinterpret_cast<const float4*>(gsrc + t * lp + s0);
+    }
+#pragma unroll
+    for (int u = 0; u < kStageBatch; ++u) {
+      const int e = e0 + u * kThreads;
+      if (e >= lp * l4) break;
+      const int t = e / l4;
+      const int s0 = (e - t * l4) * 4;
+      if (t < chunk && s0 <= t) {
+        const float ct = s_cum[t];
+        v[u].x = v[u].x * expf(fminf(ct - s_cum[s0], 0.f));
+        v[u].y = s0 + 1 <= t ? v[u].y * expf(fminf(ct - s_cum[s0 + 1], 0.f)) : 0.f;
+        v[u].z = s0 + 2 <= t ? v[u].z * expf(fminf(ct - s_cum[s0 + 2], 0.f)) : 0.f;
+        v[u].w = s0 + 3 <= t ? v[u].w * expf(fminf(ct - s_cum[s0 + 3], 0.f)) : 0.f;
+      }
+      *reinterpret_cast<float4*>(s_g + t * gp + s0) = v[u];
+    }
+  }
+  stage(s_x, xp, x + t0 * h * p_dim + (size_t)hi * p_dim, (size_t)h * p_dim, chunk, p_dim, lp,
+        nullptr);
+  __syncthreads();
+
+  // y (L x P): a warp owns 32 columns of two 16-row slabs, slab q and slab
+  // lp / 16 - 1 - q, so that the masked product (summing over s up to the
+  // end of each slab) costs every warp the same; at most 4 x 2 warps
+  const int tn = pad32(p_dim) / 32;
+  const bool owner = warp < lp / 32 * tn;
+  const int r0 = warp / tn * 16;
+  const int r1 = lp - 16 - r0;
+  const int n0 = warp % tn * 32;
+  float acc[2][4][4];
+  zero(acc);
+  if (owner)  // A(t, s) = s_g[t][s], B(s, p) = s_x[s][p]; s past a slab's rows is 0
+    warp_tile<kTC>(acc, s_g + r0 * gp, s_g + r1 * gp, gp, 1, s_x + n0, xp, 1, r0 + 16,
+                   r1 + 16);
+  __syncthreads();  // phase 2 overwrites s_g and s_x
+  stage(s_c, cp, cm + t0 * g * n_dim + (size_t)gi * n_dim, (size_t)g * n_dim, chunk, n_dim, lp,
+        s_e);
+  stage(s_h, cp, states + bhc * p_dim * n_dim, n_dim, p_dim, n_dim, pad32(p_dim), nullptr);
+  __syncthreads();
+  if (owner) {  // A(t, n) = s_c[t][n], B(n, p) = s_h[p][n]
+    warp_tile<kTC>(acc, s_c + r0 * cp, s_c + r1 * cp, cp, 1, s_h + n0 * cp, 1, cp,
+                   pad32(n_dim), pad32(n_dim));
+    store_tile(acc, y + t0 * h * p_dim + (size_t)hi * p_dim, (size_t)h * p_dim, r0, r1, n0, chunk,
+               p_dim);
+  }
+}
+
+// Raises the three kernels' dynamic shared-memory limit to what the largest
+// shape takes, once per device (a bit each); a launch takes only its own.
+template <bool kTC>
+cudaError_t configure() {
+  static unsigned long long configured = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && (configured >> dev & 1ull))) return err;
+  err = cudaFuncSetAttribute(ssd_chunk_state_kernel<kTC>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)chunk_smem(kMaxL, kMaxP, kMaxN));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_cb_kernel<kTC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)cb_smem(kMaxL, kMaxN));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_output_kernel<kTC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)out_smem(kMaxL, kMaxP, kMaxN));
+  if (err == cudaSuccess && dev < 64) configured |= 1ull << dev;
+  return err;
+}
+
+template <bool kTC>
+int launch(const float* x, const float* a, const float* b, const float* c, float* y, float* cum,
+           float* states, float* gmat, int batch, int seq, int h, int g, int p_dim, int n_dim,
+           int chunk, cudaStream_t stream) {
+  const int nc = seq / chunk;
+  const size_t s1 = chunk_smem(chunk, p_dim, n_dim);
+  const size_t s2 = cb_smem(chunk, n_dim);
+  const size_t s4 = out_smem(chunk, p_dim, n_dim);
+  cudaError_t err = configure<kTC>();
+  if (err != cudaSuccess) return (int)err;
+  ssd_chunk_state_kernel<kTC><<<dim3(nc, h, batch), kThreads, s1, stream>>>(
+      x, a, b, cum, states, seq, h, g, p_dim, n_dim, chunk);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  ssd_cb_kernel<kTC><<<dim3(nc, g, batch), kThreads, s2, stream>>>(b, c, gmat, seq, g, n_dim,
+                                                                    chunk);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int pn = p_dim * n_dim;
+  const int blocks = (pn / 4 + kStateThreads - 1) / kStateThreads;
+  ssd_state_pass_kernel<<<dim3(blocks, h, batch), kStateThreads, 0, stream>>>(cum, states, nc, h,
+                                                                              pn, chunk);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  ssd_output_kernel<kTC><<<dim3(nc, h, batch), kThreads, s4, stream>>>(
+      x, c, cum, states, gmat, y, seq, h, g, p_dim, n_dim, chunk);
+  return (int)cudaGetLastError();
+}
+
+bool valid(int batch, int seq, int h, int g, int p_dim, int n_dim, int chunk) {
+  return batch > 0 && seq > 0 && h > 0 && g > 0 && h % g == 0 && chunk > 0 &&
+         chunk <= kMaxL && chunk % 4 == 0 && seq % chunk == 0 && p_dim > 0 &&
+         p_dim <= kMaxP && p_dim % 4 == 0 && n_dim > 0 && n_dim <= kMaxN && n_dim % 4 == 0 &&
+         h <= 65535 && batch <= 65535;  // grid y and z
 }
 
 }  // namespace
 
+// Floats of scratch a call takes: sizes[0] cum (batch, h, seq), sizes[1] the
+// chunk states (batch, h, seq / chunk, p_dim, n_dim), sizes[2] C B^T
+// (batch, g, seq / chunk, pad32(chunk), pad32(chunk)).
+extern "C" int ssd_scan_scratch(int batch, int seq, int h, int g, int p_dim, int n_dim,
+                                int chunk, long long* sizes) {
+  if (!valid(batch, seq, h, g, p_dim, n_dim, chunk)) return (int)cudaErrorInvalidValue;
+  const long long nc = seq / chunk;
+  sizes[0] = (long long)batch * h * seq;
+  sizes[1] = (long long)batch * h * nc * p_dim * n_dim;
+  sizes[2] = (long long)batch * g * nc * pad32(chunk) * pad32(chunk);
+  return 0;
+}
+
 // x (batch, seq, h, p_dim), a (batch, seq, h), b and c (batch, seq, g, n_dim),
-// y (batch, seq, h, p_dim); all float32 and contiguous.
+// y (batch, seq, h, p_dim); all float32 and contiguous.  cum, states and gmat
+// are scratch of the sizes ssd_scan_scratch gives.  tensor_cores != 0 runs
+// the products as 3xTF32 on the tensor cores, 0 as float32 FFMA.
 extern "C" int ssd_scan_f32(const void* x, const void* a, const void* b, const void* c,
-                            void* y, int batch, int seq, int h, int g, int p_dim,
-                            int n_dim, int chunk, void* stream) {
-  if (batch <= 0 || seq <= 0 || h <= 0 || g <= 0 || h % g != 0 || chunk <= 0 ||
-      chunk > kMaxL || chunk % 4 != 0 || seq % chunk != 0 || p_dim <= 0 ||
-      p_dim > kMaxP || p_dim % 4 != 0 || n_dim <= 0 || n_dim > kMaxN ||
-      n_dim % 4 != 0) {
-    return (int)cudaErrorInvalidValue;
+                            void* y, void* cum, void* states, void* gmat, int batch, int seq,
+                            int h, int g, int p_dim, int n_dim, int chunk, int tensor_cores,
+                            void* stream) {
+  if (!valid(batch, seq, h, g, p_dim, n_dim, chunk)) return (int)cudaErrorInvalidValue;
+  if (tensor_cores) {
+    return launch<true>((const float*)x, (const float*)a, (const float*)b, (const float*)c,
+                        (float*)y, (float*)cum, (float*)states, (float*)gmat, batch, seq, h, g,
+                        p_dim, n_dim, chunk, (cudaStream_t)stream);
   }
-  const size_t smem = smem_floats(chunk, p_dim, n_dim) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_chunk_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  ssd_chunk_scan_kernel<<<batch * h, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)a, (const float*)b, (const float*)c, (float*)y,
-      seq, h, g, p_dim, n_dim, chunk);
-  return (int)cudaGetLastError();
+  return launch<false>((const float*)x, (const float*)a, (const float*)b, (const float*)c,
+                       (float*)y, (float*)cum, (float*)states, (float*)gmat, batch, seq, h, g,
+                       p_dim, n_dim, chunk, (cudaStream_t)stream);
 }

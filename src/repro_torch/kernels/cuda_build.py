@@ -54,8 +54,11 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "fa_wgmma_info": [_I, _P],
     },
     "ssd_scan": {
-        # x, a, b, c, y, batch, seq, h, g, p_dim, n_dim, chunk, stream
-        "ssd_scan_f32": [_P] * 5 + [_I] * 7 + [_P],
+        # x, a, b, c, y, cum, states, gmat, batch, seq, h, g, p_dim, n_dim,
+        # chunk, tensor_cores, stream
+        "ssd_scan_f32": [_P] * 8 + [_I] * 8 + [_P],
+        # batch, seq, h, g, p_dim, n_dim, chunk, sizes (3 int64)
+        "ssd_scan_scratch": [_I] * 7 + [_P],
     },
 }
 

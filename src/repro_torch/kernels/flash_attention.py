@@ -13,12 +13,13 @@ q head, query tile) loops over the live key tiles itself with the online
 softmax in float32 registers, masking the ragged edges instead of padding.
 bfloat16 inputs run on the tensor cores: 128-row query tiles, ``wgmma`` fed
 with K and V tiles by TMA through an ``mbarrier`` ring, float32
-accumulators, P rounded to bf16 for the P V product.  float32 inputs run on
-the CUDA cores in float32 throughout.  It takes one type for q, k, v and the
-output, a head dim of 64 or 128, and any strides whose last one is 1 (for
-bfloat16 the others and the addresses must be multiples of 16 bytes, which
-the tensor maps require), so transposed views need no copy; the output has
-q's layout.  On a CPU tensor it runs ``attention_plain``.
+accumulators, P rounded to bf16 for the P V product (key tiles of 128, of 64
+at head dim 256).  float32 inputs run on the CUDA cores in float32
+throughout.  It takes one type for q, k, v and the output, a head dim of 64,
+128 or 256, and any strides whose last one is 1 (for bfloat16 the others and
+the addresses must be multiples of 16 bytes, which the tensor maps require),
+so transposed views need no copy; the output has q's layout.  On a CPU
+tensor it runs ``attention_plain``.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ import torch
 from repro_torch.kernels.cuda_build import check, load_library, ptr
 
 NEG = -1e30
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -5,13 +5,17 @@ computed chunk by chunk: within a chunk of ``L`` steps a masked ``(L, L)``
 product, across chunks one float32 ``(P, N)`` state carried in order.  H
 heads share G groups of B and C.
 
-On a CUDA tensor ``ssd_scan`` launches the hand-written Hopper kernel in
-``csrc/ssd_scan.cu`` (``ssd_scan_f32``), which replaces the TPU kernel
-``repro/kernels/ssd_scan.py::_ssd_kernel``: one CTA per (batch, head) walks
-the chunks in order with the state in registers, reading B and C by group
-and x, a and y in their ``(B, S, H, .)`` layouts.  It takes float32 with
-``L <= 128``, ``P <= 64`` and ``N <= 128`` (each a multiple of 4).  On a CPU
-tensor it runs ``ssd_plain``.
+On a CUDA tensor ``ssd_scan`` launches the hand-written Hopper kernels in
+``csrc/ssd_scan.cu`` (``ssd_scan_f32``), which replace the TPU kernel
+``repro/kernels/ssd_scan.py::_ssd_kernel``.  The chunks run in parallel:
+four passes, over scratch allocated here, compute each chunk's cumulative
+decay and own state contribution (a CTA per batch, head and chunk), C Bᵀ
+once per group, the states entering each chunk (the only sequential step,
+elementwise), and the outputs (a CTA per batch, head and chunk).  Their
+products run on the tensor cores as 3xTF32, which keeps float32 accuracy.
+B and C are read by group and x, a and y in their ``(B, S, H, .)`` layouts.
+It takes float32 with ``L <= 128``, ``P <= 64`` and ``N <= 128`` (each a
+multiple of 4).  On a CPU tensor it runs ``ssd_plain``.
 """
 from __future__ import annotations
 
@@ -82,8 +86,11 @@ def _check_cuda_operands(x, a_log, b_coef, c_coef, chunk) -> None:
                              f"of 4, got {val}")
 
 
-def ssd_scan_cuda(x, a_log, b_coef, c_coef, chunk: int = 64) -> torch.Tensor:
-    """Launch K5 (``ssd_scan_f32``) on ``x``'s CUDA device."""
+def ssd_scan_cuda(x, a_log, b_coef, c_coef, chunk: int = 64,
+                  tensor_cores: bool = True) -> torch.Tensor:
+    """Launch K5 (``ssd_scan_f32``) on ``x``'s CUDA device.
+    ``tensor_cores=False`` runs the same passes with float32 FFMA on the
+    CUDA cores (a measurement of the split alone; the model never asks)."""
     _check_cuda_operands(x, a_log, b_coef, c_coef, chunk)
     bsz, s, h, p = x.shape
     g, n = b_coef.shape[2], b_coef.shape[3]
@@ -91,10 +98,14 @@ def ssd_scan_cuda(x, a_log, b_coef, c_coef, chunk: int = 64) -> torch.Tensor:
     if bsz == 0 or s == 0:
         return y
     lib = load_library("ssd_scan")
+    sizes = (ctypes.c_longlong * 3)()
+    check(lib.ssd_scan_scratch(bsz, s, h, g, p, n, chunk, sizes), "ssd_scan_scratch")
+    cum, states, gmat = (torch.empty(k, dtype=torch.float32, device=x.device) for k in sizes)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.ssd_scan_f32(ptr(x), ptr(a_log), ptr(b_coef), ptr(c_coef), ptr(y),
-                              bsz, s, h, g, p, n, chunk, ctypes.c_void_p(stream))
+                              ptr(cum), ptr(states), ptr(gmat), bsz, s, h, g, p, n, chunk,
+                              int(tensor_cores), ctypes.c_void_p(stream))
     check(rc, "ssd_scan_f32")
     ssd_scan.launches += 1
     return y

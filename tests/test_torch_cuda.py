@@ -17,12 +17,13 @@ from repro_torch.kernels.edge_softmax import (edge_softmax_stats,  # noqa: E402
 from repro_torch.kernels.seg_sum import (pack_edge_blocks, seg_sum_na,  # noqa: E402
                                          seg_sum_plain)
 from repro_torch.kernels.flash_attention import (attention_plain,  # noqa: E402
-                                                 flash_attention)
+                                                 flash_attention, kernel_info)
 from repro_torch.kernels.spgemm_bsr import (TILE,  # noqa: E402
                                             compose_padded_blocked,
                                             spgemm_bsr, spgemm_plain,
                                             tile_occupancy)
-from repro_torch.kernels.ssd_scan import ssd_plain, ssd_scan  # noqa: E402
+from repro_torch.kernels.ssd_scan import (ssd_plain, ssd_scan,  # noqa: E402
+                                          ssd_scan_cuda)
 
 SHAPES = [(64, 64, 200, 32), (300, 200, 1500, 64), (17, 5, 40, 16)]
 
@@ -416,6 +417,58 @@ def test_flash_attention_kernel_reads_strided_views(cuda_device, dh, dtype):
     assert torch.equal(got, want)
 
 
+# head dim 256 (gemma2-2b; 64-key tiles in the bf16 kernel): causal, window,
+# softcap, both together, S < T, ragged S and T, a window edge one key past
+# a tile, non-causal, and gemma2's head layout over several waves of CTAs
+FA_DH256_CASES = [
+    (1, 2, 1, 128, 128, 256, True, None, None),
+    (1, 8, 4, 300, 300, 256, True, 100, None),
+    (1, 8, 4, 200, 200, 256, True, None, 50.0),
+    (1, 8, 4, 333, 333, 256, True, 65, 50.0),
+    (1, 4, 2, 96, 224, 256, True, None, None),
+    (1, 2, 1, 70, 333, 256, True, 100, 30.0),
+    (1, 3, 1, 129, 129, 256, True, None, None),
+    (1, 2, 2, 130, 190, 256, False, 70, None),
+    (2, 8, 4, 1024, 1024, 256, True, 512, 50.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,s,t,dh,causal,window,cap", FA_DH256_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_head_dim_256(cuda_device, b, hq, hkv, s, t, dh, causal,
+                                             window, cap, dtype):
+    rng = np.random.default_rng(b * 100000 + s * 10 + t)
+    q = _rand_cuda(rng, (b, hq, s, dh), cuda_device, dtype)
+    k = _rand_cuda(rng, (b, hkv, t, dh), cuda_device, dtype)
+    v = _rand_cuda(rng, (b, hkv, t, dh), cuda_device, dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
+    again = flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    want = attention_plain(q, k, v, causal=causal, window=window, softcap=cap)
+    tol = 3e-2 if dtype == torch.bfloat16 else 2e-5
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=tol)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [64, 128, 256])
+def test_flash_attention_kernel_info(cuda_device, dh):
+    """The bf16 kernel launches at 168 registers a thread (384 threads;
+    setmaxnreg then moves them to the consumers), with Q and two K/V stages
+    in dynamic shared memory under the 227 KB a block may take."""
+    info = kernel_info(dh)
+    bk = 64 if dh == 256 else 128
+    assert info["threads"] == 384
+    assert info["registers"] <= 168
+    assert info["shared_bytes"] >= 2 * dh * (128 + 4 * bk)
+    assert info["shared_bytes"] <= 232448
+    print(f"K4 bf16 head dim {dh}: {info}")
+
+
 @pytest.mark.cuda
 def test_flash_attention_wrapper_checks_layout_and_scale(cuda_device):
     """The bf16 kernel's tensor maps need 16-byte strides and addresses, and
@@ -442,6 +495,13 @@ SSD_CASES = [  # b, s, h, g, p, n, chunk
     (1, 64, 8, 8, 16, 16, 16),
     (2, 128, 4, 1, 16, 16, 64),
     (1, 512, 4, 1, 64, 128, 128),
+    # extents that are multiples of 4 but not of the 32-wide tiles, the
+    # smallest of each, and mamba2-370m's layout at B = 2, S = 1024
+    (1, 48, 3, 1, 12, 20, 12),
+    (2, 40, 4, 2, 4, 36, 20),
+    (1, 16, 2, 2, 4, 4, 4),
+    (1, 384, 6, 3, 60, 124, 96),
+    (2, 1024, 32, 1, 64, 128, 128),
 ]
 
 
@@ -465,6 +525,9 @@ def test_ssd_kernel_matches_plain(cuda_device, b, s, h, g, p, n, chunk):
     want = ssd_plain(x, a, bc, cc, chunk=chunk)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=3e-4)
     assert torch.equal(got, again)
+    # the same passes on the CUDA cores (float32 FFMA), the measurement build
+    ffma = ssd_scan_cuda(x, a, bc, cc, chunk=chunk, tensor_cores=False)
+    np.testing.assert_allclose(ffma.cpu().numpy(), want.cpu().numpy(), atol=3e-4)
 
 
 @pytest.mark.cuda
@@ -485,6 +548,41 @@ def test_ssd_wrapper_checks_operands(cuda_device):
                  torch.zeros((1, 64, 3, 16), device=cuda_device), chunk=32)
 
 
+def _to_card(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_card(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_card(v, device) for v in tree]
+    return tree.to(device)
+
+
+@pytest.mark.cuda
+def test_reduced_gemma2_prefill_at_head_dim_256_on_the_card(cuda_device):
+    """gemma2-2b cut in depth and width but at its own head dim (256), 8 / 4
+    heads, window, softcaps and q scale: the card forward launches K4 once a
+    layer and matches the CPU forward."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import LM
+
+    full = get_config("gemma2-2b")
+    cfg = dataclasses.replace(reduced(full), head_dim=full.head_dim,
+                              num_heads=full.num_heads, num_kv_heads=full.num_kv_heads,
+                              d_model=256, sliding_window=96)
+    assert cfg.head_dim == 256 and cfg.attn_softcap and cfg.q_scale
+    cpu = LM(cfg, device="cpu")
+    params = cpu.init(0)
+    card = LM(cfg, device=cuda_device)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 200)))
+    k4 = flash_attention.launches
+    got, _, _ = card.forward(_to_card(params, cuda_device), toks.to(cuda_device))
+    torch.cuda.synchronize()
+    assert flash_attention.launches - k4 == cfg.num_layers
+    want, _, _ = cpu.forward(params, toks)
+    v = cfg.vocab_size
+    np.testing.assert_allclose(got.cpu().float().numpy()[..., :v],
+                               want.float().numpy()[..., :v], atol=5e-2)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch,s", [("smollm-135m", 64), ("mamba2-370m", 128)])
 def test_reduced_lm_prefill_on_the_card(cuda_device, arch, s):
@@ -499,15 +597,7 @@ def test_reduced_lm_prefill_on_the_card(cuda_device, arch, s):
     cpu = LM(cfg, device="cpu")
     params = cpu.init(0)
     card = LM(cfg, device=cuda_device)
-
-    def to_card(tree):
-        if isinstance(tree, dict):
-            return {k: to_card(v) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to_card(v) for v in tree]
-        return tree.to(cuda_device)
-
-    params_card = to_card(params)
+    params_card = _to_card(params, cuda_device)
     toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, s)))
     k4, k5 = flash_attention.launches, ssd_scan.launches
     got, _, _ = card.forward(params_card, toks.to(cuda_device))
