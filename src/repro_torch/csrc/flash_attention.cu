@@ -918,19 +918,23 @@ extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o,
 
 // What the loaded bf16 kernel of head dim dh (no softcap) takes per CTA:
 // info[0] registers a thread at launch, info[1] dynamic shared memory bytes,
-// info[2] local memory bytes a thread (stack and spills), info[3] threads.
+// info[2] local memory bytes a thread (stack and spills), info[3] threads,
+// info[4] keys per K/V tile.
 extern "C" int fa_wgmma_info(int dh, int* info) {
   cudaFuncAttributes attr;
   cudaError_t err;
   if (dh == 64) {
     err = cudaFuncGetAttributes(&attr, fa_forward_wgmma_kernel<64, false>);
     info[1] = (int)FaSmem<64>::kBytes;
+    info[4] = kBlockK<64>;
   } else if (dh == 128) {
     err = cudaFuncGetAttributes(&attr, fa_forward_wgmma_kernel<128, false>);
     info[1] = (int)FaSmem<128>::kBytes;
+    info[4] = kBlockK<128>;
   } else if (dh == 256) {
     err = cudaFuncGetAttributes(&attr, fa_forward_wgmma_kernel<256, false>);
     info[1] = (int)FaSmem<256>::kBytes;
+    info[4] = kBlockK<256>;
   } else {
     return (int)cudaErrorInvalidValue;
   }

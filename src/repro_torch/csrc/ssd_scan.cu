@@ -40,9 +40,7 @@
 // split into hi = tf32(a) and lo = tf32(a - hi), both cut to TF32 (the low
 // 13 mantissa bits dropped), and every k step adds lo*hi, hi*lo, then hi*hi.
 // That keeps about 20 bits of each product, where TF32 alone keeps 11,
-// which at |y| of tens would miss the 3e-4 tolerance.  A template flag builds the same passes with
-// float32 FFMA on the CUDA cores instead (the split design alone, kept to
-// measure what more CTAs buy without tensor cores).  A warp owns a 32 x 32
+// which at |y| of tens would miss the 3e-4 tolerance.  A warp owns a 32 x 32
 // output tile, eight warps a CTA.  No atomics; every sum runs in a fixed
 // order, so a run repeats bit for bit.  Every exp argument is clamped to
 // <= 0 (the warp scan need not give a non-increasing cum bit for bit).
@@ -120,9 +118,7 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
 // [0, k_i), and B(k, n) = b[k bk + n bn] (b at the tile's first column), in
 // shared memory; k_0 and k_1 are multiples of 8.  acc[i][j][2 h + c] is row
 // g + 8 h of half i, column 8 j + 2 t + c (g = lane / 4, t = lane % 4): the
-// accumulator layout of mma.m16n8k8, which the FFMA build keeps so that both
-// share the stores.
-template <bool kTC>
+// accumulator layout of mma.m16n8k8.
 __device__ __forceinline__ void warp_tile(float (&acc)[2][4][4], const float* a0,
                                           const float* a1, int am, int ak, const float* b,
                                           int bk, int bn, int k_0, int k_1) {
@@ -131,56 +127,29 @@ __device__ __forceinline__ void warp_tile(float (&acc)[2][4][4], const float* a0
   const int t = lane & 3;
   const float* a[2] = {a0, a1};
   const int k_end = max(k_0, k_1);
-  if constexpr (kTC) {
-    for (int k = 0; k < k_end; k += 8) {
-      const bool live[2] = {k < k_0, k < k_1};  // uniform across the warp
-      uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
+  for (int k = 0; k < k_end; k += 8) {
+    const bool live[2] = {k < k_0, k < k_1};  // uniform across the warp
+    uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
-          if (live[i])
-            split_tf32(a[i][(g + 8 * (r & 1)) * am + (k + t + 4 * (r >> 1)) * ak], ah[i][r],
-                       al[i][r]);
+      for (int r = 0; r < 4; ++r)
+        if (live[i])
+          split_tf32(a[i][(g + 8 * (r & 1)) * am + (k + t + 4 * (r >> 1)) * ak], ah[i][r],
+                     al[i][r]);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int r = 0; r < 2; ++r)
-          split_tf32(b[(k + t + 4 * r) * bk + (8 * j + g) * bn], bh[j][r], bl[j][r]);
+      for (int r = 0; r < 2; ++r)
+        split_tf32(b[(k + t + 4 * r) * bk + (8 * j + g) * bn], bh[j][r], bl[j][r]);
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        if (!live[i]) continue;
+    for (int i = 0; i < 2; ++i) {
+      if (!live[i]) continue;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          mma_tf32(acc[i][j], al[i], bh[j]);
-          mma_tf32(acc[i][j], ah[i], bl[j]);
-          mma_tf32(acc[i][j], ah[i], bh[j]);
-        }
-      }
-    }
-  } else {
-#pragma unroll 4
-    for (int k = 0; k < k_end; ++k) {
-      const bool live[2] = {k < k_0, k < k_1};
-      float av[2][2], bv[4][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) av[i][h] = live[i] ? a[i][(g + 8 * h) * am + k * ak] : 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) bv[j][c] = b[k * bk + (8 * j + 2 * t + c) * bn];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        if (!live[i]) continue;
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-#pragma unroll
-            for (int c = 0; c < 2; ++c)
-              acc[i][j][2 * h + c] = fmaf(av[i][h], bv[j][c], acc[i][j][2 * h + c]);
+      for (int j = 0; j < 4; ++j) {
+        mma_tf32(acc[i][j], al[i], bh[j]);
+        mma_tf32(acc[i][j], ah[i], bl[j]);
+        mma_tf32(acc[i][j], ah[i], bh[j]);
       }
     }
   }
@@ -261,7 +230,6 @@ __device__ __forceinline__ void stage(float* dst, int pitch, const float* __rest
 
 // ---- pass 1: cum and the chunk's own state contribution ---------------------
 
-template <bool kTC>
 __global__ void __launch_bounds__(kThreads, 2)
 ssd_chunk_state_kernel(const float* __restrict__ x, const float* __restrict__ a,
                        const float* __restrict__ bm, float* __restrict__ cum_out,
@@ -330,14 +298,13 @@ ssd_chunk_state_kernel(const float* __restrict__ x, const float* __restrict__ a,
     const int n0 = warp % tn * 32;
     float acc[2][4][4];
     zero(acc);
-    warp_tile<kTC>(acc, s_x + m0, s_x + m0 + 16, 1, xp, s_b + n0, bp, 1, lp, lp);
+    warp_tile(acc, s_x + m0, s_x + m0 + 16, 1, xp, s_b + n0, bp, 1, lp, lp);
     store_tile(acc, states + bhc * p_dim * n_dim, n_dim, m0, m0 + 16, n0, p_dim, n_dim);
   }
 }
 
 // ---- pass 2: G = C B^T once per group ---------------------------------------
 
-template <bool kTC>
 __global__ void __launch_bounds__(kThreads, 1)
 ssd_cb_kernel(const float* __restrict__ bm, const float* __restrict__ cm,
               float* __restrict__ gmat, int seq, int g, int n_dim, int chunk) {
@@ -364,7 +331,7 @@ ssd_cb_kernel(const float* __restrict__ bm, const float* __restrict__ cm,
     float acc[2][4][4];
     zero(acc);
     const float* a = s_c + mt * 32 * cp;
-    warp_tile<kTC>(acc, a, a + 16 * cp, cp, 1, s_b + nt * 32 * cp, 1, cp, pad32(n_dim),
+    warp_tile(acc, a, a + 16 * cp, cp, 1, s_b + nt * 32 * cp, 1, cp, pad32(n_dim),
                    pad32(n_dim));
     store_tile(acc, out, lp, mt * 32, mt * 32 + 16, nt * 32, lp, lp);
   }
@@ -408,7 +375,6 @@ ssd_state_pass_kernel(const float* __restrict__ cum, float* __restrict__ states,
 
 // ---- pass 4: outputs --------------------------------------------------------
 
-template <bool kTC>
 __global__ void __launch_bounds__(kThreads, 2)
 ssd_output_kernel(const float* __restrict__ x, const float* __restrict__ cm,
                   const float* __restrict__ cum, const float* __restrict__ states,
@@ -487,7 +453,7 @@ ssd_output_kernel(const float* __restrict__ x, const float* __restrict__ cm,
   float acc[2][4][4];
   zero(acc);
   if (owner)  // A(t, s) = s_g[t][s], B(s, p) = s_x[s][p]; s past a slab's rows is 0
-    warp_tile<kTC>(acc, s_g + r0 * gp, s_g + r1 * gp, gp, 1, s_x + n0, xp, 1, r0 + 16,
+    warp_tile(acc, s_g + r0 * gp, s_g + r1 * gp, gp, 1, s_x + n0, xp, 1, r0 + 16,
                    r1 + 16);
   __syncthreads();  // phase 2 overwrites s_g and s_x
   stage(s_c, cp, cm + t0 * g * n_dim + (size_t)gi * n_dim, (size_t)g * n_dim, chunk, n_dim, lp,
@@ -495,7 +461,7 @@ ssd_output_kernel(const float* __restrict__ x, const float* __restrict__ cm,
   stage(s_h, cp, states + bhc * p_dim * n_dim, n_dim, p_dim, n_dim, pad32(p_dim), nullptr);
   __syncthreads();
   if (owner) {  // A(t, n) = s_c[t][n], B(n, p) = s_h[p][n]
-    warp_tile<kTC>(acc, s_c + r0 * cp, s_c + r1 * cp, cp, 1, s_h + n0 * cp, 1, cp,
+    warp_tile(acc, s_c + r0 * cp, s_c + r1 * cp, cp, 1, s_h + n0 * cp, 1, cp,
                    pad32(n_dim), pad32(n_dim));
     store_tile(acc, y + t0 * h * p_dim + (size_t)hi * p_dim, (size_t)h * p_dim, r0, r1, n0, chunk,
                p_dim);
@@ -504,27 +470,25 @@ ssd_output_kernel(const float* __restrict__ x, const float* __restrict__ cm,
 
 // Raises the three kernels' dynamic shared-memory limit to what the largest
 // shape takes, once per device (a bit each); a launch takes only its own.
-template <bool kTC>
 cudaError_t configure() {
   static unsigned long long configured = 0;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess || (dev < 64 && (configured >> dev & 1ull))) return err;
-  err = cudaFuncSetAttribute(ssd_chunk_state_kernel<kTC>,
+  err = cudaFuncSetAttribute(ssd_chunk_state_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)chunk_smem(kMaxL, kMaxP, kMaxN));
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ssd_cb_kernel<kTC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(ssd_cb_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)cb_smem(kMaxL, kMaxN));
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ssd_output_kernel<kTC>,
+    err = cudaFuncSetAttribute(ssd_output_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)out_smem(kMaxL, kMaxP, kMaxN));
   if (err == cudaSuccess && dev < 64) configured |= 1ull << dev;
   return err;
 }
 
-template <bool kTC>
 int launch(const float* x, const float* a, const float* b, const float* c, float* y, float* cum,
            float* states, float* gmat, int batch, int seq, int h, int g, int p_dim, int n_dim,
            int chunk, cudaStream_t stream) {
@@ -532,20 +496,19 @@ int launch(const float* x, const float* a, const float* b, const float* c, float
   const size_t s1 = chunk_smem(chunk, p_dim, n_dim);
   const size_t s2 = cb_smem(chunk, n_dim);
   const size_t s4 = out_smem(chunk, p_dim, n_dim);
-  cudaError_t err = configure<kTC>();
+  cudaError_t err = configure();
   if (err != cudaSuccess) return (int)err;
-  ssd_chunk_state_kernel<kTC><<<dim3(nc, h, batch), kThreads, s1, stream>>>(
+  ssd_chunk_state_kernel<<<dim3(nc, h, batch), kThreads, s1, stream>>>(
       x, a, b, cum, states, seq, h, g, p_dim, n_dim, chunk);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  ssd_cb_kernel<kTC><<<dim3(nc, g, batch), kThreads, s2, stream>>>(b, c, gmat, seq, g, n_dim,
-                                                                    chunk);
+  ssd_cb_kernel<<<dim3(nc, g, batch), kThreads, s2, stream>>>(b, c, gmat, seq, g, n_dim, chunk);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const int pn = p_dim * n_dim;
   const int blocks = (pn / 4 + kStateThreads - 1) / kStateThreads;
   ssd_state_pass_kernel<<<dim3(blocks, h, batch), kStateThreads, 0, stream>>>(cum, states, nc, h,
                                                                               pn, chunk);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  ssd_output_kernel<kTC><<<dim3(nc, h, batch), kThreads, s4, stream>>>(
+  ssd_output_kernel<<<dim3(nc, h, batch), kThreads, s4, stream>>>(
       x, c, cum, states, gmat, y, seq, h, g, p_dim, n_dim, chunk);
   return (int)cudaGetLastError();
 }
@@ -574,19 +537,12 @@ extern "C" int ssd_scan_scratch(int batch, int seq, int h, int g, int p_dim, int
 
 // x (batch, seq, h, p_dim), a (batch, seq, h), b and c (batch, seq, g, n_dim),
 // y (batch, seq, h, p_dim); all float32 and contiguous.  cum, states and gmat
-// are scratch of the sizes ssd_scan_scratch gives.  tensor_cores != 0 runs
-// the products as 3xTF32 on the tensor cores, 0 as float32 FFMA.
+// are scratch of the sizes ssd_scan_scratch gives.
 extern "C" int ssd_scan_f32(const void* x, const void* a, const void* b, const void* c,
                             void* y, void* cum, void* states, void* gmat, int batch, int seq,
-                            int h, int g, int p_dim, int n_dim, int chunk, int tensor_cores,
-                            void* stream) {
+                            int h, int g, int p_dim, int n_dim, int chunk, void* stream) {
   if (!valid(batch, seq, h, g, p_dim, n_dim, chunk)) return (int)cudaErrorInvalidValue;
-  if (tensor_cores) {
-    return launch<true>((const float*)x, (const float*)a, (const float*)b, (const float*)c,
-                        (float*)y, (float*)cum, (float*)states, (float*)gmat, batch, seq, h, g,
-                        p_dim, n_dim, chunk, (cudaStream_t)stream);
-  }
-  return launch<false>((const float*)x, (const float*)a, (const float*)b, (const float*)c,
-                       (float*)y, (float*)cum, (float*)states, (float*)gmat, batch, seq, h, g,
-                       p_dim, n_dim, chunk, (cudaStream_t)stream);
+  return launch((const float*)x, (const float*)a, (const float*)b, (const float*)c, (float*)y,
+                (float*)cum, (float*)states, (float*)gmat, batch, seq, h, g, p_dim, n_dim, chunk,
+                (cudaStream_t)stream);
 }

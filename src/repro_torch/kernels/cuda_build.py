@@ -50,13 +50,14 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         # q, k, v, o, b, hq, hkv, s_len, t_len, dh, bf16, scale, causal,
         # window, softcap, strides (12 int64), stream
         "fa_forward": [_P] * 4 + [_I] * 7 + [_F, _I, _I, _F, _P, _P],
-        # dh, info (4 ints: registers, dynamic shared bytes, local bytes, threads)
+        # dh, info (5 ints: registers, dynamic shared bytes, local bytes, threads,
+        # keys per K/V tile)
         "fa_wgmma_info": [_I, _P],
     },
     "ssd_scan": {
         # x, a, b, c, y, cum, states, gmat, batch, seq, h, g, p_dim, n_dim,
-        # chunk, tensor_cores, stream
-        "ssd_scan_f32": [_P] * 8 + [_I] * 8 + [_P],
+        # chunk, stream
+        "ssd_scan_f32": [_P] * 8 + [_I] * 7 + [_P],
         # batch, seq, h, g, p_dim, n_dim, chunk, sizes (3 int64)
         "ssd_scan_scratch": [_I] * 7 + [_P],
     },

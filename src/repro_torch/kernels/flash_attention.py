@@ -144,11 +144,12 @@ def flash_attention_cuda(q, k, v, causal=True, window=None, softcap=None,
 def kernel_info(dh: int) -> dict:
     """What the loaded bf16 kernel at head dim ``dh`` takes per CTA, as the
     CUDA runtime reports it: registers a thread at launch, dynamic shared
-    memory bytes, local-memory (stack and spill) bytes a thread, threads."""
-    info = (ctypes.c_int * 4)()
+    memory bytes, local-memory (stack and spill) bytes a thread, threads,
+    and the keys of one K/V tile."""
+    info = (ctypes.c_int * 5)()
     check(load_library("flash_attention").fa_wgmma_info(dh, info), "fa_wgmma_info")
     return {"registers": info[0], "shared_bytes": info[1], "local_bytes": info[2],
-            "threads": info[3]}
+            "threads": info[3], "block_k": info[4]}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -86,11 +86,8 @@ def _check_cuda_operands(x, a_log, b_coef, c_coef, chunk) -> None:
                              f"of 4, got {val}")
 
 
-def ssd_scan_cuda(x, a_log, b_coef, c_coef, chunk: int = 64,
-                  tensor_cores: bool = True) -> torch.Tensor:
-    """Launch K5 (``ssd_scan_f32``) on ``x``'s CUDA device.
-    ``tensor_cores=False`` runs the same passes with float32 FFMA on the
-    CUDA cores (a measurement of the split alone; the model never asks)."""
+def ssd_scan_cuda(x, a_log, b_coef, c_coef, chunk: int = 64) -> torch.Tensor:
+    """Launch K5 (``ssd_scan_f32``) on ``x``'s CUDA device."""
     _check_cuda_operands(x, a_log, b_coef, c_coef, chunk)
     bsz, s, h, p = x.shape
     g, n = b_coef.shape[2], b_coef.shape[3]
@@ -105,7 +102,7 @@ def ssd_scan_cuda(x, a_log, b_coef, c_coef, chunk: int = 64,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.ssd_scan_f32(ptr(x), ptr(a_log), ptr(b_coef), ptr(c_coef), ptr(y),
                               ptr(cum), ptr(states), ptr(gmat), bsz, s, h, g, p, n, chunk,
-                              int(tensor_cores), ctypes.c_void_p(stream))
+                              ctypes.c_void_p(stream))
     check(rc, "ssd_scan_f32")
     ssd_scan.launches += 1
     return y
