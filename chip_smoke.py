@@ -32,9 +32,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    host join and the device composer (K3) must give bitwise-equal products
    and equal per-step costs, K3 must launch once per plan step, and on
    every step K3 must equal its plain version exactly and repeat bit for
-   bit.  Per step: the pruning counters and CUDA-event medians of K3, the
-   plain version and the library yardstick (``torch.matmul`` of the padded
-   float32 operands, then ``> 0``; TF32 off), beside the bound.
+   bit.  A fault is planted on every step in the same run: one ``a_occ``
+   bit whose pairs carry output is cleared, and K3 must then differ from
+   the unaltered plain version (and equal the plain version under the
+   fault).  Per step: the pruning counters, K3's k splits, CUDA-event
+   medians of K3 and of its Bᵀ pre-pass alone (each also with the card's
+   queue full, which leaves out the wrapper's host cost), of the plain
+   version and of two library yardsticks (``torch.matmul`` of the padded
+   float32 operands, TF32 off, and ``torch._int_mm`` of int8 views, each
+   then ``> 0``; the port calls neither), beside the bound.  One device
+   run of DBLP's plan is profiled and broken down by span (densify,
+   occupancy scans, K3's pre-pass and product, the two host syncs a step,
+   the counters, extraction).
 5. Device-SGB session: the path ``Session(ExecutorSpec(sgb_backend=
    "device")).compile(DBLP at scale 1.0, ["APA", "APTPA", "APVPA"], cfg)``
    at full width, target type A, three forwards each of rgcn, rgat and
@@ -550,10 +559,45 @@ def _edges_equal(a, b) -> bool:
             and np.array_equal(a.src, b.src) and np.array_equal(a.dst, b.dst))
 
 
+def int_mm_call(a, b):
+    """``(a @ b) > 0`` by one ``torch._int_mm`` on int8 views (0/1 fit),
+    with B laid out K-major outside the timed call; or ``(None, reason)``
+    where the card refuses it."""
+    a8, b8 = a.view(torch.int8), b.view(torch.int8).t().contiguous().t()
+    try:
+        torch._int_mm(a8, b8)
+    except RuntimeError as exc:  # a shape or layout the card does not take
+        return None, str(exc).splitlines()[0][:120]
+    return (lambda: torch._int_mm(a8, b8) > 0), None
+
+
+def planted_occupancy_fault(a, b, ao, bo, plain, mt, kt, nt):
+    """One ``a_occ`` bit whose pairs carry output, cleared: the live A tiles
+    in the tile rows with the fewest live pairs are tried in turn until the
+    plain version of that row panel changes.  Returns ``(faulted bitmap,
+    mi, ki, the panel's plain product under the fault)`` or None."""
+    from repro_torch.kernels.spgemm_bsr import TILE, spgemm_plain
+
+    cand = (ao.reshape(mt, kt) > 0) & (bo.reshape(kt, nt) > 0).any(dim=1)[None, :]
+    rows = [int(r) for r in torch.argsort(cand.sum(dim=1), stable=True).tolist()
+            if int(cand[r].sum()) > 0]
+    for mi in rows[:8]:
+        for ki in torch.nonzero(cand[mi]).flatten().tolist()[:8]:
+            faulted = ao.clone()
+            faulted[mi * kt + ki] = 0
+            panel = slice(mi * TILE, (mi + 1) * TILE)
+            got, _ = spgemm_plain(a[panel], b, faulted.reshape(mt, kt)[mi].contiguous(), bo)
+            if not torch.equal(got, plain[panel]):
+                return faulted, mi, ki, got
+    return None
+
+
 def sgb_step(dev, step, left, right):
-    """K3 on one plan step's operands: exactness, repeatability and times."""
+    """K3 on one plan step's operands: exactness, repeatability, a planted
+    fault and times."""
     from repro_torch.kernels.spgemm_bsr import (TILE, pair_stats, spgemm_bsr,
-                                                spgemm_plain, tile_occupancy)
+                                                spgemm_plain, split_count,
+                                                tile_occupancy, transpose_tiles)
 
     a, b = left.dense_padded(dev, TILE), right.dense_padded(dev, TILE)
     ao, bo = tile_occupancy(a), tile_occupancy(b)
@@ -564,6 +608,7 @@ def sgb_step(dev, step, left, right):
     plain, plain_occ = spgemm_plain(a, b, ao, bo)
     a32, b32 = a.to(torch.float32), b.to(torch.float32)
     lib = (torch.matmul(a32, b32) > 0).to(torch.uint8)
+    int_mm, int_mm_refused = int_mm_call(a, b)
     torch.cuda.synchronize()
     err = (out.to(torch.int32) - plain.to(torch.int32)).abs().max().item()
     require(torch.equal(out, plain) and torch.equal(occ, plain_occ),
@@ -571,10 +616,33 @@ def sgb_step(dev, step, left, right):
     require(torch.equal(out, again) and torch.equal(occ, occ2),
             f"K3 not bitwise repeatable on {step!r}")
     require(torch.equal(lib, plain), f"library yardstick differs on {step!r}")
+    if int_mm is not None:
+        require(torch.equal(int_mm().to(torch.uint8), plain),
+                f"torch._int_mm yardstick differs on {step!r}")
+    # planted fault: one a_occ bit whose pairs carry output, cleared; K3 must
+    # then differ from the unaltered plain version (and equal the plain
+    # version under the same fault)
+    fault = planted_occupancy_fault(a, b, ao, bo, plain, mt, kt, nt)
+    require(fault is not None, f"no a_occ bit of {step!r} carries output alone")
+    faulted, fmi, fki, fpanel = fault
+    fout, _ = spgemm_bsr(a, b, faulted, bo)
+    panel = slice(fmi * TILE, (fmi + 1) * TILE)
+    fault_bytes = int((fout != plain).sum())
+    require(fault_bytes > 0, f"planted fault on {step!r} left K3 equal to the plain version")
+    require(torch.equal(fout[panel], fpanel)
+            and torch.equal(fout[:fmi * TILE], plain[:fmi * TILE])
+            and torch.equal(fout[(fmi + 1) * TILE:], plain[(fmi + 1) * TILE:]),
+            f"K3 under the planted fault differs from the plain version on {step!r}")
+    del fout, fpanel, faulted, lib
     reps = 5 if st["tile_pairs_live"] > 20000 else 20
     ms = median_ms(lambda: spgemm_bsr(a, b, ao, bo), reps=reps)
+    prepass_ms = median_ms(lambda: transpose_tiles(b, bo), reps=reps)
+    # queue full: the wrapper's host cost (tens of us a call) left out
+    queued = queued_ms(lambda: spgemm_bsr(a, b, ao, bo), reps=reps)
+    prepass_queued = queued_ms(lambda: transpose_tiles(b, bo), reps=reps)
     plain_ms = median_ms(lambda: spgemm_plain(a, b, ao, bo), reps=reps)
     lib_ms = median_ms(lambda: torch.matmul(a32, b32) > 0, reps=reps)
+    int_mm_ms = median_ms(int_mm, reps=reps) if int_mm is not None else None
     ops = 2.0 * st["macs_live"]
     nbytes = (int(ao.sum()) + int(bo.sum())) * TILE * TILE + out.numel() \
         + 4 * (ao.numel() + bo.numel() + occ.numel())
@@ -582,7 +650,11 @@ def sgb_step(dev, step, left, right):
     return {
         "step": repr(step), "shape": f"{tuple(a.shape)}x{tuple(b.shape)}",
         "pairs_live": st["tile_pairs_live"], "pairs_total": st["tile_pairs_total"],
-        "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "err": err,
+        "splits": split_count(mt, nt, kt),
+        "ms": ms, "prepass_ms": prepass_ms, "queued_ms": queued,
+        "prepass_queued_ms": prepass_queued, "plain_ms": plain_ms, "library_ms": lib_ms,
+        "library_int_mm_ms": int_mm_ms, "int_mm_refused": int_mm_refused, "err": err,
+        "fault": f"a_occ[{fmi}, {fki}] cleared: {fault_bytes} bytes differ",
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "ops": ops, "bytes": nbytes,
@@ -590,12 +662,110 @@ def sgb_step(dev, step, left, right):
     }
 
 
-def phase_sgb(make_dataset, dev):
-    """Phase 4: host against device SGB (K3) at scale 1.0, and K3 per step."""
-    from repro_torch.core import sgb
-    from repro_torch.kernels.spgemm_bsr import spgemm_bsr
+# What the DBLP breakdown labels, in order: (label, module attribute path).
+# Each is wrapped in a torch.profiler.record_function range for one
+# profiled run; device kernels are credited to the innermost label that
+# launched them.
+SGB_SPANS = (
+    ("dense_padded", "repro_torch.hetero.graph:Relation.dense_padded"),
+    ("tile_occupancy", "repro_torch.core.sgb:tile_occupancy"),
+    ("K3", "repro_torch.kernels.spgemm_bsr:spgemm_cuda"),
+    ("pair_stats (sync 1)", "repro_torch.kernels.spgemm_bsr:pair_stats"),
+    ("spgemm_macs", "repro_torch.core.sgb:spgemm_macs"),
+    ("count_nonzero", "torch:count_nonzero"),
+    ("compose", "repro_torch.core.sgb:DeviceComposer.compose"),
+    ("extract", "repro_torch.core.sgb:DeviceComposer.extract"),
+)
 
-    rows = {}
+
+def sgb_breakdown(graph, plan, dev) -> dict:
+    """Where a device ``execute_plan`` spends its time, from one profiled
+    run (torch.profiler): per span, calls, host ms and device ms of the
+    kernels it launched (K3's split into the Bᵀ pre-pass and the product),
+    the run's wall and the device's busy share.  ``compose`` holds what
+    its other spans leave: the stack of the two counters and the host sync
+    that brings them back."""
+    import importlib
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.core import sgb
+
+    def labelled(label, fn):
+        def run(*args, **kwargs):
+            with record_function(f"sgb::{label}"):
+                return fn(*args, **kwargs)
+        return run
+
+    saved = []
+    for label, path in SGB_SPANS:
+        mod_name, attr = path.split(":")
+        owner = importlib.import_module(mod_name)
+        *outer, name = attr.split(".")
+        for part in outer:
+            owner = getattr(owner, part)
+        saved.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, labelled(label, getattr(owner, name)))
+    try:
+        sgb.execute_plan(graph, plan, backend="device", device=dev)  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            sgb.execute_plan(graph, plan, backend="device", device=dev)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for owner, name, fn in reversed(saved):
+            setattr(owner, name, fn)
+
+    spans = {label: {"calls": 0, "host_ms": 0.0, "device_ms": 0.0} for label, _ in SGB_SPANS}
+    spans["other"] = {"calls": 0, "host_ms": 0.0, "device_ms": 0.0}
+    k3 = {"transpose_tiles_kernel": 0.0, "spgemm_wgmma_kernel": 0.0}
+    busy = attached = k3_attached = 0.0
+    for ev in prof.events():
+        if ev.name.startswith("sgb::"):
+            span = spans[ev.name[5:]]
+            span["calls"] += 1
+            span["host_ms"] += ev.cpu_time_total / 1e3
+        if "CUDA" in str(getattr(ev, "device_type", "")):  # a kernel, memcpy or memset
+            dur = ev.time_range.elapsed_us() / 1e3
+            busy += dur
+            for key in k3:
+                if key in ev.name:
+                    k3[key] += dur
+        for kern in getattr(ev, "kernels", []) or []:  # tied to the launch that issued it
+            dur = kern.duration / 1e3
+            attached += dur
+            if any(key in kern.name for key in k3):
+                k3_attached += dur
+            up = ev
+            while up is not None and not up.name.startswith("sgb::"):
+                up = up.cpu_parent
+            spans[up.name[5:] if up is not None else "other"]["device_ms"] += dur
+    # the kernels launched through ctypes are not tied to their launches in
+    # the trace: K3's are credited by name, the rest of the busy time is
+    # "other"
+    k3_loose = k3["transpose_tiles_kernel"] + k3["spgemm_wgmma_kernel"] - k3_attached
+    spans["K3"]["device_ms"] += k3_loose
+    spans["other"]["device_ms"] += max(0.0, busy - attached - k3_loose)
+    # a span's host time holds its inner spans': compose holds the others
+    inner = ("dense_padded", "tile_occupancy", "K3", "pair_stats (sync 1)", "spgemm_macs",
+             "count_nonzero")
+    spans["compose"]["host_ms"] -= sum(spans[k]["host_ms"] for k in inner)
+    return {"wall_ms": wall, "device_busy_ms": busy, "spans": spans,
+            "attached_ms": attached,
+            "prepass_ms": k3["transpose_tiles_kernel"],
+            "product_ms": k3["spgemm_wgmma_kernel"]}
+
+
+def phase_sgb(make_dataset, dev):
+    """Phase 4: host against device SGB (K3) at scale 1.0, K3 per step, and
+    a profiled breakdown of DBLP's device SGB."""
+    from repro_torch.core import sgb
+    from repro_torch.kernels.spgemm_bsr import kernel_info, spgemm_bsr
+
+    print(f"K3 main kernel: {kernel_info()}")
+    rows, breakdown = {}, None
     for name, targets in SGB_WORKLOADS.items():
         graph = make_dataset(name, seed=SEED, scale=1.0)
         plan = sgb.make_plan(graph, targets, planner="ctt")
@@ -618,18 +788,34 @@ def phase_sgb(make_dataset, dev):
               f"the host join, MACs {device.cost.macs}; device_stats {ds} "
               f"(pruned {1 - ds['tile_pairs_live'] / ds['tile_pairs_total']:.4f}); "
               f"host {host.wall_seconds * 1e3:.1f} ms, device {dev_s * 1e3:.1f} ms")
+        if name == "DBLP":
+            breakdown = sgb_breakdown(graph, plan, dev)
+            print(f"sgb DBLP breakdown (one profiled device run): wall "
+                  f"{breakdown['wall_ms']:.3f} ms, device busy "
+                  f"{breakdown['device_busy_ms']:.3f} ms "
+                  f"({100 * breakdown['device_busy_ms'] / breakdown['wall_ms']:.1f}%); K3 "
+                  f"B^T pre-pass {breakdown['prepass_ms']:.4f} ms, product "
+                  f"{breakdown['product_ms']:.4f} ms")
+            for label, span in breakdown["spans"].items():
+                print(f"  {label:20s} calls {span['calls']:3d}  host {span['host_ms']:9.3f} ms"
+                      f"  device {span['device_ms']:8.4f} ms")
         rows[name] = []
         for st, cost in device.per_step:
             r = sgb_step(dev, st, host.graphs[st.left], host.graphs[st.right])
             r["edges_out"] = cost.bytes_written // 8
             rows[name].append(r)
+            lib2 = (_ms(r["library_int_mm_ms"]) if r["int_mm_refused"] is None
+                    else f"refused ({r['int_mm_refused']})")
             print(f"  {r['step']} {r['shape']}: live pairs {r['pairs_live']}/"
                   f"{r['pairs_total']} (pruned {1 - r['pairs_live'] / r['pairs_total']:.4f}), "
-                  f"out edges {r['edges_out']}; K3 {r['ms']:.4f} ms, plain "
-                  f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms; "
-                  f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}; fp32 CUDA cores "
-                  f"{r['fp32_cuda_core_ms']:.4f} ms); |K3 - plain| {r['err']}")
-    return rows
+                  f"splits {r['splits']}, out edges {r['edges_out']}; K3 {r['ms']:.4f} ms, "
+                  f"queue-full {r['queued_ms']:.4f} ms (B^T pre-pass alone {r['prepass_ms']:.4f}"
+                  f", queue-full {r['prepass_queued_ms']:.4f} ms), plain "
+                  f"{r['plain_ms']:.4f} ms, matmul fp32 {r['library_ms']:.4f} ms, "
+                  f"_int_mm {lib2}; bound {r['bound_ms']:.5f} ms ({r['bound_by']}; "
+                  f"fp32 CUDA cores {r['fp32_cuda_core_ms']:.4f} ms); |K3 - plain| "
+                  f"{r['err']}; planted fault: {r['fault']}")
+    return rows, breakdown
 
 
 def phase_device_session(make_dataset, dev):
@@ -1204,13 +1390,14 @@ def main() -> int:
     for k in kernels:
         k["launches"] = launches[k["name"]]
         require(k["launches"] > 0, f"{k['name']} never launched on the banded path")
-    sgb_rows = phase_sgb(make_dataset, dev)
+    sgb_rows, sgb_dblp = phase_sgb(make_dataset, dev)
     session_launches = phase_device_session(make_dataset, dev)
     for k in kernels:
         k["launches_device_sgb_path"] = session_launches[k["name"]]
     dblp = sgb_rows["DBLP"]  # the plan the device-SGB session runs
     t_ops = sum(r["ops"] for r in dblp) / INT8_OP_PER_S * 1e3
     t_bytes = sum(r["bytes"] for r in dblp) / HBM_BYTES_PER_S * 1e3
+    int_mm = [r["library_int_mm_ms"] for r in dblp]
     kernels.append({
         "name": "spgemm_bsr", "route": "cuda",
         "source": "src/repro_torch/csrc/spgemm_kernels.cu",
@@ -1218,11 +1405,21 @@ def main() -> int:
         "launches": session_launches["spgemm_bsr"],
         "max_abs_err": max(r["err"] for rows in sgb_rows.values() for r in rows),
         "ms": sum(r["ms"] for r in dblp), "plain_ms": sum(r["plain_ms"] for r in dblp),
+        "prepass_ms": sum(r["prepass_ms"] for r in dblp),
+        "queued_ms": sum(r["queued_ms"] for r in dblp),
+        "prepass_queued_ms": sum(r["prepass_queued_ms"] for r in dblp),
         "bound_ms": sum(r["bound_ms"] for r in dblp),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": sum(r["library_ms"] for r in dblp),
+        "library_int_mm_ms": None if None in int_mm else sum(int_mm),
+        "library_int_mm_refused": sorted({r["int_mm_refused"] for r in dblp
+                                          if r["int_mm_refused"]}) or None,
         "bytes": sum(r["bytes"] for r in dblp),
         "shape": f"DBLP scale 1.0 ctt plan, {len(dblp)} steps (times summed)",
+        "acm": {key: sum(r[key] for r in sgb_rows["ACM"])
+                for key in ("ms", "prepass_ms", "queued_ms", "prepass_queued_ms", "plain_ms",
+                            "library_ms", "library_int_mm_ms", "bound_ms")},
+        "dblp_sgb_breakdown": sgb_dblp,
     })
     require(kernels[-1]["launches"] > 0, "spgemm_bsr never launched on the device-SGB path")
 

@@ -43,8 +43,16 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "na_softmax_stats_f32": [_P] * 6 + [_I, _P],
     },
     "spgemm_kernels": {
-        # a, b, a_occ, b_occ, out, out_occ, mt, nt, kt, stream
-        "spgemm_bool_u8": [_P] * 6 + [_I, _I, _I, _P],
+        # a, b, a_occ, b_occ, bt (B^T scratch), out, out_occ, mt, nt, kt,
+        # splits, stream
+        "spgemm_bool_u8": [_P] * 7 + [_I] * 4 + [_P],
+        # b, b_occ, bt, kt, nt, stream
+        "spgemm_transpose_u8": [_P] * 3 + [_I, _I, _P],
+        # mt, nt, kt
+        "spgemm_split_count": [_I] * 3,
+        # info (6 ints: registers, dynamic shared bytes, local bytes, threads,
+        # stages, CTAs an SM)
+        "spgemm_info": [_P],
     },
     "flash_attention": {
         # q, k, v, o, b, hq, hkv, s_len, t_len, dh, bf16, scale, causal,

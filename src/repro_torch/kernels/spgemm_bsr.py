@@ -7,19 +7,24 @@ are both set and saturates the sum to 0/1.  Semantic graphs built from
 sparse relations leave part of the tile pairs dead, and the pruning stats
 (``tile_pairs_live`` against ``tile_pairs_total``) count what that saves.
 
-On a CUDA tensor ``spgemm_bsr`` launches the hand-written Hopper kernel in
-``csrc/spgemm_kernels.cu`` (``spgemm_bool_u8``), which replaces the TPU
-kernel ``repro/kernels/spgemm_bsr.py::_spgemm_kernel``: one CTA per output
-tile loops over ``ki`` (the TPU grid's sequential k axis), skips dead pairs
-after two bitmap reads, accumulates 0/1 bytes in int32 (exact) and writes
-the saturated tile together with its occupancy bit.  It takes uint8
-operands, a quarter of the bytes of the reference's float32.  On a CPU
-tensor it runs ``spgemm_plain``: masked tiles, one float32 product, ``> 0``.
+On a CUDA tensor ``spgemm_bsr`` launches the hand-written Hopper kernels in
+``csrc/spgemm_kernels.cu`` (``spgemm_bool_u8``), which replace the TPU
+kernel ``repro/kernels/spgemm_bsr.py::_spgemm_kernel``.  A pre-pass writes
+the transpose of every live B tile into an ``(N, K)`` scratch allocated
+here (the int8 tensor cores read both operands K-major); then one CTA per
+output tile walks the list of its live ``ki`` (the TPU grid's sequential k
+axis), feeds the tile pairs by TMA to int8 ``wgmma`` with int32
+accumulators (exact for 0/1) and writes the saturated tile together with
+its occupancy bit.  A product with few output tiles splits each tile's k
+range over several CTAs (``split_count``), which OR their partial tiles
+into zero-filled outputs.  It takes uint8 operands, a quarter of the bytes
+of the reference's float32.  On a CPU tensor it runs ``spgemm_plain``:
+masked tiles, one float32 product, ``> 0``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -136,22 +141,108 @@ def _check_cuda_operands(a, b, a_occ, b_occ) -> None:
         raise ValueError("spgemm_bsr kernel takes 16-byte aligned operands")
 
 
+def _check_scratch(b: torch.Tensor, b_occ: torch.Tensor, bt: torch.Tensor) -> None:
+    if b.dim() != 2 or any(s % TILE for s in b.shape):
+        raise ValueError(f"B must be (K, N) with sides multiples of {TILE}, got "
+                         f"{tuple(b.shape)}")
+    if b.dtype != torch.uint8 or bt.dtype != torch.uint8:
+        raise TypeError(f"the B^T pre-pass takes uint8 B and scratch, got "
+                        f"{b.dtype}/{bt.dtype}")
+    if b_occ.dtype != torch.int32 or b_occ.shape != (b.numel() // TILE ** 2,):
+        raise ValueError(f"b_occ must be int32 ({b.numel() // TILE ** 2},), got "
+                         f"{b_occ.dtype} {tuple(b_occ.shape)}")
+    if bt.shape != (b.shape[1], b.shape[0]):
+        raise ValueError(f"B^T scratch must be {(b.shape[1], b.shape[0])}, got "
+                         f"{tuple(bt.shape)}")
+    for name, t in (("b_occ", b_occ), ("bt", bt)):
+        if t.device != b.device:
+            raise ValueError(f"B^T scratch and operands must lie on one device; "
+                             f"{name} is on {t.device}, b on {b.device}")
+    if not (b.is_contiguous() and b_occ.is_contiguous() and bt.is_contiguous()):
+        raise ValueError("the B^T pre-pass takes contiguous tensors")
+    if b.data_ptr() % 16 or bt.data_ptr() % 16:
+        raise ValueError("the B^T pre-pass takes 16-byte aligned B and scratch")
+
+
+def transpose_tiles_plain(b: torch.Tensor, b_occ: torch.Tensor,
+                          bt: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K3's pre-pass: tile ``(ni, ki)`` of ``bt``
+    gets B's tile ``(ki, ni)`` transposed where its bit is set; the other
+    tiles of ``bt`` keep what they held.  Returns ``bt``."""
+    kt, nt = b.shape[0] // TILE, b.shape[1] // TILE
+    ki, ni = torch.nonzero(b_occ.reshape(kt, nt) > 0, as_tuple=True)
+    dst = bt.view(nt, TILE, kt, TILE).permute(0, 2, 1, 3)  # [ni, ki, n, k]
+    src = b.view(kt, TILE, nt, TILE).permute(2, 0, 3, 1)   # [ni, ki, n, k]
+    dst[ni, ki] = src[ni, ki]
+    return bt
+
+
+def transpose_tiles(b: torch.Tensor, b_occ: torch.Tensor,
+                    bt: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K3's Bᵀ pre-pass alone, into ``bt`` (``(N, K)`` uint8; allocated
+    uninitialised when ``None``): the transpose of every B tile whose bit
+    is set, other tiles left as they were.  ``spgemm_bsr`` runs it itself;
+    this entry serves its tests and timings.  A CUDA ``b`` launches the
+    pre-pass kernel, a CPU ``b`` runs ``transpose_tiles_plain``."""
+    if bt is None:
+        bt = torch.empty((b.shape[1], b.shape[0]), dtype=b.dtype, device=b.device)
+    _check_scratch(b, b_occ, bt)
+    if b.device.type == "cpu":
+        return transpose_tiles_plain(b, b_occ, bt)
+    if b.device.type != "cuda":
+        raise ValueError(f"transpose_tiles runs on cuda or cpu, got {b.device}")
+    kt, nt = b.shape[0] // TILE, b.shape[1] // TILE
+    if kt == 0 or nt == 0:
+        return bt
+    lib = load_library("spgemm_kernels")
+    with torch.cuda.device(b.device):
+        stream = torch.cuda.current_stream(b.device).cuda_stream
+        rc = lib.spgemm_transpose_u8(ptr(b), ptr(b_occ), ptr(bt), kt, nt,
+                                     ctypes.c_void_p(stream))
+    check(rc, "spgemm_transpose_u8")
+    return bt
+
+
+def split_count(mt: int, nt: int, kt: int) -> int:
+    """How many slices K3 cuts each output tile's k range into for a
+    product of ``mt x nt`` output tiles over ``kt`` k tiles, as the loaded
+    kernel decides it from the shapes alone (``csrc/spgemm_kernels.cu``)."""
+    return int(load_library("spgemm_kernels").spgemm_split_count(mt, nt, kt))
+
+
+def kernel_info() -> dict:
+    """What K3's loaded main kernel takes per CTA, as the CUDA runtime
+    reports it: registers a thread, dynamic shared memory bytes, local
+    (stack and spill) bytes a thread, threads, ring stages and the CTAs
+    an SM holds."""
+    info = (ctypes.c_int * 6)()
+    check(load_library("spgemm_kernels").spgemm_info(info), "spgemm_info")
+    return {"registers": info[0], "shared_bytes": info[1], "local_bytes": info[2],
+            "threads": info[3], "stages": info[4], "ctas_per_sm": info[5]}
+
+
 def spgemm_cuda(a: torch.Tensor, b: torch.Tensor, a_occ: torch.Tensor,
                 b_occ: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K3 (``spgemm_bool_u8``) on ``a``'s CUDA device;
-    ``(out, out_occ)``, the bitmap written by the kernel itself."""
+    """Launch K3 (``spgemm_bool_u8``: the Bᵀ pre-pass, then the product) on
+    ``a``'s CUDA device; ``(out, out_occ)``, the bitmap written by the
+    kernel itself."""
     _check_cuda_operands(a, b, a_occ, b_occ)
     mt, kt, nt = _tiles(a, b)
-    out = torch.empty((mt * TILE, nt * TILE), dtype=torch.uint8, device=a.device)
-    out_occ = torch.empty((mt * nt,), dtype=torch.int32, device=a.device)
-    if mt == 0 or nt == 0:
-        return out, out_occ
+    if mt == 0 or nt == 0 or kt == 0:  # nothing to multiply: all zeros
+        return (torch.zeros((mt * TILE, nt * TILE), dtype=torch.uint8, device=a.device),
+                torch.zeros((mt * nt,), dtype=torch.int32, device=a.device))
     lib = load_library("spgemm_kernels")
+    splits = split_count(mt, nt, kt)
+    # split k ORs partial tiles into zeros; one split stores every byte
+    alloc = torch.zeros if splits > 1 else torch.empty
+    out = alloc((mt * TILE, nt * TILE), dtype=torch.uint8, device=a.device)
+    out_occ = alloc((mt * nt,), dtype=torch.int32, device=a.device)
+    bt = torch.empty((nt * TILE, kt * TILE), dtype=torch.uint8, device=a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = lib.spgemm_bool_u8(
-            ptr(a), ptr(b), ptr(a_occ), ptr(b_occ), ptr(out), ptr(out_occ),
-            mt, nt, kt, ctypes.c_void_p(stream))
+            ptr(a), ptr(b), ptr(a_occ), ptr(b_occ), ptr(bt), ptr(out), ptr(out_occ),
+            mt, nt, kt, splits, ctypes.c_void_p(stream))
     check(rc, "spgemm_bool_u8")
     spgemm_bsr.launches += 1
     return out, out_occ

@@ -20,8 +20,12 @@ from repro_torch.kernels.flash_attention import (attention_plain,  # noqa: E402
                                                  flash_attention, kernel_info)
 from repro_torch.kernels.spgemm_bsr import (TILE,  # noqa: E402
                                             compose_padded_blocked,
-                                            spgemm_bsr, spgemm_plain,
-                                            tile_occupancy)
+                                            split_count, spgemm_bsr,
+                                            spgemm_plain,
+                                            tile_occupancy, transpose_tiles,
+                                            transpose_tiles_plain)
+from repro_torch.kernels.spgemm_bsr import \
+    kernel_info as spgemm_kernel_info  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_plain, ssd_scan  # noqa: E402
 
 SHAPES = [(64, 64, 200, 32), (300, 200, 1500, 64), (17, 5, 40, 16)]
@@ -205,7 +209,11 @@ def _bool_matrix(rng, rows, cols, density, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mt,kt,nt,density", [
     (1, 1, 1, 0.01), (2, 3, 4, 0.002), (3, 2, 1, 0.0), (5, 7, 3, 0.3),
-    (8, 24, 16, 0.0003)])
+    (8, 24, 16, 0.0003),
+    # split k: one output tile over 112 k tiles (AP x PV's shape), two over 40
+    (1, 112, 1, 0.01), (2, 40, 1, 0.01),
+    # one k tile under a wide B; k lists longer than one 32-wide ballot
+    (3, 1, 200, 0.02), (3, 70, 100, 0.003)])
 def test_spgemm_kernel_matches_plain(cuda_device, mt, kt, nt, density):
     rng = np.random.default_rng(mt * 100 + kt * 10 + nt)
     a = _bool_matrix(rng, mt * TILE, kt * TILE, density, cuda_device)
@@ -239,6 +247,76 @@ def test_spgemm_kernel_stale_and_dead_bitmaps(cuda_device):
     dead, dead_occ = spgemm_bsr(a, b, torch.zeros_like(ao), bo)
     torch.cuda.synchronize()
     assert int(dead.sum()) == 0 and int(dead_occ.sum()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mt,kt,nt", [(1, 112, 1), (2, 40, 1)])
+def test_spgemm_kernel_splits_narrow_products(cuda_device, mt, kt, nt):
+    """Few output tiles: each tile's k range is split over CTAs, whose
+    partial tiles meet by an atomic OR; the bits repeat whatever the
+    order."""
+    assert split_count(mt, nt, kt) > 1
+    assert split_count(32, 32, 112) == 1  # DBLP's APA: enough tiles
+    rng = np.random.default_rng(kt)
+    a = _bool_matrix(rng, mt * TILE, kt * TILE, 0.01, cuda_device)
+    b = _bool_matrix(rng, kt * TILE, nt * TILE, 0.01, cuda_device)
+    ao, bo = tile_occupancy(a), tile_occupancy(b)
+    want, want_occ = spgemm_plain(a, b, ao, bo)
+    for _ in range(3):
+        out, occ = spgemm_bsr(a, b, ao, bo)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want) and torch.equal(occ, want_occ)
+
+
+@pytest.mark.cuda
+def test_spgemm_kernel_stale_bit_inside_a_split_slice(cuda_device):
+    mt, kt, nt = 1, 112, 1
+    splits = split_count(mt, nt, kt)
+    assert splits > 1
+    rng = np.random.default_rng(11)
+    a = _bool_matrix(rng, mt * TILE, kt * TILE, 0.01, cuda_device)
+    b = _bool_matrix(rng, kt * TILE, nt * TILE, 0.01, cuda_device)
+    ao, bo = tile_occupancy(a), tile_occupancy(b)
+    stale_a, stale_b = ao.clone(), bo.clone()
+    stale_a[kt // splits + 1] = 0  # inside the second slice
+    stale_b[kt - 2] = 0  # inside the last
+    out, occ = spgemm_bsr(a, b, stale_a, stale_b)
+    want, want_occ = spgemm_plain(a, b, stale_a, stale_b)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want) and torch.equal(occ, want_occ)
+    assert not torch.equal(out, spgemm_plain(a, b, ao, bo)[0])
+    # every bit of one slice cleared: the other slices' pairs alone
+    cut = ao.clone()
+    cut[: kt // splits] = 0
+    out, _ = spgemm_bsr(a, b, cut, bo)
+    assert torch.equal(out, spgemm_plain(a, b, cut, bo)[0])
+
+
+@pytest.mark.cuda
+def test_spgemm_transpose_pre_pass_and_its_scratch_checks(cuda_device):
+    rng = np.random.default_rng(2)
+    b = _bool_matrix(rng, 3 * TILE, 5 * TILE, 0.05, cuda_device)
+    bo = tile_occupancy(b)
+    bo[4] = 0  # a tile that holds ones, read as dead: its scratch stays as it was
+    bt = torch.full((5 * TILE, 3 * TILE), 0xAB, dtype=torch.uint8, device=cuda_device)
+    want = transpose_tiles_plain(b.cpu(), bo.cpu(), bt.cpu())
+    got = transpose_tiles(b, bo, bt)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == bt.data_ptr() and torch.equal(got.cpu(), want)
+    assert int((want == 0xAB).sum()) == TILE * TILE
+    with pytest.raises(ValueError, match="scratch must be"):
+        transpose_tiles(b, bo, bt[:, :TILE].contiguous())
+    with pytest.raises(TypeError):
+        transpose_tiles(b, bo, bt.to(torch.int8))
+    with pytest.raises(ValueError, match="contiguous"):
+        transpose_tiles(b, bo, torch.empty((3 * TILE, 5 * TILE), dtype=torch.uint8,
+                                           device=cuda_device).t())
+    with pytest.raises(ValueError, match="one device"):
+        transpose_tiles(b, bo, bt.cpu())
+    with pytest.raises(ValueError, match="b_occ"):
+        transpose_tiles(b, bo[:3], bt)
+    info = spgemm_kernel_info()
+    assert info["local_bytes"] == 0 and info["ctas_per_sm"] >= 1
 
 
 @pytest.mark.cuda
