@@ -723,11 +723,14 @@ def sgb_breakdown(graph, plan, dev) -> dict:
     k3 = {"transpose_tiles_kernel": 0.0, "spgemm_wgmma_kernel": 0.0}
     busy = attached = k3_attached = 0.0
     for ev in prof.events():
+        on_device = "CUDA" in str(getattr(ev, "device_type", ""))
         if ev.name.startswith("sgb::"):
-            span = spans[ev.name[5:]]
-            span["calls"] += 1
-            span["host_ms"] += ev.cpu_time_total / 1e3
-        if "CUDA" in str(getattr(ev, "device_type", "")):  # a kernel, memcpy or memset
+            if not on_device:  # the device copy of a label spans its kernels
+                span = spans[ev.name[5:]]
+                span["calls"] += 1
+                span["host_ms"] += ev.cpu_time_total / 1e3
+            continue
+        if on_device:  # a kernel, memcpy or memset
             dur = ev.time_range.elapsed_us() / 1e3
             busy += dur
             for key in k3:
