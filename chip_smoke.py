@@ -17,7 +17,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    the plain version and one library yardstick (``index_add_`` for K1,
    ``scatter_reduce(amax)`` + ``index_add_`` for K2; the port never calls
    them), each beside the shape of the kernels' work list (CTAs, the most
-   edges a CTA holds).
+   edges a CTA holds).  K1 also over the packing's source-major view, the
+   launch the NA backward makes, against its plain version
+   (``index_add_``, also the library call), bit for bit repeatable, and
+   K1's host cost a call that needs no gradient and one through the
+   autograd Function.
 3. Model: the banded inference path — ``Session(ExecutorSpec(na_executor=
    "banded")).compile(make_dataset("ACM", seed=0, scale=1.0), ["APA",
    "PAP", "PSP"], cfg)`` at the full width of ``HGNNConfig`` (hidden 64,
@@ -28,6 +32,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    1e-4, and K1 must launch 9 times per forward (K2 9 times per rgat or
    shgn forward).  One rgat and one rgcn forward are then profiled with
    ``torch.profiler``, with K1 + K2's device time.
+3b. Training: on the same ACM at full width, for rgcn, rgat and shgn
+   (labels from ``propagated_feature_labels``, masks from
+   ``semi_supervised_masks(seed=0)``): one ``execute_loss`` and its
+   gradients on the card against the port's CPU run from the same
+   parameters, the loss and every leaf, features included, within 1e-4
+   (``test_grad_banded.py``'s tolerance) and every leaf within 1e-4 of the
+   largest gradient entry (``GRAD_RTOL``), and every leaf with a nonzero
+   gradient on the CPU nonzero on the card; the same with a fault planted
+   from here (PAP's source-major view, which the backward's K1 launch
+   reads, without its largest work item) must break that gate.  K1 and K2
+   launches in one train step, counters set to 0 just before it and read
+   just after, must be what the route implies: 9 forward NA calls, one K1
+   launch for each differentiated NA call (two for attention: the
+   transposed aggregation and the softmax's row sums) and 9 K2 for rgat
+   and shgn.  ``fit`` for 20 epochs (lr 3e-3) must be finite and end below
+   its first loss; interrupted at epoch 3 with ``ckpt_every=2`` and resumed,
+   it must land within rtol 2e-4 / atol 2e-5 of the uninterrupted run
+   (whether bitwise is printed).  Printed: ms per train step (CUDA-event
+   median) and its forward, backward and optimizer parts, a profiled step,
+   and whether two steps or two gradient passes from one state repeat bit
+   for bit (the leaves that differ, if any).  Then rgat on full-width
+   DBLP, 5 epochs: ms per epoch and finite losses.
 4. SGB: ACM, IMDB and DBLP at scale 1.0 under the ``ctt`` planner.  The
    host join and the device composer (K3) must give bitwise-equal products
    and equal per-step costs, K3 must launch once per plan step, and on
@@ -105,8 +131,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    planted fault (one key tile dropped from the second half's rows in
    its first K4 call), which must read above the tolerance against the
    control.
-9. Report: one JSON line ``{"kernels": [...]}``, the card line, and last
-   the contract line ``{"ok": true, "device": {...}}``.
+9. Report: one JSON line ``{"kernels": [...]}`` (K1 and K2 with their
+   launches per train step by model), the card line, and last the
+   contract line ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card; exits non-zero without one, or without the repository
 beside it.
@@ -119,6 +146,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -134,6 +162,15 @@ NA_PER_FORWARD = 9  # 3 semantic graphs x 3 layers
 K1_TOL = 1e-4  # |d| <= tol + tol * |plain|: seg_sum fp32 in test_kernels.py
 K2_RTOL = 1e-5  # s relative to max(1, |s|); m is a max, expected exact
 LOGIT_ATOL = 1e-4  # reference suite's logits tolerance (test_gfp_banded.py)
+GRAD_ATOL = 1e-4  # reference suite's gradient tolerance (test_grad_banded.py:85)
+# ... and, tighter at full width, 1e-4 of the largest gradient entry: the
+# loss is a mean over 1,815 train vertices, so its gradients peak near
+# 7.5e-3, and a backward that drops PAP's hub row (1,068 of 110,476 edges)
+# moves them by only 7.7e-5, inside 1e-4; card and CPU agree to 5.6e-9
+# (PERF.md section 6, PR 18).  This gate sits between the two.
+GRAD_RTOL = 1e-4
+FAULT_METAPATH = "PAP"  # the packing whose backward view the planted fault breaks
+FIT_EPOCHS = 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 INT8_OP_PER_S = 1979e12  # H100 SXM int8 tensor cores, dense (exact for 0/1)
@@ -305,12 +342,11 @@ def bound(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def work_shape(pk) -> dict:
-    """The row kernels' work list on one packing: CTAs, items, the most
-    edges any CTA or item holds, and the skew it meets."""
+def work_shape(rows) -> dict:
+    """The row kernels' work list over one row view of a packing: CTAs,
+    items, the most edges any CTA or item holds, and the skew it meets."""
     from repro_torch.kernels.seg_sum import ITEMS_PER_CTA
 
-    rows = pk.row_edges()
     edges = (rows.items[:, 3] - rows.items[:, 2]).astype(np.int64)
     deg = np.diff(rows.row_ptr)
     return {"ctas": int(edges.size // ITEMS_PER_CTA), "items": int(edges.size),
@@ -325,11 +361,13 @@ def na_kernels_on(pk, label: str, dev):
     and library yardstick, and the bound."""
     from repro_torch.kernels.edge_softmax import (NEG, edge_softmax_stats,
                                                   softmax_stats_plain)
-    from repro_torch.kernels.seg_sum import seg_sum_na, seg_sum_plain
+    from repro_torch.kernels.seg_sum import (seg_sum_na, seg_sum_plain,
+                                             seg_sum_transposed,
+                                             seg_sum_transposed_plain)
 
     nb, eb = pk.src_local.shape
     n_edges, tiles = pk.num_edges, pk.num_dst_tiles
-    work = work_shape(pk)
+    work = work_shape(pk.row_edges())
     print(f"kernels: {label} packing, {n_edges} edges in {nb} blocks over "
           f"{tiles} dst tiles, D={D}; work list {work}")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -371,6 +409,37 @@ def na_kernels_on(pk, label: str, dev):
     k1_dev = device_ms(f"K1 {label}", lambda: seg_sum_na(pk, h, w_rand))
     k1_lib_dev = device_ms(f"K1 library {label}", k1_library)
     k1_host = host_us(lambda: seg_sum_na(pk, h, w_rand))
+    # the same launch through the autograd Function, which a call that
+    # needs a gradient takes (the forward of a train step)
+    h_grad = h.clone().requires_grad_(True)
+    k1_host_fn = host_us(lambda: seg_sum_na(pk, h_grad, w_rand))
+    # K1 over the source-major view, the backward's launch; its plain
+    # version is index_add_, which is also the library call
+    g = torch.randn(pk.num_dst, D, device=dev, generator=gen)
+    ta, tb = seg_sum_transposed(pk, g, w_rand), seg_sum_transposed(pk, g, w_rand)
+    t_ref = seg_sum_transposed_plain(pk, g, w_rand)
+    torch.cuda.synchronize()
+    t_err = (ta - t_ref).abs().max().item()
+    t_excess = ((ta - t_ref).abs() - K1_TOL * t_ref.abs()).max().item()
+    t_work = work_shape(pk.src_edges())
+    print(f"K1 transposed {label} (random weights): max|kernel - index_add_| = "
+          f"{t_err:.3e}; run-to-run bitwise equal: {torch.equal(ta, tb)}; work list {t_work}")
+    require(t_excess <= K1_TOL, f"K1 over {label}'s source-major view disagrees")
+    require(torch.equal(ta, tb), f"K1 over {label}'s source-major view not repeatable")
+    transposed = {
+        "ms": median_ms(lambda: seg_sum_transposed(pk, g, w_rand)),
+        "plain_ms": median_ms(lambda: seg_sum_transposed_plain(pk, g, w_rand)),
+        "device_ms": device_ms(f"K1 transposed {label}",
+                               lambda: seg_sum_transposed(pk, g, w_rand)),
+        "plain_device_ms": device_ms(f"K1 transposed plain (index_add_) {label}",
+                                     lambda: seg_sum_transposed_plain(pk, g, w_rand)),
+        "max_abs_err": t_err, "work": t_work,
+    }
+    print(f"K1 transposed {label}: kernel {transposed['ms']:.4f} ms (device "
+          f"{_ms(transposed['device_ms'])}), index_add_ {transposed['plain_ms']:.4f} ms "
+          f"(device {_ms(transposed['plain_device_ms'])}); host us a K1 call "
+          f"needing no gradient {k1_host:.1f}, through the autograd Function "
+          f"{k1_host_fn:.1f}")
     meta = nb * 4 * 2 + nb * 4 + (tiles + 1) * 4  # band, count, tile list
     k1_bytes = n_edges * (2 + 2 + 4) + pk.num_src * D * 4 + pk.num_dst * D * 4 + meta
     k1_bound, k1_by = bound(k1_bytes, 2.0 * n_edges * D)
@@ -382,7 +451,8 @@ def na_kernels_on(pk, label: str, dev):
         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": k1_lib,
         "bytes": k1_bytes, "shape": f"{label} E={n_edges} nb={nb} tiles={tiles} D={D}",
         "work": work, "device_ms": k1_dev, "library_device_ms": k1_lib_dev,
-        "host_us_per_call": k1_host,
+        "host_us_per_call": k1_host, "host_us_per_call_function": k1_host_fn,
+        "transposed": transposed,
     })
 
     # --- K2 --------------------------------------------------------------
@@ -454,7 +524,7 @@ def phase_kernels(graph, dblp, dev):
         k["dblp_aptpa"] = {key: other[key] for key in (
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err",
             "bytes", "shape", "work", "device_ms", "library_device_ms",
-            "host_us_per_call")}
+            "host_us_per_call", "transposed") if key in other}
     return out
 
 
@@ -518,6 +588,247 @@ def phase_model(graph):
         na_ms = sum(r[0] for r in rows if "_rows_kernel" in r[2]) / 1e3
         print(f"profile {m} forward: K1 + K2 device time {na_ms:.3f} ms")
     return launches
+
+
+def leaf_paths(tree, prefix="") -> list:
+    """Names of a tree's leaves in flatten order (``train.tree``)."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in leaf_paths(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree) for p in leaf_paths(v, f"{prefix}/{i}")]
+    return [prefix]
+
+
+def na_backward_per_step(graphs, layers: int, target: str) -> int:
+    """NA calls whose backward runs in a train step: a graph's NA at a
+    layer is differentiated only if its destination type reaches the
+    head's target type through the later layers (autograd runs nothing
+    else; on ACM the A -> A graph APA never does)."""
+    live, count = {target}, 0
+    for _ in range(layers):  # from the last layer back
+        hit = [g for g in graphs if g.dst_type in live]
+        count += len(hit)
+        live |= {g.src_type for g in hit}
+    return count
+
+
+def drop_work_item(view):
+    """A copy of a row view without the edges of its largest work item
+    (their rows lose them) and with the work list rebuilt: the planted
+    backward fault.  Returns ``(view, (item, its row, edges dropped))``."""
+    from repro_torch.kernels.seg_sum import RowEdges, work_list
+
+    sizes = view.items[:, 3] - view.items[:, 2]
+    i = int(np.argmax(sizes))
+    e0, e1 = int(view.items[i, 2]), int(view.items[i, 3])
+    n_rows = view.row_ptr.size - 1
+    row_of = np.repeat(np.arange(n_rows), np.diff(view.row_ptr))
+    cnt = np.diff(view.row_ptr) - np.bincount(row_of[e0:e1], minlength=n_rows)
+    ptr = np.concatenate([[0], np.cumsum(cnt)]).astype(np.int32)
+    keep = np.ones(view.row_src.size, bool)
+    keep[e0:e1] = False
+    return (RowEdges(ptr, view.row_src[keep], view.row_slot[keep], work_list(ptr)),
+            (i, int(view.items[i, 0]), e1 - e0))
+
+
+def planted_backward_fault(graphs, metapath: str):
+    """``graphs`` with ``metapath``'s packing replaced by a copy whose
+    source-major view (the backward's K1 launch) lost its largest work
+    item; built here, from outside the package."""
+    out, info = [], None
+    for g in graphs:
+        if g.metapath == metapath:
+            pk = dataclasses.replace(g.packed)  # memos (views, uploads) not copied
+            pk._src_edges, info = drop_work_item(g.packed.src_edges())
+            g = dataclasses.replace(g, packed=pk)
+        out.append(g)
+    return out, info
+
+
+def max_leaf_err(a, b) -> tuple:
+    """``(max |a - b| over every leaf, the leaf's name)`` of two trees of
+    tensors (``b`` may lie on another device)."""
+    from repro_torch.train import tree_leaves
+
+    errs = [(x - y.to(x.device)).abs().max().item() if x.numel() else 0.0
+            for x, y in zip(tree_leaves(a), tree_leaves(b))]
+    i = int(np.argmax(errs))
+    return errs[i], leaf_paths(a)[i]
+
+
+def phase_train(graph, dblp, dev):
+    """Phase 3b: HGNN training on the card at full width, held against the
+    port's CPU run; returns K1 and K2 launches per train step by model."""
+    from repro_torch.api import ExecutorSpec, Session, device_features
+    from repro_torch.core.hgnn import HGNNConfig
+    from repro_torch.kernels.edge_softmax import edge_softmax_stats
+    from repro_torch.kernels.seg_sum import seg_sum_na
+    from repro_torch.train import (init_train_state, make_train_step,
+                                   propagated_feature_labels,
+                                   semi_supervised_masks, tree_leaves, tree_map,
+                                   value_and_grad)
+
+    sess = Session(ExecutorSpec(na_executor="banded"))
+    cpu = Session(ExecutorSpec(na_executor="banded", device="cpu"), cache=sess.cache)
+    feats, feats_cpu = device_features(graph, dev), device_features(graph, "cpu")
+    cfgs = {m: HGNNConfig(model=m, hidden=64, num_layers=3, sf_att_dim=64,
+                          target_type="P") for m in MODELS}
+    compiled = {m: sess.compile(graph, TARGETS, cfgs[m]) for m in MODELS}
+    n = compiled["rgcn"].num_target
+    labels = propagated_feature_labels(compiled["rgcn"].frontend.semantic, TARGETS,
+                                       graph.features, n, device=dev)
+    masks = semi_supervised_masks(n, seed=0, device=dev)
+    mask_cpu, labels_cpu = masks["train"].cpu(), labels.cpu()
+    print(f"train: ACM scale 1.0, {n} P vertices, {int(masks['train'].sum().item())} "
+          f"in the train mask, label counts {np.bincount(labels_cpu.numpy()).tolist()}")
+    per_step = {}
+    for m in MODELS:
+        c = compiled[m]
+        params = c.init(SEED)
+
+        def loss_fn(graphs, mask, lab):
+            return lambda p, f: c.model.execute_loss(p, f, graphs, lab, mask=mask)
+
+        # (a) the gradient gate: every leaf, features included, against the CPU
+        loss, grads = value_and_grad(loss_fn(c.graphs, masks["train"], labels),
+                                     params, feats)
+        c_cpu = cpu.compile(graph, TARGETS, cfgs[m])
+        t0 = time.perf_counter()
+        loss_c, grads_c = value_and_grad(
+            loss_fn(c_cpu.graphs, mask_cpu, labels_cpu),
+            tree_map(lambda t: t.cpu(), params), feats_cpu)
+        cpu_s = time.perf_counter() - t0
+        err, where = max_leaf_err(grads, grads_c)
+        err_loss = abs(loss.item() - loss_c.item())
+        lost = [p for p, x, y in zip(leaf_paths(grads), tree_leaves(grads),
+                                     tree_leaves(grads_c))
+                if bool((y != 0).any()) and not bool((x != 0).any())]
+        scale = max(x.abs().max().item() for x in tree_leaves(grads_c))
+        gate = min(GRAD_ATOL, GRAD_RTOL * scale)
+        print(f"train {m} grads: loss {loss.item():.6f}, |card - cpu| loss "
+              f"{err_loss:.3e}, leaves {err:.3e} at {where} (gate {gate:.3e}: "
+              f"{GRAD_ATOL} and {GRAD_RTOL} x max|grad| {scale:.3e}); leaves "
+              f"nonzero on the cpu but zero on the card: {lost}; cpu loss + "
+              f"grads {cpu_s:.1f} s")
+        require(err_loss <= GRAD_ATOL and err <= gate,
+                f"{m}: card gradients disagree with the CPU run")
+        require(not lost, f"{m}: leaves lost their gradient on the card: {lost}")
+
+        # (b) a backward fault planted in the same run must break (a)
+        bad_graphs, (item, row, dropped) = planted_backward_fault(c.graphs, FAULT_METAPATH)
+        _, bad = value_and_grad(loss_fn(bad_graphs, masks["train"], labels), params, feats)
+        bad_err, bad_where = max_leaf_err(bad, grads_c)
+        print(f"train {m} planted fault ({FAULT_METAPATH}'s source-major view "
+              f"without work item {item}, {dropped} edges of source row {row}): "
+              f"|card - cpu| {bad_err:.3e} at {bad_where}, {bad_err / gate:.1f}x "
+              f"the gate, {bad_err / GRAD_ATOL:.2f}x {GRAD_ATOL}")
+        require(bad_err > gate, f"{m}: the planted backward fault passed the gate")
+
+        # (e) K1 and K2 launches in one train step, (f) its time and repeat
+        step = make_train_step(c.model, c.graphs)
+        # one step in: at step 0 the warmup's learning rate is 0
+        state, _ = step(init_train_state(c.model, SEED, device=dev), feats, labels,
+                        masks["train"])
+        torch.cuda.synchronize()
+        seg_sum_na.launches = edge_softmax_stats.launches = 0
+        s1, l1 = step(state, feats, labels, masks["train"])
+        torch.cuda.synchronize()
+        got = {"seg_sum_na": seg_sum_na.launches,
+               "edge_softmax_stats": edge_softmax_stats.launches}
+        s2, l2 = step(state, feats, labels, masks["train"])
+        bwd = na_backward_per_step(c.graphs, cfgs[m].num_layers, "P")
+        want = {"seg_sum_na": NA_PER_FORWARD + bwd * (1 if m == "rgcn" else 2),
+                "edge_softmax_stats": 0 if m == "rgcn" else NA_PER_FORWARD}
+        print(f"train {m} step launches: {got}; the route implies {want} "
+              f"({NA_PER_FORWARD} forward NA calls, {bwd} differentiated)")
+        require(got == want, f"{m}: K1/K2 launches per train step {got}, want {want}")
+        per_step[m] = got
+        differ = [p for p, x, y in zip(leaf_paths(s1.params), tree_leaves(s1.params),
+                                       tree_leaves(s2.params)) if not torch.equal(x, y)]
+        g1 = value_and_grad(loss_fn(c.graphs, masks["train"], labels), params, feats)[1]
+        g2 = value_and_grad(loss_fn(c.graphs, masks["train"], labels), params, feats)[1]
+        gdiff = [p for p, x, y in zip(leaf_paths(g1), tree_leaves(g1), tree_leaves(g2))
+                 if not torch.equal(x, y)]
+        print(f"train {m}: two steps from one state bitwise equal: "
+              f"{torch.equal(l1, l2) and not differ} ({len(differ)} of "
+              f"{len(leaf_paths(s1.params))} parameter leaves differ{': ' + ', '.join(differ[:6]) if differ else ''}); "
+              f"two gradient passes: {len(gdiff)} leaves differ"
+              f"{': ' + ', '.join(gdiff[:6]) if gdiff else ''}")
+        fwd_params = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        ms_step = median_ms(lambda: step(state, feats, labels, masks["train"]), reps=10)
+        ms_fwd = median_ms(lambda: c.loss(fwd_params, feats, labels, masks["train"]),
+                           reps=10)
+        ms_fb = median_ms(lambda: value_and_grad(lambda p: c.model.execute_loss(
+            p, feats, c.graphs, labels, mask=masks["train"]), params), reps=10)
+        rows = prof_call(f"train {m} step", lambda: step(state, feats, labels, masks["train"]))
+        na_ms = sum(r[0] for r in rows if "_rows_kernel" in r[2]) / 1e3
+        print(f"train {m} step: {ms_step:.3f} ms (CUDA-event median): forward "
+              f"{ms_fwd:.3f}, backward {ms_fb - ms_fwd:.3f}, optimizer "
+              f"{ms_step - ms_fb:.3f}; K1 + K2 device time in the profiled step "
+              f"{na_ms:.3f} ms")
+
+        # (c) fit for 20 epochs, (d) interrupted at epoch 3 and resumed
+        out = c.fit(feats, labels, masks, epochs=FIT_EPOCHS, seed=SEED, lr=3e-3)
+        losses = out["losses"]
+        print(f"train {m} fit: {FIT_EPOCHS} epochs, losses {losses[0]:.5f} -> "
+              f"{losses[-1]:.5f}; accuracy train {out['train_acc']:.3f} val "
+              f"{out['val_acc']:.3f} test {out['test_acc']:.3f}")
+        require(np.isfinite(losses).all(), f"{m}: non-finite loss in fit")
+        require(losses[-1] < losses[0], f"{m}: fit did not lower the loss")
+
+        class Interrupt(Exception):
+            pass
+
+        def crash_at_3(epoch, _loss):
+            if epoch == 3:
+                raise Interrupt
+
+        with tempfile.TemporaryDirectory() as ckpt:
+            try:
+                c.fit(feats, labels, masks, epochs=FIT_EPOCHS, seed=SEED, lr=3e-3,
+                      ckpt_dir=ckpt, ckpt_every=2, epoch_callback=crash_at_3)
+                require(False, f"{m}: the interrupt did not fire")
+            except Interrupt:
+                pass
+            resumed = []
+            again = c.fit(feats, labels, masks, epochs=FIT_EPOCHS, seed=SEED, lr=3e-3,
+                          ckpt_dir=ckpt, ckpt_every=2,
+                          epoch_callback=lambda e, _l: resumed.append(e))
+        pairs = list(zip(tree_leaves(out["state"].params), tree_leaves(again["state"].params)))
+        close = all(torch.allclose(b, a, rtol=2e-4, atol=2e-5) for a, b in pairs)
+        bitwise = all(torch.equal(a, b) for a, b in pairs)
+        worst = max((a - b).abs().max().item() for a, b in pairs)
+        print(f"train {m} resume: from epoch {resumed[0]}, final params within "
+              f"rtol 2e-4 / atol 2e-5 of the uninterrupted run: {close} (max "
+              f"|diff| {worst:.3e}); bitwise equal: {bitwise}")
+        require(resumed[0] == 2 and len(again["losses"]) == FIT_EPOCHS,
+                f"{m}: resume did not start from the step-2 checkpoint")
+        require(close, f"{m}: the resumed fit left the uninterrupted one")
+
+    # rgat on full-width DBLP: times and finiteness
+    targets = SGB_WORKLOADS["DBLP"]
+    c = sess.compile(dblp, targets, HGNNConfig(model="rgat", hidden=64, num_layers=3,
+                                               sf_att_dim=64, target_type="A"))
+    n = c.num_target
+    lab = propagated_feature_labels(c.frontend.semantic, targets, dblp.features, n,
+                                    device=dev)
+    msk = semi_supervised_masks(n, seed=0, device=dev)
+    times = []
+    t_last = [time.perf_counter()]
+
+    def tick(_e, _l):
+        now = time.perf_counter()
+        times.append((now - t_last[0]) * 1e3)
+        t_last[0] = now
+
+    t_last[0] = time.perf_counter()
+    out = c.fit(device_features(dblp, dev), lab, msk, epochs=5, seed=SEED, lr=3e-3,
+                epoch_callback=tick)
+    print(f"train DBLP rgat: 5 epochs, ms per epoch (host clock, each ends in "
+          f"a sync) {['%.2f' % t for t in times]}; losses "
+          f"{['%.5f' % x for x in out['losses']]}")
+    require(np.isfinite(out["losses"]).all(), "DBLP rgat: non-finite loss in fit")
+    return per_step
 
 
 def prof_call(label: str, fn) -> list:
@@ -1388,11 +1699,15 @@ def main() -> int:
     dev = torch.device("cuda")
 
     graph = make_dataset("ACM", seed=SEED, scale=1.0)
-    kernels = phase_kernels(graph, make_dataset("DBLP", seed=SEED, scale=1.0), dev)
+    dblp = make_dataset("DBLP", seed=SEED, scale=1.0)
+    kernels = phase_kernels(graph, dblp, dev)
     launches = phase_model(graph)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         require(k["launches"] > 0, f"{k['name']} never launched on the banded path")
+    train_launches = phase_train(graph, dblp, dev)
+    for k in kernels:
+        k["launches_train_step"] = {m: c[k["name"]] for m, c in train_launches.items()}
     sgb_rows, sgb_dblp = phase_sgb(make_dataset, dev)
     session_launches = phase_device_session(make_dataset, dev)
     for k in kernels:

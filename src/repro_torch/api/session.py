@@ -7,13 +7,18 @@ configured from one ``ExecutorSpec``::
     compiled = sess.compile(graph, targets, HGNNConfig(model="rgat"))
     params = compiled.init(0)
     logits = compiled.forward(params, device_features(graph, "cuda"))
+    out = compiled.fit(feats, labels, masks, epochs=20)   # training
+
+``na_executor="jnp"`` runs NA as plain segment sums over global edge
+lists instead of the kernels.
 
 ``compile`` runs the frontend (SGB -> Restructure -> packing, cache-served
 where possible; with ``sgb_backend="device"`` the SGB steps run on the
-spec's device, on kernel K3 for a CUDA device), builds the banded batches
-on the spec's device and binds them to the model in a ``CompiledHGNN``.  Frontend products and compiled
-models are memoized on the session, so several models over one graph pack
-each semantic graph once.
+spec's device, on kernel K3 for a CUDA device), builds the model's batches
+on the spec's device (banded batches, or segment-sum batches for
+``na_executor="jnp"``) and binds them to the model in a ``CompiledHGNN``.
+Frontend products and compiled models are memoized on the session, so
+several models over one graph pack each semantic graph once.
 """
 from __future__ import annotations
 
@@ -113,7 +118,57 @@ class CompiledHGNN:
             assert logits.shape == (compiled.num_target, cfg.num_classes)
         """
         with torch.inference_mode():
-            return self.model.execute(params, features, self.graphs)
+            return self.model.execute(params, features, self.graphs,
+                                      na_executor=self.spec.na_executor)
+
+    def _all_rows(self) -> torch.Tensor:
+        return torch.ones((self.num_target,), dtype=torch.float32, device=self.device)
+
+    def loss(self, params: Dict, features: Dict[str, torch.Tensor],
+             labels: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Masked cross-entropy on the target type, a 0-d tensor that
+        autograd can differentiate (not under inference mode).
+        ``mask=None`` counts every vertex."""
+        if mask is None:
+            mask = self._all_rows()
+        return self.model.execute_loss(params, features, self.graphs, labels,
+                                       mask=mask, na_executor=self.spec.na_executor)
+
+    def evaluate(self, params: Dict, features: Dict[str, torch.Tensor],
+                 labels: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Masked accuracy on the target type (``train.make_eval_fn``, the
+        one accuracy definition training uses); ``mask=None`` counts every
+        vertex."""
+        from repro_torch.train.hgnn_step import make_eval_fn
+
+        if mask is None:
+            mask = self._all_rows()
+        return make_eval_fn(self.model, self.graphs,
+                            na_executor=self.spec.na_executor)(
+            params, features, labels, mask)
+
+    def fit(self, features: Dict[str, torch.Tensor], labels: torch.Tensor,
+            masks: Dict[str, torch.Tensor], *, epochs: int = 100, seed: int = 0,
+            lr: float = 3e-3, weight_decay: float = 0.0, epoch_callback=None,
+            ckpt_dir: Optional[str] = None, ckpt_every: int = 1) -> Dict:
+        """Full-graph semi-supervised training on the bound executor and
+        device (``train.hgnn_step.fit``: AdamW, the NA kernels' VJPs on the
+        banded path).  ``ckpt_dir`` saves the train state atomically every
+        ``ckpt_every`` epochs, and a re-run over the same directory resumes
+        from the newest complete checkpoint.
+
+        Example::
+
+            out = compiled.fit(feats, labels, masks, epochs=50,
+                               ckpt_dir="ckpts/acm", ckpt_every=10)
+            out["losses"], out["val_acc"], out["state"].params
+        """
+        from repro_torch.train.hgnn_step import fit as _fit
+
+        return _fit(self.model, self.graphs, features, labels, masks,
+                    epochs=epochs, seed=seed, lr=lr, weight_decay=weight_decay,
+                    na_executor=self.spec.na_executor, epoch_callback=epoch_callback,
+                    ckpt_dir=ckpt_dir, ckpt_every=ckpt_every)
 
 
 class Session:
@@ -175,7 +230,10 @@ class Session:
             self._compiles_cached += 1
             return hit
         res = self.frontend(graph, targets)
-        graphs = res.banded_batches(self.spec.device)
+        if self.spec.na_executor == "banded":
+            graphs = res.banded_batches(self.spec.device)
+        else:
+            graphs = res.batches(self.spec.device)
         model = HGNN(cfg, graph.feature_dims, graph.num_vertices, sorted(targets))
         compiled = CompiledHGNN(self, self.spec, model, res, graphs, fp)
         self._compiled[ckey] = compiled

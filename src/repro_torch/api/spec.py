@@ -2,8 +2,10 @@
 
 The JAX package's spec names a ``kernel_backend`` (``interpret`` |
 ``pallas``) that has no meaning in PyTorch.  Here ``device`` takes its
-place: on ``"cuda"`` the NA path (and the device SGB composer) launches
-the hand-written CUDA kernels, on ``"cpu"`` it runs their plain versions.
+place: on ``"cuda"`` the banded NA path (and the device SGB composer)
+launches the hand-written CUDA kernels, on ``"cpu"`` it runs their plain
+versions.  ``na_executor="jnp"`` keeps the reference's name for the
+segment-sum executor (plain PyTorch scatters over global edge lists).
 The other validation invariants stay: ``banded`` implies packing and
 requires ``restructure``, and unknown values raise ``ValueError``.  Values the port does not run yet raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
@@ -78,10 +80,6 @@ class ExecutorSpec:
             raise ValueError(
                 "pack=True requires restructure=True (PackedEdges blocks "
                 "are built from the restructured schedule)")
-        if self.na_executor == "jnp":
-            raise NotImplementedError(
-                "na_executor='jnp' (the segment-sum executor) is not ported "
-                "yet: ROADMAP item M2")
         if self.shard != "none":
             raise NotImplementedError(
                 f"shard={self.shard!r} (multi-device execution) is not "

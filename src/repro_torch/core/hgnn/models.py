@@ -1,24 +1,73 @@
 """RGCN / RGAT / Simple-HGN on semantic graphs — the paper's GFP workload.
 
 Per layer: FP (a dense projection per vertex type), NA per semantic graph
-on the banded NA kernels (mean for RGCN, edge-softmax attention for RGAT
-and Simple-HGN with an edge-type term), then SF (HAN-style semantic
-attention over every semantic graph ending at a type, plus a self path).
+(mean for RGCN, edge-softmax attention for RGAT and Simple-HGN with an
+edge-type term), then SF (HAN-style semantic attention over every
+semantic graph ending at a type, plus a self path).  NA runs on one of two
+executors, as in the JAX package: ``"banded"`` (the NA kernels over the
+restructurer's packings, ``BandedBatch`` inputs) or ``"jnp"`` (plain
+segment sums over global edge lists, ``SemanticGraphBatch`` inputs).
 Parameters are an explicit nested dict of tensors with the JAX package's
 exact keys, so ``params_from_numpy`` carries its weights across.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.core.hgnn.layers import (feature_projection,
-                                          na_attention_banded, na_mean_banded,
-                                          semantic_fusion_beta)
+from repro_torch.core.hgnn.layers import (feature_projection, na_attention,
+                                          na_attention_banded, na_mean,
+                                          na_mean_banded, semantic_fusion_beta)
+from repro_torch.hetero.graph import Relation
 from repro_torch.kernels.seg_sum import PackedEdges
+
+NA_EXECUTORS = ("jnp", "banded")
+
+
+def _idx(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(device)
+
+
+@dataclasses.dataclass(frozen=True)
+class SemanticGraphBatch:
+    """Device-ready semantic graph for the segment-sum executor: global
+    ``(src, dst)`` edge index tensors (int64) on one device."""
+
+    metapath: str
+    src_type: str
+    dst_type: str
+    num_src: int
+    num_dst: int
+    src: torch.Tensor  # (E,) int64
+    dst: torch.Tensor  # (E,) int64
+    edge_type_id: int  # index into the Simple-HGN edge-type embedding
+
+    @staticmethod
+    def from_relation(rel: Relation, metapath: str, edge_type_id: int,
+                      device) -> "SemanticGraphBatch":
+        """Build from a ``Relation``'s own (src, dst)-sorted edges."""
+        return SemanticGraphBatch.from_edge_stream(
+            metapath, rel.num_src, rel.num_dst, rel.src, rel.dst, edge_type_id, device)
+
+    @staticmethod
+    def from_edge_stream(metapath: str, num_src: int, num_dst: int,
+                         src: np.ndarray, dst: np.ndarray, edge_type_id: int,
+                         device) -> "SemanticGraphBatch":
+        """Build from an explicit (already scheduled) edge stream — the
+        restructured layout path."""
+        return SemanticGraphBatch(
+            metapath=metapath,
+            src_type=metapath[0],
+            dst_type=metapath[-1],
+            num_src=num_src,
+            num_dst=num_dst,
+            src=_idx(src, device),
+            dst=_idx(dst, device),
+            edge_type_id=edge_type_id,
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,7 +105,7 @@ class BandedBatch:
         deg = np.bincount(d, minlength=rel.num_dst).astype(np.float32)
 
         def up(a):
-            return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(device)
+            return _idx(a, device)
 
         return BandedBatch(
             metapath=metapath,
@@ -178,22 +227,36 @@ class HGNN:
         self,
         params: Dict,
         features: Dict[str, torch.Tensor],
-        graphs: List[BandedBatch],
+        graphs: List,
+        *,
+        na_executor: str = "banded",
     ) -> Dict[str, torch.Tensor]:
-        """Run every FP -> NA -> SF layer on the banded NA executor; returns
-        the final per-type hidden states in global vertex numbering.
+        """Run every FP -> NA -> SF layer; returns the final per-type hidden
+        states in global vertex numbering.
 
-        Features are permuted once per layer into each graph's banded
-        layout and NA outputs permuted back.  The device of the parameters
-        picks the NA implementation: CUDA launches the kernels, CPU runs
-        their plain versions.
+        ``na_executor`` selects the NA executor:
+
+        * ``"banded"`` — the NA kernels over the restructurer's packings
+          (``graphs`` are ``BandedBatch``); features are permuted once per
+          layer into each graph's banded layout and NA outputs permuted
+          back.  The device of the parameters picks the implementation:
+          CUDA launches the kernels, CPU runs their plain versions.
+        * ``"jnp"`` — plain segment sums over global edge lists (``graphs``
+          are ``SemanticGraphBatch``), the JAX package's name for it.
+
+        Both are differentiable (see :meth:`execute_loss`).
         """
         cfg = self.cfg
+        if na_executor not in NA_EXECUTORS:
+            raise ValueError(f"unknown na_executor {na_executor!r}")
+        banded = na_executor == "banded"
         for g in graphs:
-            if not isinstance(g, BandedBatch):
+            if banded != isinstance(g, BandedBatch):
                 raise TypeError(
-                    f"the banded executor needs BandedBatch inputs, got "
-                    f"{type(g).__name__} for {getattr(g, 'metapath', '?')!r}")
+                    f"na_executor={na_executor!r} needs "
+                    f"{'BandedBatch' if banded else 'SemanticGraphBatch'} "
+                    f"inputs, got {type(g).__name__} for "
+                    f"{getattr(g, 'metapath', '?')!r}")
         device = params["head"]["w"].device
         h: Dict[str, torch.Tensor] = {}
         for t, n in self.num_vertices.items():
@@ -211,19 +274,27 @@ class HGNN:
             for g in graphs:
                 na_p = lp["na"][g.metapath]
                 h_src = hp[g.src_type] @ na_p["w_rel"]
-                hb = h_src[g.src_gather]
-                if cfg.model == "rgcn":
-                    zb = na_mean_banded(g.packed, hb, g.deg)
+                edge_bias = None
+                if cfg.model == "shgn":
+                    edge_bias = lp["edge_emb"][g.edge_type_id] @ lp["a_edge"]
+                if banded:
+                    hb = h_src[g.src_gather]
+                    if cfg.model == "rgcn":
+                        zb = na_mean_banded(g.packed, hb, g.deg)
+                    else:
+                        zb = na_attention_banded(
+                            hb, hp[g.dst_type][g.dst_gather],
+                            g.src_banded, g.dst_banded, g.packed,
+                            na_p["a_src"], na_p["a_dst"], edge_bias=edge_bias,
+                        )
+                    z = zb[g.dst_scatter]
+                elif cfg.model == "rgcn":
+                    z = na_mean(h_src, g.src, g.dst, g.num_dst)
                 else:
-                    edge_bias = None
-                    if cfg.model == "shgn":
-                        edge_bias = lp["edge_emb"][g.edge_type_id] @ lp["a_edge"]
-                    zb = na_attention_banded(
-                        hb, hp[g.dst_type][g.dst_gather],
-                        g.src_banded, g.dst_banded, g.packed,
-                        na_p["a_src"], na_p["a_dst"], edge_bias=edge_bias,
-                    )
-                z_by_dst.setdefault(g.dst_type, []).append(zb[g.dst_scatter])
+                    z = na_attention(h_src, hp[g.dst_type], g.src, g.dst,
+                                     g.num_dst, na_p["a_src"], na_p["a_dst"],
+                                     edge_bias=edge_bias)
+                z_by_dst.setdefault(g.dst_type, []).append(z)
             h_next: Dict[str, torch.Tensor] = {}
             for t, x in hp.items():
                 sf = lp["sf"][t]
@@ -241,9 +312,65 @@ class HGNN:
         self,
         params: Dict,
         features: Dict[str, torch.Tensor],
-        graphs: List[BandedBatch],
+        graphs: List,
+        *,
+        na_executor: str = "banded",
     ) -> torch.Tensor:
         """Full GFP stage; logits for every ``cfg.target_type`` vertex."""
-        h = self.hidden_states(params, features, graphs)
+        h = self.hidden_states(params, features, graphs, na_executor=na_executor)
         head = params["head"]
         return h[self.cfg.target_type] @ head["w"] + head["b"]
+
+    def execute_loss(self, params: Dict, features: Dict[str, torch.Tensor],
+                     graphs: List, labels: torch.Tensor,
+                     mask: Optional[torch.Tensor] = None, *,
+                     na_executor: str = "banded") -> torch.Tensor:
+        """Masked cross-entropy over ``cfg.target_type`` vertices
+        (semi-supervised node classification), a 0-d tensor.
+        Differentiable on both NA executors: on the banded one the NA
+        kernels' Functions carry the reference's VJPs, so its gradients
+        match the segment-sum executor's to float tolerance."""
+        logits = self.execute(params, features, graphs, na_executor=na_executor)
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, 1, labels.long()[:, None])[:, 0]
+        if mask is not None:
+            return torch.sum(nll * mask) / torch.clamp(mask.sum(), min=1.0)
+        return torch.mean(nll)
+
+
+def package_batches(
+    semantic: Dict[str, Relation],
+    targets: List[str],
+    restructured: bool = False,
+    restructured_graphs: Optional[Dict[str, object]] = None,
+    *,
+    device="cuda",
+) -> List[SemanticGraphBatch]:
+    """Semantic graphs -> ``SemanticGraphBatch`` list on ``device``, in
+    ``sorted(targets)`` order (the edge-type ids).
+
+    Batches carry global vertex ids; with ``restructured=True`` each edge
+    stream is the restructurer's schedule (``restructured_graphs`` supplies
+    already-computed ``RestructuredGraph`` objects).
+    """
+    from repro_torch.core.restructure import restructure
+
+    out = []
+    for i, mp in enumerate(sorted(targets)):
+        rel = semantic[mp]
+        if restructured:
+            rg = (restructured_graphs or {}).get(mp)
+            if rg is None:
+                rg = restructure(rel)
+            s, d = rg.scheduled_edges()
+            out.append(SemanticGraphBatch.from_edge_stream(
+                mp, rel.num_src, rel.num_dst, s, d, i, device))
+        else:
+            out.append(SemanticGraphBatch.from_relation(rel, mp, i, device))
+    return out
+
+
+def graphs_from_pipeline(result, device="cuda") -> List[SemanticGraphBatch]:
+    """Segment-sum batches from a ``pipeline.FrontendResult`` on ``device``
+    (built once on the result, shared by every model)."""
+    return result.batches(device)

@@ -5,9 +5,13 @@ zoo's attention and SSD scan: the forward half of the JAX package's
 The device of the input tensors picks the implementation: CUDA tensors go
 through the hand-written kernels K1 (``seg_sum_na``), K2
 (``edge_softmax_stats``), K3 (``spgemm_bsr``), K4 (``flash_attention``) and
-K5 (``ssd_scan``), CPU tensors through their plain versions.  The alpha computation between K2 and K1 stays in PyTorch,
-as in the reference (``ops.py:200-204``).  Forward only: gradients come
-with a later slice of the port.
+K5 (``ssd_scan``), CPU tensors through their plain versions.  The alpha
+computation between K2 and K1 stays in PyTorch, as in the reference
+(``ops.py:200-204``).  The NA operations carry the reference's VJPs as
+``torch.autograd.Function``s (``seg_sum.BandedMatvec``,
+``AttentionPacked``) whose backward runs K1 again over the packing's
+source-major view; attention, SSD and the SGB compositions are forward
+only, as in the reference's kernels.
 """
 from __future__ import annotations
 
@@ -18,7 +22,9 @@ import torch
 
 from repro_torch.kernels.edge_softmax import NEG, edge_softmax_stats
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.seg_sum import PackedEdges, pack_edge_blocks, seg_sum_na
+from repro_torch.kernels.seg_sum import (PackedEdges, edge_dots, needs_grad,
+                                         pack_edge_blocks, seg_sum_forward,
+                                         seg_sum_na, seg_sum_transposed)
 from repro_torch.kernels.spgemm_bsr import (compose_dense_blocked,
                                             compose_padded_blocked)
 from repro_torch.kernels.ssd_scan import ssd_scan
@@ -62,23 +68,81 @@ def na_aggregate(
     return seg_sum_na(packed, h)
 
 
+def _alpha(packed: PackedEdges, logits: torch.Tensor, m: torch.Tensor,
+           s: torch.Tensor) -> torch.Tensor:
+    dst_g = packed.device_blocked(logits.device)["edge_dst"]
+    return torch.exp(logits - m[dst_g]) / torch.clamp(s[dst_g], min=1e-9)
+
+
+def _attention_forward(packed: PackedEdges, logits: torch.Tensor, h: torch.Tensor):
+    """``(out, alpha, m, s)``: K2, alpha, then K1 with alpha as weights."""
+    m, s = edge_softmax_stats(packed, packed.scatter_blocks(logits, fill=NEG))
+    alpha = _alpha(packed, logits, m, s)
+    return seg_sum_forward(packed, h, packed.scatter_blocks(alpha, fill=0.0)), alpha, m, s
+
+
+class AttentionPacked(torch.autograd.Function):
+    """Edge-softmax attention NA ``(logits, h) -> (out, alpha)`` with the
+    reference's VJP (``repro/kernels/ops.py::_build_attention_packed_vjp``).
+
+    Forward: K2's ``(m, s)`` over the blocked logits, alpha per edge, then
+    K1 with alpha as the block weights; ``(logits, m, s, h)`` are saved.
+    Backward recomputes alpha from ``(m, s)``, then
+
+        grad_alpha_e = h[src_e] . g_out[dst_e] + g_alpha_e
+        t[d]         = sum_{e: dst_e = d} alpha_e grad_alpha_e
+        grad_logit_e = alpha_e (grad_alpha_e - t[dst_e])
+        grad_h[s]    = sum_{e: src_e = s} alpha_e g_out[dst_e]
+
+    ``t`` is K1 over the destination row view at width 1 (``h`` all ones,
+    ``alpha * grad_alpha`` as the block weights) and ``grad_h`` K1 over the
+    source-major view: both fixed-order per-row sums, so the backward
+    uses no float atomics and repeats bit for bit.
+    """
+
+    @staticmethod
+    def forward(ctx, packed: PackedEdges, logits: torch.Tensor, h: torch.Tensor):
+        logits = logits.to(torch.float32)
+        out, alpha, m, s = _attention_forward(packed, logits, h)
+        ctx.packed = packed
+        ctx.save_for_backward(logits, m, s, h)
+        return out, alpha
+
+    @staticmethod
+    def backward(ctx, g_out: torch.Tensor, g_alpha: torch.Tensor):
+        logits, m, s, h = ctx.saved_tensors
+        packed = ctx.packed
+        g_out = g_out.contiguous()
+        alpha = _alpha(packed, logits, m, s)
+        grad_alpha = edge_dots(packed, h, g_out) + g_alpha
+        ones = torch.ones((packed.num_src, 1), dtype=torch.float32, device=h.device)
+        t = seg_sum_forward(packed, ones,
+                            packed.scatter_blocks(alpha * grad_alpha))[:, 0]
+        dst_g = packed.device_blocked(h.device)["edge_dst"]
+        grad_logits = alpha * (grad_alpha - t[dst_g])
+        grad_h = None
+        if ctx.needs_input_grad[2]:
+            grad_h = seg_sum_transposed(packed, g_out, packed.scatter_blocks(alpha),
+                                        num_rows=h.shape[0])
+        return None, grad_logits, grad_h
+
+
 def na_attention_packed(
     packed: PackedEdges,
     edge_logits: torch.Tensor,  # (E,) logits in the packing's scheduled order
     h: torch.Tensor,  # (N_src, D) features in the packing's src numbering
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Edge-softmax attention NA over a cached packing; ``(out, alpha)``.
+    """Edge-softmax attention NA over a cached packing; ``(out, alpha)``,
+    differentiable in ``edge_logits`` and ``h`` (``AttentionPacked``).
 
     The logits scatter into the blocked layout, K2 folds them into online
     per-destination ``(m, s)``, alpha is computed per edge, and K1
-    aggregates with alpha as the block weights.
+    aggregates with alpha as the block weights.  A call that needs no
+    gradient skips the autograd Function.
     """
-    db = packed.device_blocked(h.device)
-    logits = edge_logits.to(torch.float32)
-    m, s = edge_softmax_stats(packed, packed.scatter_blocks(logits, fill=NEG))
-    dst_g = db["edge_dst"]
-    alpha = torch.exp(logits - m[dst_g]) / torch.clamp(s[dst_g], min=1e-9)
-    out = seg_sum_na(packed, h, weights=packed.scatter_blocks(alpha, fill=0.0))
+    if needs_grad(edge_logits, h):
+        return AttentionPacked.apply(packed, edge_logits, h)
+    out, alpha, _, _ = _attention_forward(packed, edge_logits.to(torch.float32), h)
     return out, alpha
 
 

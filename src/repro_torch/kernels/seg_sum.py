@@ -286,6 +286,52 @@ class PackedEdges:
             self._row_edges = re_
         return re_
 
+    def src_edges(self) -> RowEdges:
+        """Source-major view of the valid slots and its work list
+        (memoized): the transpose K1 runs in the backward.
+
+        Rows are source ids ``0 .. num_src - 1``; ``row_src`` holds each
+        edge's global destination and ``row_slot`` the same flat
+        ``blk * edge_block + slot`` index as ``row_edges()``.  A stable sort
+        of the flat scheduled stream (``edge_map()``) by source, so each
+        source keeps its edges in schedule order.  The work list is
+        ``work_list(row_ptr)``.
+        """
+        se = getattr(self, "_src_edges", None)
+        if se is None:
+            blk, slot = self.edge_map()
+            src, dst = self.flat_global_edges()
+            if src.size and int(src.max()) >= self.num_src:
+                raise ValueError(f"an edge leaves row {int(src.max())} of "
+                                 f"{self.num_src} sources")
+            order = np.argsort(src, kind="stable")
+            row_ptr = np.zeros(self.num_src + 1, np.int64)
+            np.cumsum(np.bincount(src, minlength=self.num_src), out=row_ptr[1:])
+            flat = blk.astype(np.int64) * self.edge_block + slot
+            if flat.size and int(flat.max()) >= 2 ** 31:
+                raise ValueError("the row kernels index at most 2**31 slots")
+            se = RowEdges(row_ptr.astype(np.int32), dst[order].astype(np.int32),
+                          flat[order].astype(np.int32), work_list(row_ptr))
+            self._src_edges = se
+        return se
+
+    def device_src_edges(self, device) -> Dict[str, torch.Tensor]:
+        """Device copies of ``src_edges()`` (keys ``row_ptr``, ``row_src``,
+        ``row_slot``, ``items``; int32), uploaded once per device."""
+        device = torch.device(device)
+        cache = getattr(self, "_device_src", None)
+        if cache is None:
+            cache = {}
+            self._device_src = cache
+        key = str(device)
+        ds = cache.get(key)
+        if ds is None:
+            rows = self.src_edges()
+            ds = {name: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+                  for name, a in rows._asdict().items()}
+            cache[key] = ds
+        return ds
+
     def device_blocked(self, device) -> Dict[str, torch.Tensor]:
         """Device copies of the arrays the NA kernels and their plain
         versions read, uploaded once per device and cached on the instance.
@@ -520,14 +566,30 @@ def seg_sum_plain(packed: PackedEdges, h: torch.Tensor,
     return out[: packed.num_dst]
 
 
+def seg_sum_transposed_plain(packed: PackedEdges, g: torch.Tensor,
+                             weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of K1 over the source-major view:
+    ``out[s] = sum_{e: src_e = s} w_e g[dst_e]`` by ``index_add_`` over the
+    flat scheduled stream, the reference's VJP formula
+    (``repro/kernels/seg_sum.py::_build_banded_matvec``).  Returns
+    ``(num_src, D)``."""
+    db = packed.device_blocked(g.device)
+    w = db["weight"] if weights is None else weights
+    w_e = w[db["edge_blk"], db["edge_slot"]].to(g.dtype)
+    out = g.new_zeros((packed.num_src, g.shape[1]))
+    return out.index_add_(0, db["edge_src"], w_e[:, None] * g[db["edge_dst"]])
+
+
 # ------------------------------------------------------------------ kernel --
 def _check_cuda_operands(packed: PackedEdges, h: torch.Tensor,
-                         w: torch.Tensor) -> None:
+                         w: torch.Tensor, rows: int) -> None:
+    """K1's operands: float32, contiguous, one device, ``h`` with at least
+    ``rows`` rows (the view's gather range) and ``w`` in the blocked
+    layout."""
     if h.dtype != torch.float32 or w.dtype != torch.float32:
         raise TypeError(f"seg_sum_na kernel takes float32, got {h.dtype}/{w.dtype}")
-    if h.dim() != 2 or h.shape[0] < packed.num_src:
-        raise ValueError(
-            f"h must be (>= {packed.num_src}, D), got {tuple(h.shape)}")
+    if h.dim() != 2 or h.shape[0] < rows:
+        raise ValueError(f"h must be (>= {rows}, D), got {tuple(h.shape)}")
     if w.shape != packed.src_local.shape:
         raise ValueError(
             f"weights must be {packed.src_local.shape}, got {tuple(w.shape)}")
@@ -537,27 +599,120 @@ def _check_cuda_operands(packed: PackedEdges, h: torch.Tensor,
         raise ValueError("seg_sum_na kernel takes contiguous tensors")
 
 
-def seg_sum_cuda(packed: PackedEdges, h: torch.Tensor,
-                 weights: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch K1 (``na_seg_sum_f32``) on ``h``'s CUDA device; ``(num_dst, D)``."""
-    db = packed.device_blocked(h.device)
-    w = db["weight"] if weights is None else weights
-    _check_cuda_operands(packed, h, w)
+def _launch_k1(view: Dict[str, torch.Tensor], w: torch.Tensor, h: torch.Tensor,
+               num_rows: int) -> torch.Tensor:
+    """One launch of K1 (``na_seg_sum_f32``) over a row view on ``h``'s
+    CUDA device; ``(num_rows, D)``, every row written."""
     d = int(h.shape[1])
-    out = torch.empty((packed.num_dst, d), dtype=torch.float32, device=h.device)
-    items = db["items"]
+    out = torch.empty((num_rows, d), dtype=torch.float32, device=h.device)
+    items = view["items"]
     if d == 0 or items.shape[0] == 0:
-        return out
+        return out.zero_()
     lib = load_library("na_kernels")
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         rc = lib.na_seg_sum_f32(
-            ptr(items), ptr(db["row_ptr"]), ptr(db["row_src"]),
-            ptr(db["row_slot"]), ptr(w), ptr(h), ptr(out),
+            ptr(items), ptr(view["row_ptr"]), ptr(view["row_src"]),
+            ptr(view["row_slot"]), ptr(w), ptr(h), ptr(out),
             int(items.shape[0]), d, ctypes.c_void_p(stream))
     check(rc, "na_seg_sum_f32")
     seg_sum_na.launches += 1
     return out
+
+
+def seg_sum_cuda(packed: PackedEdges, h: torch.Tensor,
+                 weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch K1 over the destination row view on ``h``'s CUDA device;
+    ``(num_dst, D)``."""
+    db = packed.device_blocked(h.device)
+    w = db["weight"] if weights is None else weights
+    _check_cuda_operands(packed, h, w, packed.num_src)
+    return _launch_k1(db, w, h, packed.num_dst)
+
+
+def seg_sum_transposed_cuda(packed: PackedEdges, g: torch.Tensor,
+                            weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch K1 over the source-major view (``src_edges()``) on ``g``'s
+    CUDA device: ``out[s] = sum_{e: src_e = s} w_e g[dst_e]``,
+    ``(num_src, D)``.  One owner a source row, no atomics, bitwise
+    repeatable."""
+    w = packed.device_blocked(g.device)["weight"] if weights is None else weights
+    _check_cuda_operands(packed, g, w, packed.num_dst)
+    return _launch_k1(packed.device_src_edges(g.device), w, g, packed.num_src)
+
+
+def _on_device(cuda_fn, plain_fn, packed: PackedEdges, x: torch.Tensor,
+               weights: Optional[torch.Tensor]) -> torch.Tensor:
+    if x.device.type == "cuda":
+        return cuda_fn(packed, x, weights)
+    if x.device.type != "cpu":
+        raise ValueError(f"seg_sum_na runs on cuda or cpu, got {x.device}")
+    return plain_fn(packed, x, weights)
+
+
+def seg_sum_forward(packed: PackedEdges, h: torch.Tensor,
+                    weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K1 on a CUDA ``h``, ``seg_sum_plain`` on a CPU one; no autograd."""
+    return _on_device(seg_sum_cuda, seg_sum_plain, packed, h, weights)
+
+
+def seg_sum_transposed(packed: PackedEdges, g: torch.Tensor,
+                       weights: Optional[torch.Tensor] = None,
+                       num_rows: int = 0) -> torch.Tensor:
+    """The transpose of :func:`seg_sum_forward`: K1 over the source-major
+    view on a CUDA ``g``, ``seg_sum_transposed_plain`` on a CPU one; no
+    autograd.  ``(max(num_src, num_rows), D)``: rows past ``num_src`` (a
+    forward ``h`` may have more) are zero.  ``g`` is made contiguous here."""
+    out = _on_device(seg_sum_transposed_cuda, seg_sum_transposed_plain,
+                     packed, g.contiguous(), weights)
+    if num_rows > out.shape[0]:
+        out = torch.cat([out, out.new_zeros((num_rows - out.shape[0], out.shape[1]))])
+    return out
+
+
+def edge_dots(packed: PackedEdges, h: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``h[src_e] . g[dst_e]`` per edge of the flat scheduled stream,
+    ``(E,)``: gathers and a row sum, no atomics."""
+    db = packed.device_blocked(h.device)
+    return (h[db["edge_src"]] * g[db["edge_dst"]]).sum(dim=1)
+
+
+def needs_grad(*xs: Optional[torch.Tensor]) -> bool:
+    """Whether autograd would record an operation on ``xs``."""
+    return torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in xs)
+
+
+class BandedMatvec(torch.autograd.Function):
+    """``seg_sum_na`` with the reference's VJP
+    (``repro/kernels/seg_sum.py::_build_banded_matvec``), on both devices.
+
+    With ``w_e = w[blk, slot]`` and ``g`` the output cotangent:
+
+        grad_h[s]         = sum_{e: src_e = s} w_e g[dst_e]   (K1, transposed)
+        grad_w[blk, slot] = h[src_e] . g[dst_e]               (weight_grad only)
+
+    Padding slots get a zero weight cotangent.
+    """
+
+    @staticmethod
+    def forward(ctx, packed: PackedEdges, h: torch.Tensor, w: torch.Tensor,
+                weight_grad: bool) -> torch.Tensor:
+        ctx.packed, ctx.weight_grad = packed, weight_grad
+        ctx.save_for_backward(h, w)
+        return seg_sum_forward(packed, h, w)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        h, w = ctx.saved_tensors
+        packed = ctx.packed
+        grad_h = grad_w = None
+        if ctx.needs_input_grad[1]:
+            grad_h = seg_sum_transposed(packed, g, w, num_rows=h.shape[0])
+        if ctx.weight_grad and ctx.needs_input_grad[2]:
+            db = packed.device_blocked(g.device)
+            grad_w = torch.zeros_like(w)
+            grad_w[db["edge_blk"], db["edge_slot"]] = edge_dots(packed, h, g)
+        return None, grad_h, grad_w, None
 
 
 def seg_sum_na(
@@ -566,20 +721,25 @@ def seg_sum_na(
     weights: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Weighted banded NA aggregation; returns ``(num_dst, D)``.
+    Differentiable in ``h`` and, when given, ``weights`` (``BandedMatvec``).
 
     ``weights`` optionally overrides the packing's weights with an
-    ``(nb, EB)`` blocked tensor on ``h``'s device (the attention path feeds
-    alpha this way).  Only the ``count[b]`` valid slots of a block are read:
-    padding slots carry weight 0 in every packing and blocked weight the
-    reference builds, and here they are skipped.  A CUDA ``h`` launches
-    kernel K1 (and counts the launch in ``seg_sum_na.launches``); a CPU
-    ``h`` runs ``seg_sum_plain``.
+    ``(nb, EB)`` blocked tensor on ``h``'s device.  Only the ``count[b]``
+    valid slots of a block are read: padding slots carry weight 0 in every
+    packing and blocked weight the reference builds, and here they are
+    skipped.  A CUDA ``h`` launches kernel K1 (and counts the launch in
+    ``seg_sum_na.launches``, as does the transposed launch of the
+    backward); a CPU ``h`` runs ``seg_sum_plain``.  A call that needs no
+    gradient skips the autograd Function (about 20 us of host time a call
+    on the card).
     """
-    if h.device.type == "cuda":
-        return seg_sum_cuda(packed, h, weights)
-    if h.device.type != "cpu":
+    if h.device.type not in ("cuda", "cpu"):
         raise ValueError(f"seg_sum_na runs on cuda or cpu, got {h.device}")
-    return seg_sum_plain(packed, h, weights)
+    weight_grad = weights is not None
+    w = packed.device_blocked(h.device)["weight"] if weights is None else weights
+    if needs_grad(h, weights):
+        return BandedMatvec.apply(packed, h, w, weight_grad)
+    return seg_sum_forward(packed, h, w)
 
 
 seg_sum_na.launches = 0

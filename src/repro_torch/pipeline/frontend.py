@@ -68,12 +68,33 @@ class FrontendResult:
     sgb: Optional[SGBResult]  # None when every target came from cache
     timings: Dict[str, float]  # stage wall seconds
     cache_stats: CacheStats  # hits/misses attributable to this run
+    _batches: Dict[str, list] = dataclasses.field(default_factory=dict, repr=False)
     _banded: Dict[str, list] = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def cold(self) -> bool:
         """Whether this run executed SGB steps."""
         return self.sgb is not None and bool(self.sgb.per_step)
+
+    def batches(self, device) -> list:
+        """``SemanticGraphBatch`` list on ``device`` for the segment-sum
+        executor (``na_executor="jnp"``) — built once per device, shared by
+        every model.
+
+        Delegates to ``package_batches``: global vertex ids, the
+        restructurer's schedule when the config restructures, edge-type ids
+        in ``sorted(targets)`` order as ``banded_batches``, so one parameter
+        dict drives both executors.
+        """
+        key = str(torch.device(device))
+        if key not in self._batches:
+            from repro_torch.core.hgnn.models import package_batches
+
+            self._batches[key] = package_batches(
+                self.semantic, self.targets,
+                restructured=self.config.restructure,
+                restructured_graphs=self.restructured, device=device)
+        return self._batches[key]
 
     def banded_batches(self, device) -> list:
         """``BandedBatch`` list on ``device`` for the banded NA executor —

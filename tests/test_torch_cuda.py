@@ -685,3 +685,112 @@ def test_reduced_lm_prefill_on_the_card(cuda_device, arch, s):
     want, _, _ = cpu.forward(params, toks)
     v = cfg.vocab_size
     np.testing.assert_allclose(got.cpu().numpy()[..., :v], want.numpy()[..., :v], atol=5e-2)
+
+
+# ------------------------------------------- NA backward (K1 transposed) --
+def _grad_case(rng, ns, nd, ne, d, device):
+    src, dst = _edges(rng, ns, nd, ne)
+    pk = pack_edge_blocks(src, dst, ns, nd)
+    h = rng.standard_normal((ns, d)).astype(np.float32)
+    r = rng.standard_normal((nd, d)).astype(np.float32)
+    w = np.zeros(pk.src_local.shape, np.float32)
+    blk, slot = pk.edge_map()
+    w[blk, slot] = rng.random(blk.size).astype(np.float32)
+    logits = (rng.standard_normal(ne) * 2).astype(np.float32)
+    ra = rng.standard_normal(ne).astype(np.float32)
+    return pk, {k: torch.from_numpy(v) for k, v in
+                dict(h=h, r=r, w=w, logits=logits, ra=ra).items()}
+
+
+def _na_grads(pk, x, device):
+    """Grads of both NA Functions on ``device``: seg_sum_na wrt (h, w),
+    na_attention_packed wrt (logits, h) with an alpha cotangent."""
+    from repro_torch.kernels.ops import na_attention_packed
+
+    t = {k: v.to(device) for k, v in x.items()}
+    h = t["h"].clone().requires_grad_(True)
+    w = t["w"].clone().requires_grad_(True)
+    (seg_sum_na(pk, h, w) * t["r"]).sum().backward()
+    lg = t["logits"].clone().requires_grad_(True)
+    h2 = t["h"].clone().requires_grad_(True)
+    out, alpha = na_attention_packed(pk, lg, h2)
+    ((out * t["r"]).sum() + (alpha * t["ra"]).sum()).backward()
+    return [g.grad.cpu() for g in (h, w, lg, h2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ns,nd,ne,d", SHAPES + [(3000, 2000, 60000, 64)])
+def test_na_backward_on_the_card_matches_the_cpu_backward(cuda_device, ns, nd, ne, d):
+    """Both Functions' card backward (K1 over the source-major view, K1 at
+    width 1 for the softmax's row sums) against their CPU backward, and two
+    card backward passes bit for bit."""
+    pk, x = _grad_case(np.random.default_rng(ne + 1), ns, nd, ne, d, cuda_device)
+    before = seg_sum_na.launches
+    card = _na_grads(pk, x, cuda_device)
+    torch.cuda.synchronize()
+    # forward + transposed for seg_sum_na; forward, width-1 row sums and
+    # transposed for the attention
+    assert seg_sum_na.launches == before + 5
+    again = _na_grads(pk, x, cuda_device)
+    cpu = _na_grads(pk, x, "cpu")
+    for a, b, c in zip(card, again, cpu):
+        assert torch.equal(a, b)
+        np.testing.assert_allclose(a.numpy(), c.numpy(), atol=1e-4, rtol=1e-4)
+    assert float(card[0].abs().max()) > 0 and float(card[2].abs().max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["skew", "revisit"])
+def test_k1_over_the_src_view_matches_plain_scatter(cuda_device, case):
+    """K1 launched over the source-major view against ``index_add_``'s
+    plain scatter, with a hub source of 5,000 out-edges (heavy row
+    slices) and empty source rows."""
+    from repro_torch.kernels.seg_sum import (seg_sum_transposed,
+                                             seg_sum_transposed_plain)
+
+    rng = np.random.default_rng(3)
+    if case == "skew":
+        s, d = _edges(rng, 2000, 900, 4000)
+        s = np.concatenate([s, np.full(5000, 7)])
+        d = np.concatenate([d, rng.integers(0, 900, 5000)])
+        o = np.lexsort((s, d))
+        src, dst, ns, nd = s[o], d[o], 2600, 900
+    else:
+        src, dst, ns, nd = _revisit()
+    pk = pack_edge_blocks(src, dst, ns, nd)
+    g = torch.randn(nd, 48, device=cuda_device)
+    w = torch.rand(pk.src_local.shape, device=cuda_device)
+    before = seg_sum_na.launches
+    got = seg_sum_transposed(pk, g, w)
+    again = seg_sum_transposed(pk, g, w)
+    assert seg_sum_na.launches == before + 2
+    want = seg_sum_transposed_plain(pk, g, w)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-4, rtol=1e-4)
+    assert torch.equal(got, again)
+    empty = torch.from_numpy(np.diff(pk.src_edges().row_ptr) == 0).to(cuda_device)
+    assert (got[empty] == 0).all()
+    with pytest.raises(ValueError, match=">= "):
+        seg_sum_transposed(pk, g[:-1], w)
+
+
+@pytest.mark.cuda
+def test_reduced_fit_on_the_card(cuda_device):
+    """A reduced ``fit`` on the card (ACM at scale 0.15, rgat, hidden 16,
+    2 layers): finite losses that fall, with K1 and K2 launched."""
+    from repro_torch.api import ExecutorSpec, Session, device_features
+    from repro_torch.core.hgnn import HGNNConfig
+    from repro_torch.hetero import make_dataset
+    from repro_torch.train import propagated_feature_labels, semi_supervised_masks
+
+    g = make_dataset("ACM", scale=0.15)
+    targets = ["APA", "PAP", "PSP"]
+    c = Session(ExecutorSpec(na_executor="banded")).compile(
+        g, targets, HGNNConfig(model="rgat", hidden=16, num_layers=2))
+    n = c.num_target
+    labels = propagated_feature_labels(c.frontend.semantic, targets, g.features, n)
+    masks = semi_supervised_masks(n, seed=0)
+    feats = device_features(g, "cuda")
+    k1, k2 = seg_sum_na.launches, edge_softmax_stats.launches
+    out = c.fit(feats, labels, masks, epochs=12, lr=1e-2)
+    assert seg_sum_na.launches > k1 and edge_softmax_stats.launches > k2
+    assert np.isfinite(out["losses"]).all() and out["losses"][-1] < out["losses"][0]

@@ -43,7 +43,9 @@ def test_import_closure_is_free_of_jax_and_repro():
                 "repro_torch.models.lm", "repro_torch.configs",
                 "repro_torch.configs.smollm_135m", "repro_torch.configs.mamba2_370m",
                 "repro_torch.serve.engine", "repro_torch.launch.serve",
-                "repro_torch.pipeline.frontend"):
+                "repro_torch.pipeline.frontend", "repro_torch.train",
+                "repro_torch.train.optim", "repro_torch.train.hgnn_step",
+                "repro_torch.train.checkpoint", "repro_torch.train.tree"):
         assert mod in res["imported"]
 
 
@@ -57,6 +59,8 @@ def test_cuda_session_raises_without_cuda(monkeypatch):
         Session()  # the default device is "cuda"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Session(ExecutorSpec(sgb_backend="device"))  # no CPU fallback for SGB
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Session(ExecutorSpec(na_executor="jnp"))  # nor for the segment-sum executor
     Session(ExecutorSpec(na_executor="banded", device="cpu"))  # explicit CPU runs
 
 

@@ -106,11 +106,54 @@ def test_params_from_numpy_keeps_tree():
 @pytest.mark.parametrize("kw,match", [
     (dict(shard="relation"), "M9"),
     (dict(shard="edge_block"), "M9"),
-    (dict(na_executor="jnp"), "M2"),
 ])
 def test_unported_spec_values_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):
         ExecutorSpec(device="cpu", **kw)
+
+
+def test_spec_takes_the_segment_sum_executor():
+    spec = ExecutorSpec(na_executor="jnp", device="cpu")
+    assert spec.pack is False and spec.restructure
+    assert not spec.pipeline_config().pack
+    assert ExecutorSpec(na_executor="jnp", pack=True, device="cpu").pack
+
+
+@pytest.mark.parametrize("ds", sorted(WORKLOADS))
+@pytest.mark.parametrize("model", MODELS)
+def test_jnp_forward_matches_reference(sessions, ds, model):
+    """The segment-sum executor (``na_executor="jnp"``) against the
+    reference's, and against the port's banded forward."""
+    _, _, targets, target_type = WORKLOADS[ds]
+    g_ref, g_port = sessions["ref_graphs"][ds], sessions["port_graphs"][ds]
+    kw = dict(model=model, hidden=32, num_layers=2, num_classes=3,
+              target_type=target_type)
+    c_ref = ref_api.Session(ref_api.ExecutorSpec(na_executor="jnp")).compile(
+        g_ref, targets, RefConfig(**kw))
+    p_ref = c_ref.init(0)
+    want = np.asarray(c_ref.forward(p_ref, ref_api.device_features(g_ref)))
+    c_port = Session(ExecutorSpec(na_executor="jnp", device="cpu")).compile(
+        g_port, targets, HGNNConfig(**kw))
+    assert [type(g).__name__ for g in c_port.graphs] == ["SemanticGraphBatch"] * 3
+    params = params_from_numpy(jax.tree.map(np.asarray, p_ref), "cpu")
+    got = c_port.forward(params, device_features(g_port, "cpu"))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
+    banded = sessions["port"].compile(g_port, targets, HGNNConfig(**kw))
+    np.testing.assert_allclose(
+        got.numpy(), banded.forward(params, device_features(g_port, "cpu")).numpy(),
+        atol=1e-4)
+
+
+def test_executor_and_batches_must_agree(sessions):
+    _, _, targets, target_type = WORKLOADS["acm_small"]
+    c = sessions["port"].compile(sessions["port_graphs"]["acm_small"], targets,
+                                 HGNNConfig(model="rgcn", hidden=8, num_layers=1,
+                                            target_type=target_type))
+    feats = device_features(sessions["port_graphs"]["acm_small"], "cpu")
+    with pytest.raises(TypeError, match="SemanticGraphBatch"):
+        c.model.execute(c.init(0), feats, c.graphs, na_executor="jnp")
+    with pytest.raises(ValueError, match="unknown na_executor"):
+        c.model.execute(c.init(0), feats, c.graphs, na_executor="segment")
 
 
 @pytest.mark.parametrize("kw", [

@@ -33,7 +33,8 @@ from repro_torch.kernels.edge_softmax import (NEG,  # noqa: E402
                                               softmax_stats_plain)
 from repro_torch.kernels.seg_sum import (ITEMS_PER_CTA,  # noqa: E402
                                          ROWS_PER_ITEM, pack_edge_blocks,
-                                         seg_sum_plain, work_list)
+                                         seg_sum_plain, seg_sum_transposed_plain,
+                                         work_list)
 from repro_torch.pipeline import (FrontendPipeline, PipelineConfig,  # noqa: E402
                                   SemanticGraphCache)
 
@@ -125,15 +126,11 @@ def test_row_view_follows_the_tile_walk(packings, case):
     assert (rows.row_slot % pk.edge_block < pk.count[rows.row_slot // pk.edge_block]).all()
 
 
-@pytest.mark.parametrize("budget", BUDGETS)
-@pytest.mark.parametrize("case", CASES)
-def test_work_list_covers_every_row_once(packings, case, budget):
-    pk, _ = packings[case]
-    rows = _rows(pk, budget)
+def _assert_covers_every_row_once(rows, n_rows, budget):
     ptr, items = rows.row_ptr.astype(np.int64), rows.items
     assert items.dtype == np.int32 and items.shape[1] == 4
     assert items.shape[0] % ITEMS_PER_CTA == 0
-    cover = np.zeros(pk.num_dst, np.int64)
+    cover = np.zeros(n_rows, np.int64)
     i = 0
     while i < items.shape[0]:
         row, kind, e0, e1 = (int(x) for x in items[i])
@@ -162,6 +159,13 @@ def test_work_list_covers_every_row_once(packings, case, budget):
             cover[row] += 1
             i += k
     assert (cover == 1).all()
+
+
+@pytest.mark.parametrize("budget", BUDGETS)
+@pytest.mark.parametrize("case", CASES)
+def test_work_list_covers_every_row_once(packings, case, budget):
+    pk, _ = packings[case]
+    _assert_covers_every_row_once(_rows(pk, budget), pk.num_dst, budget)
 
 
 def test_work_list_fills_heavy_ctas_with_light_items():
@@ -272,3 +276,55 @@ def test_emulated_k2_order_matches_plain_and_jax(packings, case, budget):
     np.testing.assert_allclose(s, np.asarray(s_r)[:pk.num_dst], rtol=1e-5, atol=1e-5)
     empty = np.diff(pk.row_edges().row_ptr) == 0
     assert (m[empty] == NEG).all() and (s[empty] == 0).all()
+
+
+# ------------------------------------ the source-major view (backward) --
+def _src_rows(pk, budget):
+    rows = pk.src_edges()
+    return rows._replace(items=work_list(rows.row_ptr, budget))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_src_view_follows_the_flat_stream(packings, case):
+    """Each source's edges in schedule order (the flat stream filtered to
+    it), each edge's destination and flat slot, and a work list that
+    covers every source row once."""
+    pk, _ = packings[case]
+    rows = pk.src_edges()
+    src, dst = pk.flat_global_edges()
+    blk, slot = pk.edge_map()
+    flat = blk.astype(np.int64) * pk.edge_block + slot
+    assert rows.row_ptr.shape == (pk.num_src + 1,) and rows.row_ptr[-1] == pk.num_edges
+    assert rows.row_ptr.dtype == rows.row_src.dtype == rows.row_slot.dtype == np.int32
+    order = np.argsort(src, kind="stable")
+    assert np.array_equal(rows.row_src, dst[order])
+    assert np.array_equal(rows.row_slot, flat[order])
+    for s_ in np.unique(src)[:50]:
+        a, b = rows.row_ptr[s_], rows.row_ptr[s_ + 1]
+        assert np.array_equal(rows.row_src[a:b], dst[src == s_])
+    assert np.array_equal(np.diff(rows.row_ptr), np.bincount(src, minlength=pk.num_src))
+    assert pk.src_edges() is rows  # memoized
+    _assert_covers_every_row_once(rows, pk.num_src, 64)
+
+
+@pytest.mark.parametrize("budget", BUDGETS)
+@pytest.mark.parametrize("case", CASES)
+def test_emulated_k1_over_src_view_matches_plain_scatter(packings, case, budget):
+    """K1's order over the source-major view (the backward's launch)
+    against a plain scatter of ``w_e g[dst_e]`` into ``src_e`` and against
+    the port's plain transposed version."""
+    pk, _ = packings[case]
+    rng = np.random.default_rng(budget + 2)
+    g = rng.standard_normal((pk.num_dst, 8)).astype(np.float32)
+    src, dst = pk.flat_global_edges()
+    blk, slot = pk.edge_map()
+    w = np.zeros(pk.src_local.shape, np.float32)
+    w[blk, slot] = rng.random(blk.size).astype(np.float32)
+    got = _emulate_k1(_src_rows(pk, budget), g, w.reshape(-1), pk.num_src)
+    want = np.zeros((pk.num_src, 8), np.float64)
+    np.add.at(want, src, w[blk, slot, None].astype(np.float64) * g[dst])
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-5)
+    plain = seg_sum_transposed_plain(pk, torch.from_numpy(g), torch.from_numpy(w))
+    np.testing.assert_allclose(got, plain.numpy(), atol=1e-4, rtol=1e-5)
+    empty = np.diff(pk.src_edges().row_ptr) == 0
+    assert (got[empty] == 0).all()
