@@ -54,6 +54,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    and whether two steps or two gradient passes from one state repeat bit
    for bit (the leaves that differ, if any).  Then rgat on full-width
    DBLP, 5 epochs: ms per epoch and finite losses.
+3c. HGNN serving: one ``HGNNServeEngine`` (``ServePolicy(batch_window_ms=
+   5)``) on the card at full width (hidden 64, 3 layers, SF attention 64,
+   seed 0) with three tenants: ACM rgat served head-only
+   (``subset_mode="head"``), and IMDB (scale 1.0, AMA / MAM / MDM, target
+   M) rgcn and rgat served over k-hop dependency closures
+   (``subset_mode="dependency"``; IMDB's closure coverage at three layers
+   is printed first, and two layers are taken if a wave's union covers
+   more than 0.75).  ``engine.run()`` serves a seeded burst of 64 requests
+   a tenant of 4-16 ids each, in 8 waves 10 ms apart, then 2 whole-graph
+   requests a tenant.  Gates: every future answered, responses in modes
+   ``subset``, ``dependency`` and ``full``, no failures, retries,
+   deadline sheds or breaker trips; subset and full rows bitwise equal to
+   the card's ``compiled.forward`` rows, dependency rows within 1e-4 of
+   them, and every row within 1e-4 of the same requests served on the CPU;
+   one dependency forward launches K1 layers x semantic graphs times (and
+   K2 never); ``subset_traces`` and ``dependency_traces`` stay flat across
+   resubmissions in one bucket; K1 over each semantic graph's sliced
+   packing of one request's extraction within K1's tolerance of
+   ``seg_sum_plain`` and bitwise repeatable, while a fault planted in the
+   same run (the slice's row view without its largest work item) reads
+   above that gate.  Printed: p50 / p99 latency, queue and compute
+   microseconds per mode, requests/s, the extractor's host ms, and K1's ms
+   over the slice against its ms over the full packing, each beside the
+   card's name and power limit.
 4. SGB: ACM, IMDB and DBLP at scale 1.0 under the ``ctt`` planner.  The
    host join and the device composer (K3) must give bitwise-equal products
    and equal per-step costs, K3 must launch once per plan step, and on
@@ -132,8 +156,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    its first K4 call), which must read above the tolerance against the
    control.
 9. Report: one JSON line ``{"kernels": [...]}`` (K1 and K2 with their
-   launches per train step by model), the card line, and last the
-   contract line ``{"ok": true, "device": {...}}``.
+   launches per train step by model, K1 with its launches in one
+   dependency forward, and a row for K1 over phase 3c's sliced packings),
+   the card line, and last the contract line ``{"ok": true, "device":
+   {...}}``.
 
 Needs one CUDA card; exits non-zero without one, or without the repository
 beside it.
@@ -219,6 +245,13 @@ K5_TF32_PRODUCTS = 3  # 3xTF32: each float32 product is three TF32 products
 K5_PASSES = ("ssd_chunk_state_kernel", "ssd_cb_kernel", "ssd_state_pass_kernel",
              "ssd_output_kernel")
 LM_ARCHS = ("smollm-135m", "mamba2-370m", "gemma2-2b")  # phase 8's full-width models
+IMDB_TARGETS = ["AMA", "MAM", "MDM"]  # phase 3c's IMDB tenants (target M)
+SERVE_PER_TENANT = 64  # requests a tenant in phase 3c's burst, of 4-16 ids each
+SERVE_WAVES = 8  # the burst arrives in waves, one every SERVE_WAVE_GAP_S
+SERVE_WAVE_GAP_S = 0.01
+SERVE_WINDOW_MS = 5.0  # ServePolicy.batch_window_ms: waves coalesce into groups
+SERVE_WHOLE_GRAPH = 2  # whole-graph requests a tenant after the burst
+DEP_COVERAGE = 0.75  # ServePolicy.dependency_threshold (its default)
 PREFILL_32K = 32768
 SGB_WORKLOADS = {  # dataset -> SGB targets, composed at scale 1.0
     "ACM": ["APA", "PAP", "PSP"],
@@ -829,6 +862,339 @@ def phase_train(graph, dblp, dev):
           f"{['%.5f' % x for x in out['losses']]}")
     require(np.isfinite(out["losses"]).all(), "DBLP rgat: non-finite loss in fit")
     return per_step
+
+
+def k1_reading(got, ref) -> float:
+    """K1's gate as a ratio: the largest ``|got - ref| / (tol + tol |ref|)``
+    over the output (at most 1 passes, as in phase 2)."""
+    return ((got - ref).abs() / (K1_TOL + K1_TOL * ref.abs())).max().item()
+
+
+def percentiles(values) -> str:
+    """``p50 / p99`` of a list of microsecond readings."""
+    return f"p50 {np.percentile(values, 50):.1f} / p99 {np.percentile(values, 99):.1f} us"
+
+
+def k1_over_slice(sub, compiled, label: str, dev) -> dict:
+    """K1 over each semantic graph's sliced packing of one extraction: the
+    gate against ``seg_sum_plain`` on the same slice, a planted fault (the
+    slice's row view without its largest work item) read against the same
+    gate, and event medians beside K1 over the full packing."""
+    from repro_torch.kernels.seg_sum import seg_sum_na, seg_sum_plain
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows, planted = [], 0
+    for g, dg in zip(compiled.graphs, sub.arrays["graphs"]):
+        pk = dg["packed"]
+        h = torch.randn(pk.num_src, D, device=dev, generator=gen)
+        got, again = seg_sum_na(pk, h), seg_sum_na(pk, h)
+        ref = seg_sum_plain(pk, h)
+        torch.cuda.synchronize()
+        reading = k1_reading(got, ref)
+        err = (got - ref).abs().max().item()
+        faulted = dataclasses.replace(pk)  # memos (views, uploads) not copied
+        faulted._row_edges, info = drop_work_item(pk.row_edges())
+        fault = None
+        if info[2]:
+            fault = k1_reading(seg_sum_na(faulted, h), ref)
+            planted += 1
+        db = pk.device_blocked(dev)
+
+        def library():
+            return torch.zeros(pk.num_dst, D, device=dev).index_add_(
+                0, db["edge_dst"], h[db["edge_src"]])
+
+        require(k1_reading(library(), ref) <= 1.0, f"K1 library yardstick on {label} "
+                f"{g.metapath}'s slice disagrees")
+        full = g.packed
+        h_full = torch.randn(full.num_src, D, device=dev, generator=gen)
+        e, tiles = pk.num_edges, pk.num_dst_tiles
+        nbytes = (e * (2 + 2 + 4) + pk.num_src * D * 4 + pk.num_dst * D * 4
+                  + pk.num_blocks * 12 + (tiles + 1) * 4)
+        t_bound, by = bound(nbytes, 2.0 * e * D)
+        row = {
+            "metapath": g.metapath, "edges": e, "blocks": pk.num_blocks, "rows": pk.num_dst,
+            "full_edges": full.num_edges, "max_abs_err": err, "reading": reading,
+            "fault_reading": fault, "fault_item": info,
+            "bitwise_repeat": torch.equal(got, again),
+            "ms": median_ms(lambda: seg_sum_na(pk, h)),
+            "plain_ms": median_ms(lambda: seg_sum_plain(pk, h), reps=10),
+            "library_ms": median_ms(library),
+            "device_ms": device_ms(f"K1 {label} {g.metapath} slice", lambda: seg_sum_na(pk, h)),
+            "queued_ms": queued_ms(lambda: seg_sum_na(pk, h)),
+            "full_ms": median_ms(lambda: seg_sum_na(full, h_full)),
+            "full_queued_ms": queued_ms(lambda: seg_sum_na(full, h_full)),
+            "full_device_ms": device_ms(f"K1 {label} {g.metapath} full packing",
+                                        lambda: seg_sum_na(full, h_full)),
+            "bound_ms": t_bound, "bound_by": by, "bytes": nbytes, "work": work_shape(
+                pk.row_edges()),
+        }
+        print(f"K1 over {label} {g.metapath}'s slice: {e} of {full.num_edges} edges, "
+              f"{pk.num_blocks} blocks, {pk.num_dst} rows; max|K1 - plain| {err:.3e}, "
+              f"gate reading {reading:.3e} (passes at <= 1), bitwise repeat "
+              f"{row['bitwise_repeat']}; planted fault (work item {info[0]}, row "
+              f"{info[1]}, {info[2]} edges dropped) reads "
+              f"{'not planted' if fault is None else f'{fault:.3e}'}; kernel "
+              f"{row['ms']:.4f} ms (queue-full {row['queued_ms']:.4f}, device "
+              f"{_ms(row['device_ms'])}) against {row['full_ms']:.4f} ms over the full "
+              f"packing (queue-full {row['full_queued_ms']:.4f}, device "
+              f"{_ms(row['full_device_ms'])}); plain {row['plain_ms']:.4f} ms, "
+              f"index_add_ {row['library_ms']:.4f} ms, bound {t_bound:.6f} ms ({by})")
+        require(reading <= 1.0, f"K1 over {label} {g.metapath}'s slice disagrees with "
+                "the plain version")
+        require(row["bitwise_repeat"], f"K1 over {label} {g.metapath}'s slice not repeatable")
+        require(fault is None or fault > 1.0, f"the planted fault in {label} "
+                f"{g.metapath}'s slice reads {fault}, inside the gate")
+        rows.append(row)
+    require(planted > 0, f"no fault could be planted in {label}'s slices (all empty)")
+    return rows
+
+
+def phase_serving(graph, dev, card: str):
+    """Phase 3c: ``HGNNServeEngine`` on the card at full width, two graphs and
+    three tenants (ACM rgat head-only; IMDB rgcn and rgat over k-hop
+    dependency closures), a seeded burst served by ``engine.run()``; held
+    against the card's own forward and the same requests served on the CPU.
+    Returns the kernels line's row for K1 over the sliced packings and the
+    K1 launches of one dependency forward."""
+    from repro_torch.api import ExecutorSpec, ServePolicy, Session, device_features
+    from repro_torch.core.hgnn import HGNNConfig
+    from repro_torch.hetero import make_dataset
+    from repro_torch.kernels.edge_softmax import edge_softmax_stats
+    from repro_torch.kernels.seg_sum import seg_sum_na
+    from repro_torch.serve import HGNNRequest, HGNNServeEngine
+
+    imdb = make_dataset("IMDB", seed=SEED, scale=1.0)
+    graphs = {"acm": graph, "imdb": imdb}
+    targets = {"acm": TARGETS, "imdb": IMDB_TARGETS}
+    rng = np.random.default_rng(SEED)
+    n_target = {"acm": graph.num_vertices["P"], "imdb": imdb.num_vertices["M"]}
+    names = {"acm-rgat": ("acm", "rgat", "P", "head"),
+             "imdb-rgcn": ("imdb", "rgcn", "M", "dependency"),
+             "imdb-rgat": ("imdb", "rgat", "M", "dependency")}
+    burst = {name: [rng.integers(0, n_target[ds], size=int(rng.integers(4, 17)))
+                    for _ in range(SERVE_PER_TENANT)]
+             for name, (ds, *_rest) in names.items()}
+    per_wave = SERVE_PER_TENANT // SERVE_WAVES
+
+    def cfg(model, tt, layers):
+        return HGNNConfig(model=model, hidden=64, num_layers=layers, sf_att_dim=64,
+                          target_type=tt)
+
+    sess = Session(ExecutorSpec(na_executor="banded", device=str(dev)))
+    # IMDB's closure coverage at three layers for the id sets the burst
+    # uses: each wave's union (about one served group) and the whole burst
+    layers = 3
+    probe = sess.compile(imdb, IMDB_TARGETS, cfg("rgcn", "M", layers))
+    cov = []
+    for name in ("imdb-rgcn", "imdb-rgat"):
+        ids = burst[name]
+        cov += [probe.dependency_subset(np.unique(np.concatenate(
+            ids[w * per_wave:(w + 1) * per_wave]))).coverage for w in range(SERVE_WAVES)]
+    whole = probe.dependency_subset(np.unique(np.concatenate(
+        burst["imdb-rgcn"] + burst["imdb-rgat"]))).coverage
+    print(f"serve: IMDB closure coverage at {layers} layers, wave unions "
+          f"{min(cov):.4f}-{max(cov):.4f}, the whole burst's union {whole:.4f} "
+          f"(dependency_threshold {DEP_COVERAGE}; M and A only are reachable, "
+          f"{(imdb.num_vertices['M'] + imdb.num_vertices['A']) / sum(imdb.num_vertices.values()):.4f} "
+          "of all vertices)")
+    if max(cov) > DEP_COVERAGE:
+        layers = 2
+        print(f"serve: a wave union's closure covers more than {DEP_COVERAGE} at 3 "
+              "layers; the IMDB tenants take num_layers=2")
+
+    feats = {ds: device_features(g, dev) for ds, g in graphs.items()}
+    eng = HGNNServeEngine(session=sess, policy=ServePolicy(
+        batch_window_ms=SERVE_WINDOW_MS, dependency_threshold=DEP_COVERAGE))
+    handles, params, cfgs = {}, {}, {}
+    t0 = time.perf_counter()
+    for name, (ds, model, tt, mode) in names.items():
+        cfgs[name] = cfg(model, tt, 3 if ds == "acm" else layers)
+        params[name] = sess.compile(graphs[ds], targets[ds], cfgs[name]).init(SEED)
+        handles[name] = eng.register(name, graphs[ds], targets[ds], cfgs[name],
+                                     params=params[name], features=feats[ds],
+                                     subset_mode=mode)
+    print(f"serve: registered {sorted(handles)} in {(time.perf_counter() - t0) * 1e3:.1f} ms "
+          "(frontend, compile and one warm forward each)")
+    # the dependency tenants calibrate their fusion betas once, on a warm-up
+    # request outside the burst (serving pays it at registration)
+    for name in ("imdb-rgcn", "imdb-rgat"):
+        handles[name].compiled.forward_subset(params[name], feats["imdb"],
+                                              np.arange(8), mode="dependency")
+    torch.cuda.synchronize()
+
+    rid, reqs, futs = 0, {}, []
+    seg_sum_na.launches = 0
+    edge_softmax_stats.launches = 0
+    eng.run()
+    try:
+        t0 = time.perf_counter()
+        for w in range(SERVE_WAVES):
+            for name in names:
+                wave = []
+                for ids in burst[name][w * per_wave:(w + 1) * per_wave]:
+                    reqs[rid] = (name, ids)
+                    wave.append(HGNNRequest(rid, name, nodes=ids))
+                    rid += 1
+                futs += eng.submit(wave)
+            time.sleep(SERVE_WAVE_GAP_S)
+        responses = [f.result(timeout=300) for f in futs]
+        t_burst = time.perf_counter() - t0
+        whole_reqs = []
+        for name in names:
+            for _ in range(SERVE_WHOLE_GRAPH):
+                reqs[rid] = (name, None)
+                whole_reqs.append(HGNNRequest(rid, name))
+                rid += 1
+        responses += [f.result(timeout=300) for f in eng.submit(whole_reqs)]
+    finally:
+        eng.stop()
+    torch.cuda.synchronize()
+    launches = {"seg_sum_na": seg_sum_na.launches,
+                "edge_softmax_stats": edge_softmax_stats.launches}
+    st = eng.stats()
+    print(f"serve: {len(responses)} responses; burst of {len(futs)} requests in "
+          f"{t_burst * 1e3:.1f} ms, {len(futs) / t_burst:.1f} requests/s (a smoke reading, "
+          f"not a load; {card}); forwards full {st['forwards_full']}, subset "
+          f"{st['forwards_subset']}, dependency {st['forwards_dependency']}, batching "
+          f"factor {st['batching_factor']:.2f}, window timeouts {st['window_timeouts']}, "
+          f"early closes {st['early_closes']}; launches over the served run {launches}")
+    modes = sorted({r.mode for r in responses})
+    for mode in modes:
+        rs = [r for r in responses if r.mode == mode]
+        print(f"serve {mode}: {len(rs)} responses; latency "
+              f"{percentiles([r.latency_us for r in rs])}, queue "
+              f"{percentiles([r.queue_us for r in rs])}, compute "
+              f"{percentiles([r.compute_us for r in rs])} ({card})")
+    require(modes == ["dependency", "full", "subset"], f"served modes {modes}")
+    require(sorted(r.rid for r in responses) == list(range(rid)), "a request went unanswered")
+    tenant_faults = {n: (t["failures"], t["retries"], t["breaker_fastfails"], t["breaker"])
+                     for n, t in st["tenants"].items()}
+    print(f"serve: failures, retries, breaker fast-fails, breaker by tenant {tenant_faults}")
+    require(st["retries"] == 0 and st["breaker_fastfails"] == 0
+            and st["requests_deadline_exceeded"] == 0
+            and all(t[:3] == (0, 0, 0) and t[3] == "closed" for t in tenant_faults.values()),
+            "the sound serving run had failures, retries or breaker trips")
+
+    # served rows against the card's own forward
+    full = {name: handles[name].compiled.forward(params[name], feats[names[name][0]])
+            .cpu().numpy() for name in names}
+    worst = {"subset": 0.0, "full": 0.0, "dependency": 0.0}
+    for r in responses:
+        name, ids = reqs[r.rid]
+        want = full[name] if ids is None else full[name][ids]
+        if r.mode == "dependency":
+            worst["dependency"] = max(worst["dependency"], float(np.abs(r.logits - want).max()))
+        else:
+            require(np.array_equal(r.logits, want),
+                    f"request {r.rid} ({name}, {r.mode}) is not bitwise the card's forward rows")
+            require(r.predictions.shape == (want.shape[0],), f"request {r.rid}: predictions")
+        require(np.isfinite(r.logits).all(), f"request {r.rid}: non-finite logits")
+    print(f"serve: subset and full rows bitwise equal to the card's forward; dependency "
+          f"rows max|served - forward| {worst['dependency']:.3e} (tolerance {LOGIT_ATOL})")
+    require(worst["dependency"] <= LOGIT_ATOL, "dependency rows disagree with the forward")
+
+    # the same requests served on the CPU (the plain versions)
+    cpu_sess = Session(ExecutorSpec(na_executor="banded", device="cpu"), cache=sess.cache)
+    ceng = HGNNServeEngine(session=cpu_sess, policy=ServePolicy(
+        dependency_threshold=DEP_COVERAGE))
+    for name, (ds, _, _, mode) in names.items():
+        ceng.register(name, graphs[ds], targets[ds], cfgs[name], seed=SEED, warm=False,
+                      subset_mode=mode)
+    t0 = time.perf_counter()
+    cpu_resp = {}
+    for batch in ([r for r in sorted(reqs) if reqs[r][1] is not None],
+                  [r for r in sorted(reqs) if reqs[r][1] is None]):
+        cf = ceng.submit([HGNNRequest(r, reqs[r][0], nodes=reqs[r][1]) for r in batch])
+        ceng.step()
+        cpu_resp.update({f.result(timeout=600).rid: f.result(timeout=600) for f in cf})
+    cpu_err = max(float(np.abs(r.logits - cpu_resp[r.rid].logits).max()) for r in responses)
+    print(f"serve: the same {len(cpu_resp)} requests on the CPU in "
+          f"{time.perf_counter() - t0:.1f} s, modes {sorted({r.mode for r in cpu_resp.values()})}; "
+          f"max|card - cpu| {cpu_err:.3e} (tolerance {LOGIT_ATOL})")
+    require(cpu_err <= LOGIT_ATOL, "served card rows disagree with the CPU's")
+
+    # K1 launches of one dependency forward, and its rows
+    fresh = np.unique(np.random.default_rng(SEED + 1).integers(0, n_target["imdb"], size=64))
+    dep_launches = {}
+    for name in ("imdb-rgcn", "imdb-rgat"):
+        c = handles[name].compiled
+        c.dependency_subset(fresh)  # extraction and upload outside the count
+        seg_sum_na.launches = 0
+        edge_softmax_stats.launches = 0
+        out = c.forward_subset(params[name], feats["imdb"], fresh, mode="dependency")
+        torch.cuda.synchronize()
+        want_k1 = c.cfg.num_layers * len(c.graphs)
+        dep_launches[name] = seg_sum_na.launches
+        err = float(np.abs(out.cpu().numpy() - full[name][fresh]).max())
+        print(f"serve {name}: one dependency forward over {fresh.size} ids launched K1 "
+              f"{seg_sum_na.launches} times (layers x semantic graphs = {want_k1}), K2 "
+              f"{edge_softmax_stats.launches}; max|rows - forward| {err:.3e}")
+        require(seg_sum_na.launches == want_k1 and edge_softmax_stats.launches == 0,
+                f"{name}: a dependency forward launched K1 {seg_sum_na.launches} times")
+        require(err <= LOGIT_ATOL, f"{name}: dependency rows disagree with the forward")
+
+    # the counters stay flat across resubmissions in one bucket
+    c_acm = handles["acm-rgat"].compiled
+    ids_a = np.arange(40, 52)
+    c_acm.forward_subset(params["acm-rgat"], feats["acm"], ids_a)
+    flat = [c_acm.subset_traces]
+    c_acm.forward_subset(params["acm-rgat"], feats["acm"], ids_a + 100)
+    flat.append(c_acm.subset_traces)
+    c = handles["imdb-rgcn"].compiled
+    c.forward_subset(params["imdb-rgcn"], feats["imdb"], fresh, mode="dependency")
+    dflat = [c.dependency_traces]
+    c.forward_subset(params["imdb-rgcn"], feats["imdb"], fresh[::-1], mode="dependency")
+    dflat.append(c.dependency_traces)
+    print(f"serve: subset_traces {flat} and dependency_traces {dflat} across "
+          "resubmissions in one bucket")
+    require(flat[0] == flat[1] and dflat[0] == dflat[1], "a bucket counter moved")
+
+    # the extractor's host time, cold (numpy, then the upload)
+    ext_ms, cover = [], []
+    erng = np.random.default_rng(SEED + 2)
+    for _ in range(5):
+        ids = np.unique(erng.integers(0, n_target["imdb"], size=80))
+        t0 = time.perf_counter()
+        sub = c.dependency_subset(ids)
+        ext_ms.append((time.perf_counter() - t0) * 1e3)
+        cover.append(sub.coverage)
+    print(f"serve: extractor host ms a cold extraction (80 ids, numpy then upload) "
+          f"{['%.2f' % t for t in ext_ms]}, coverage {['%.3f' % x for x in cover]} ({card})")
+
+    # K1 over one extraction's sliced packings: one request's ids
+    one = np.unique(burst["imdb-rgcn"][0])
+    t0 = time.perf_counter()
+    sub = c.dependency_subset(one)
+    print(f"serve: extraction of one request's {one.size} ids "
+          f"{(time.perf_counter() - t0) * 1e3:.2f} ms, coverage {sub.coverage:.4f}")
+    slice_rows = k1_over_slice(sub, c, "IMDB", dev)
+    e = sum(r["edges"] for r in slice_rows)
+    t_bytes = sum(r["bytes"] for r in slice_rows) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * e * D / FP32_FLOP_PER_S * 1e3
+    row = {
+        "name": "seg_sum_na (dependency slice)", "route": "cuda",
+        "source": "src/repro_torch/csrc/na_kernels.cu",
+        "replaces": "src/repro/kernels/seg_sum.py:516",
+        "launches": launches["seg_sum_na"],
+        "launches_dependency_forward": dep_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in slice_rows),
+        "ms": sum(r["ms"] for r in slice_rows),
+        "plain_ms": sum(r["plain_ms"] for r in slice_rows),
+        "bound_ms": sum(r["bound_ms"] for r in slice_rows),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": sum(r["library_ms"] for r in slice_rows),
+        "queued_ms": sum(r["queued_ms"] for r in slice_rows),
+        "full_packing_ms": sum(r["full_ms"] for r in slice_rows),
+        "full_packing_queued_ms": sum(r["full_queued_ms"] for r in slice_rows),
+        "fault_reading": min(r["fault_reading"] for r in slice_rows
+                             if r["fault_reading"] is not None),
+        "shape": f"IMDB scale 1.0, one request's {one.size}-id extraction over "
+                 f"{len(slice_rows)} semantic graphs (times summed), D={D}",
+        "slices": slice_rows, "extractor_host_ms": ext_ms,
+    }
+    require(row["launches"] > 0, "K1 never launched on the serving path")
+    return row, dep_launches
 
 
 def prof_call(label: str, fn) -> list:
@@ -1708,10 +2074,13 @@ def main() -> int:
     train_launches = phase_train(graph, dblp, dev)
     for k in kernels:
         k["launches_train_step"] = {m: c[k["name"]] for m, c in train_launches.items()}
+    slice_row, dep_launches = phase_serving(graph, dev, card)
+    kernels[0]["launches_dependency_forward"] = dep_launches
     sgb_rows, sgb_dblp = phase_sgb(make_dataset, dev)
     session_launches = phase_device_session(make_dataset, dev)
     for k in kernels:
         k["launches_device_sgb_path"] = session_launches[k["name"]]
+    kernels.append(slice_row)
     dblp = sgb_rows["DBLP"]  # the plan the device-SGB session runs
     t_ops = sum(r["ops"] for r in dblp) / INT8_OP_PER_S * 1e3
     t_bytes = sum(r["bytes"] for r in dblp) / HBM_BYTES_PER_S * 1e3

@@ -10,7 +10,10 @@ configured from one ``ExecutorSpec``::
     out = compiled.fit(feats, labels, masks, epochs=20)   # training
 
 ``na_executor="jnp"`` runs NA as plain segment sums over global edge
-lists instead of the kernels.
+lists instead of the kernels.  ``compiled.forward_subset(params, feats,
+ids)`` serves an explicit id subset, head-only or (``mode="dependency"``)
+over the ids' k-hop dependency closure (``core/subgraph.py``) — what the
+serving engine (``repro_torch.serve.HGNNServeEngine``) calls.
 
 ``compile`` runs the frontend (SGB -> Restructure -> packing, cache-served
 where possible; with ``sgb_backend="device"`` the SGB steps run on the
@@ -23,15 +26,48 @@ several models over one graph pack each semantic graph once.
 from __future__ import annotations
 
 import dataclasses
+import threading
+from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.api.spec import ExecutorSpec
 from repro_torch.core.hgnn.models import HGNN, HGNNConfig
+from repro_torch.core.subgraph import DependencyExtractor, DependencySubset
 from repro_torch.hetero.graph import HetGraph
 from repro_torch.pipeline.cache import SemanticGraphCache
 from repro_torch.pipeline.frontend import FrontendPipeline, FrontendResult
+
+
+def canonical_node_ids(node_ids, num_target: int, *,
+                       ctx: str = "node_ids") -> "np.ndarray":
+    """Validate target-vertex ids (integer dtype, 1-D, non-empty, within
+    ``[0, num_target)``) and return them as a canonical int32 array.
+
+    The one validator shared by ``CompiledHGNN.forward_subset`` and the
+    serving engine's admission path (``ctx`` prefixes the error message,
+    e.g. ``"request 3: nodes"``), so the two surfaces cannot drift.
+
+    Example::
+
+        ids = canonical_node_ids([4, 7], compiled.num_target)
+    """
+    arr = np.asarray(node_ids)
+    if not np.issubdtype(arr.dtype, np.integer):
+        raise TypeError(
+            f"{ctx} must be an integer array, got dtype {arr.dtype}")
+    if arr.ndim != 1 or arr.size == 0:
+        raise ValueError(
+            f"{ctx} must be a non-empty 1-D id array, got shape "
+            f"{arr.shape}")
+    lo, hi = int(arr.min()), int(arr.max())
+    if lo < 0 or hi >= num_target:
+        raise ValueError(
+            f"{ctx}: id {lo if lo < 0 else hi} out of bounds "
+            f"(valid range [0, {num_target}))")
+    return arr.astype(np.int32, copy=False)
 
 
 def device_features(graph: HetGraph, device) -> Dict[str, torch.Tensor]:
@@ -78,7 +114,13 @@ class SessionStats:
 
 
 class CompiledHGNN:
-    """A model bound to its frontend products and device — no knobs left."""
+    """A model bound to its frontend products and device — no knobs left.
+
+    Entry points run eagerly.  Where the reference counts ``jax.jit``
+    traces (:attr:`subset_traces`, :attr:`dependency_traces`), the port
+    counts the distinct bucket signatures first seen: the shapes a trace,
+    or a captured forward, would be keyed by.
+    """
 
     def __init__(self, session: "Session", spec: ExecutorSpec, model: HGNN,
                  frontend: FrontendResult, graphs: List, fingerprint: str):
@@ -88,6 +130,16 @@ class CompiledHGNN:
         self.frontend = frontend
         self.graphs = graphs
         self.fingerprint = fingerprint
+        self._extractor: Optional[DependencyExtractor] = None
+        self._subset_buckets: set = set()
+        self._dependency_signatures: set = set()
+        # frozen SF betas per (params, features) object pair, the
+        # dependency path's calibration (strong refs keep the id()-based
+        # keys valid for the life of each entry)
+        self._beta_memo: "OrderedDict[Tuple[int, int], Tuple]" = OrderedDict()
+        # guards every lazy build (the extractor, the betas memo, the
+        # signature sets): the serving engine calls in from its thread
+        self._build_lock = threading.Lock()
 
     @property
     def cfg(self) -> HGNNConfig:
@@ -120,6 +172,148 @@ class CompiledHGNN:
         with torch.inference_mode():
             return self.model.execute(params, features, self.graphs,
                                       na_executor=self.spec.na_executor)
+
+    @property
+    def subset_traces(self) -> int:
+        """Distinct id buckets :meth:`forward_subset` (head mode) has
+        served — flat across resubmissions that land in one bucket::
+
+            before = compiled.subset_traces
+            compiled.forward_subset(params, feats, ids_a)
+            compiled.forward_subset(params, feats, ids_b)  # same bucket
+            assert compiled.subset_traces == before + 1
+        """
+        return len(self._subset_buckets)
+
+    @property
+    def dependency_traces(self) -> int:
+        """Distinct ``DependencySubset.signature`` values the dependency
+        forward has served — flat across requests whose closures share a
+        bucket signature (the dependency-mode sibling of
+        :attr:`subset_traces`)."""
+        return len(self._dependency_signatures)
+
+    def dependency_subset(self, node_ids, *, bucket_min: int = 8,
+                          validate: bool = True) -> DependencySubset:
+        """The k-hop dependency closure for an id set (memoized).
+
+        Runs the host-side extractor (``core.subgraph``) over the
+        frontend's cached semantic graphs — ``cfg.num_layers`` hops
+        backward from the requested target ids — and returns the
+        ``DependencySubset`` with its arrays on the model's device.
+        Resubmissions of the same id set (any order, duplicates allowed)
+        return the identical object; the serving engine reads
+        ``.coverage`` off it to decide dependency-vs-full before paying
+        for execution.
+
+        Example::
+
+            sub = compiled.dependency_subset(np.array([4, 7]))
+            assert sub.coverage <= 1.0
+        """
+        if validate:
+            node_ids = canonical_node_ids(node_ids, self.num_target)
+        if self._extractor is None:
+            with self._build_lock:
+                if self._extractor is None:
+                    self._extractor = DependencyExtractor(
+                        self.model, self.graphs, self.frontend.semantic,
+                        flavor=self.spec.na_executor, device=self.device)
+        return self._extractor.extract(node_ids, bucket_min=bucket_min)
+
+    def _fusion_betas(self, params: Dict, features: Dict) -> List[Dict]:
+        """Frozen SF betas for (params, features), memoized by object
+        identity (strong refs pin the keys, 4 entries); serving
+        recalibrates when ``swap_params`` installs a new params object."""
+        key = (id(params), id(features))
+        with self._build_lock:
+            ent = self._beta_memo.get(key)
+            if ent is not None and ent[0] is params and ent[1] is features:
+                self._beta_memo.move_to_end(key)
+                return ent[2]
+            with torch.inference_mode():
+                betas = self.model.fusion_betas(params, features, self.graphs,
+                                                na_executor=self.spec.na_executor)
+            self._beta_memo[key] = (params, features, betas)
+            while len(self._beta_memo) > 4:
+                self._beta_memo.popitem(last=False)
+            return betas
+
+    def forward_subset(self, params: Dict, features: Dict[str, torch.Tensor],
+                       node_ids, *, bucket_min: int = 8, validate: bool = True,
+                       mode: str = "head") -> torch.Tensor:
+        """Logits for an explicit subset of target vertices, under
+        ``torch.inference_mode()``.
+
+        ``mode="head"`` (default): message passing runs full-graph — a
+        vertex's logits depend on its whole receptive field — and only the
+        requested rows are gathered, so a micro-batch of node-subset
+        requests moves only those rows to the host.  Row ``i`` is bitwise
+        equal to row ``node_ids[i]`` of :meth:`forward`.
+
+        ``mode="dependency"``: message passing itself runs over the ids'
+        k-hop dependency closure (:meth:`dependency_subset`), so compute
+        and live tensors are bounded by the receptive field, not the
+        graph.  Rows match :meth:`forward` to reassociation tolerance;
+        semantic-fusion betas are frozen from one full calibration
+        forward per (params, features) pair (``HGNN.fusion_betas``), which
+        serving pays at the first request after a registration or
+        parameter swap, never per request.
+
+        ``node_ids`` (and, in dependency mode, every closure and edge
+        array) is padded to power-of-two buckets (at least
+        ``bucket_min``); :attr:`subset_traces` and
+        :attr:`dependency_traces` count the distinct buckets served.
+        ``validate=False`` skips the id re-validation for callers that
+        already canonicalized through ``canonical_node_ids`` (the serving
+        engine validates at admission).
+
+        Example::
+
+            rows = compiled.forward_subset(params, feats, np.array([4, 7]))
+            assert rows.shape == (2, cfg.num_classes)
+        """
+        if mode not in ("head", "dependency"):
+            raise ValueError(f"unknown forward_subset mode {mode!r} "
+                             "(expected 'head' or 'dependency')")
+        if validate:
+            ids = canonical_node_ids(node_ids, self.num_target)
+        else:
+            ids = np.asarray(node_ids)
+        if mode == "dependency":
+            return self._forward_dependency(params, features, ids, bucket_min=bucket_min)
+        n = int(ids.shape[0])
+        bucket = max(int(bucket_min), 1 << max(0, n - 1).bit_length())
+        with self._build_lock:
+            self._subset_buckets.add(bucket)
+        padded = np.zeros((bucket,), np.int64)
+        padded[:n] = ids
+        with torch.inference_mode():
+            out = self.model.execute_subset(
+                params, features, self.graphs,
+                torch.from_numpy(padded).to(self.device),
+                na_executor=self.spec.na_executor)
+        return out[:n]
+
+    def _forward_dependency(self, params: Dict, features: Dict, ids: np.ndarray,
+                            *, bucket_min: int = 8) -> torch.Tensor:
+        """The dependency-mode body of :meth:`forward_subset`: extract
+        (memoized), calibrate betas (memoized), run the dependency
+        executor, and restore the caller's id order."""
+        sub = self.dependency_subset(ids, bucket_min=bucket_min, validate=False)
+        betas = self._fusion_betas(params, features)
+        with self._build_lock:
+            self._dependency_signatures.add(sub.signature)
+        with torch.inference_mode():
+            out = self.model.execute_dependency_subset(
+                params, features, self.graphs, sub.arrays, betas,
+                na_executor=self.spec.na_executor)
+            out = out[: sub.num_ids]
+            ids_arr = np.asarray(ids)
+            if ids_arr.size == sub.num_ids and np.array_equal(ids_arr, sub.node_ids):
+                return out  # already sorted-unique (the serving union path)
+            order = np.searchsorted(sub.node_ids, ids_arr)
+            return out[torch.from_numpy(order).to(out.device)]
 
     def _all_rows(self) -> torch.Tensor:
         return torch.ones((self.num_target,), dtype=torch.float32, device=self.device)

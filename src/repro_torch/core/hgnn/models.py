@@ -230,9 +230,15 @@ class HGNN:
         graphs: List,
         *,
         na_executor: str = "banded",
+        betas_out: Optional[List] = None,
     ) -> Dict[str, torch.Tensor]:
         """Run every FP -> NA -> SF layer; returns the final per-type hidden
         states in global vertex numbering.
+
+        ``betas_out``, when given an empty list, collects one
+        ``{dst_type: (P_t + 1,)}`` dict of semantic-attention weights per
+        layer — the graph-level SF statistics the dependency-subset
+        executor freezes (see :meth:`fusion_betas`).
 
         ``na_executor`` selects the NA executor:
 
@@ -296,17 +302,130 @@ class HGNN:
                                      edge_bias=edge_bias)
                 z_by_dst.setdefault(g.dst_type, []).append(z)
             h_next: Dict[str, torch.Tensor] = {}
+            layer_betas: Dict[str, torch.Tensor] = {}
             for t, x in hp.items():
                 sf = lp["sf"][t]
                 self_z = x @ sf["w_self"]
                 if t in z_by_dst:
                     stack = torch.stack(z_by_dst[t] + [self_z])  # (P+1, N, D)
                     beta = semantic_fusion_beta(stack, sf["w"], sf["b"], sf["q"])
+                    layer_betas[t] = beta
                     h_next[t] = torch.einsum("p,pnd->nd", beta, stack)
                 else:
                     h_next[t] = self_z
+            if betas_out is not None:
+                betas_out.append(layer_betas)
             h = {t: torch.relu(v) for t, v in h_next.items()}
         return h
+
+    def fusion_betas(
+        self,
+        params: Dict,
+        features: Dict[str, torch.Tensor],
+        graphs: List,
+        *,
+        na_executor: str = "banded",
+    ) -> List[Dict[str, torch.Tensor]]:
+        """Per-layer SF attention weights from one full forward.
+
+        Semantic fusion's beta is a mean over *all* rows of a type — a
+        graph-level statistic with no per-request dependence — so the
+        dependency-subset executor cannot re-derive it from a partial row
+        set and takes these frozen values instead (recomputed only when
+        parameters or features change; serving recalibrates on
+        ``swap_params``).  Returns ``cfg.num_layers`` dicts keyed by
+        destination type, each ``(num_graphs_into_type + 1,)``.
+        """
+        betas: List[Dict[str, torch.Tensor]] = []
+        self.hidden_states(params, features, graphs, na_executor=na_executor,
+                           betas_out=betas)
+        return betas
+
+    def execute_dependency_subset(
+        self,
+        params: Dict,
+        features: Dict[str, torch.Tensor],
+        graphs: List,
+        dep: Dict,
+        betas: List[Dict[str, torch.Tensor]],
+        *,
+        na_executor: str = "banded",
+    ) -> torch.Tensor:
+        """FP -> NA -> SF over an induced k-hop dependency subgraph.
+
+        ``dep`` is a ``core.subgraph.DependencySubset.arrays`` dict for
+        the same graphs and executor flavor as ``graphs``, and ``betas``
+        the frozen SF weights from :meth:`fusion_betas` under the same
+        parameters and features.  Rows ``dep["node_rows"][:n]`` of the
+        result match the same target rows of :meth:`execute` to
+        reassociation tolerance: the closure keeps every edge into the
+        hop-``L-1`` frontier, so requested rows aggregate their full
+        receptive field while garbage on deeper-frontier rows only flows
+        into outputs nothing reads.  On the banded flavor each NA call is
+        one K1 launch over the extraction's sliced packing (CUDA) or its
+        plain version (CPU).
+        """
+        from repro_torch.core.subgraph import (na_attention_subset_banded,
+                                               na_mean_subset_banded)
+
+        cfg = self.cfg
+        if na_executor not in NA_EXECUTORS:
+            raise ValueError(f"unknown na_executor {na_executor!r}")
+        banded = na_executor == "banded"
+        gather = dep["gather"]
+        device = params["head"]["w"].device
+        h: Dict[str, torch.Tensor] = {}
+        for t in self.num_vertices:
+            rows = gather[t]
+            if self.feature_dims.get(t, 0) > 0:
+                h[t] = features[t][rows]
+            else:
+                h[t] = torch.ones((rows.shape[0], 1), dtype=torch.float32, device=device)
+
+        for li, lp in enumerate(params["layers"]):
+            hp = {
+                t: torch.relu(feature_projection(lp["fp"][t]["w"], lp["fp"][t]["b"], x))
+                for t, x in h.items()
+            }
+            z_by_dst: Dict[str, List[torch.Tensor]] = {}
+            for g, dg in zip(graphs, dep["graphs"]):
+                na_p = lp["na"][g.metapath]
+                h_src = hp[g.src_type] @ na_p["w_rel"]
+                edge_bias = None
+                if cfg.model == "shgn":
+                    edge_bias = lp["edge_emb"][g.edge_type_id] @ lp["a_edge"]
+                num_dst = gather[g.dst_type].shape[0]
+                if banded:
+                    if cfg.model == "rgcn":
+                        z = na_mean_subset_banded(dg, h_src)
+                    else:
+                        z = na_attention_subset_banded(
+                            dg, h_src, hp[g.dst_type], na_p["a_src"],
+                            na_p["a_dst"], edge_bias=edge_bias)
+                else:
+                    # int32 as extracted; the segment ops scatter by int64
+                    src, dst = dg["src"].long(), dg["dst"].long()
+                    if cfg.model == "rgcn":
+                        z = na_mean(h_src, src, dst, num_dst)
+                    else:
+                        z = na_attention(h_src, hp[g.dst_type], src, dst, num_dst,
+                                         na_p["a_src"], na_p["a_dst"],
+                                         edge_bias=edge_bias)
+                z_by_dst.setdefault(g.dst_type, []).append(z)
+            h_next: Dict[str, torch.Tensor] = {}
+            for t, x in hp.items():
+                sf = lp["sf"][t]
+                self_z = x @ sf["w_self"]
+                if t in z_by_dst:
+                    stack = torch.stack(z_by_dst[t] + [self_z])
+                    h_next[t] = torch.einsum("p,pnd->nd", betas[li][t], stack)
+                else:
+                    h_next[t] = self_z
+            h = {t: torch.relu(v) for t, v in h_next.items()}
+
+        head = params["head"]
+        rows = h[cfg.target_type][dep["node_rows"]]
+        return rows @ head["w"] + head["b"]
 
     def execute(
         self,
@@ -320,6 +439,33 @@ class HGNN:
         h = self.hidden_states(params, features, graphs, na_executor=na_executor)
         head = params["head"]
         return h[self.cfg.target_type] @ head["w"] + head["b"]
+
+    def execute_subset(
+        self,
+        params: Dict,
+        features: Dict[str, torch.Tensor],
+        graphs: List,
+        node_ids: torch.Tensor,
+        *,
+        na_executor: str = "banded",
+    ) -> torch.Tensor:
+        """Logits for an explicit subset of ``cfg.target_type`` vertices.
+
+        Message passing runs full-graph (a target vertex's receptive
+        field spans the whole topology); the serving micro-batch path
+        (``CompiledHGNN.forward_subset``) unions a queue of small
+        node-subset requests into one padded ``node_ids`` tensor, so only
+        those rows leave the device.  Row ``i`` equals row
+        ``node_ids[i]`` of :meth:`execute` bit for bit wherever the
+        forward repeats bit for bit (the banded executor on either device;
+        the segment-sum executor on the CPU, as its ``index_add_`` sums by
+        float atomics on a CUDA device): the head runs over every row
+        before the gather, because a GEMM over fewer rows may take another
+        kernel and summation order (the head is ``N x hidden x classes``,
+        a small share of a forward).
+        """
+        return self.execute(params, features, graphs,
+                            na_executor=na_executor)[node_ids]
 
     def execute_loss(self, params: Dict, features: Dict[str, torch.Tensor],
                      graphs: List, labels: torch.Tensor,

@@ -1,6 +1,8 @@
-"""The port stands alone: importing every ``repro_torch`` module loads
-neither JAX nor the JAX package, and a CUDA session refuses to start
-without a CUDA device instead of running on the CPU."""
+"""The port stands alone: importing every ``repro_torch`` module (or
+``chip_smoke.py``) loads neither JAX nor the JAX package, and a CUDA
+session refuses to start without a CUDA device instead of running on the
+CPU."""
+import ast
 import json
 import os
 import subprocess
@@ -43,10 +45,32 @@ def test_import_closure_is_free_of_jax_and_repro():
                 "repro_torch.models.lm", "repro_torch.configs",
                 "repro_torch.configs.smollm_135m", "repro_torch.configs.mamba2_370m",
                 "repro_torch.serve.engine", "repro_torch.launch.serve",
+                "repro_torch.core.subgraph", "repro_torch.serve",
+                "repro_torch.serve.hgnn", "repro_torch.serve.faults",
                 "repro_torch.pipeline.frontend", "repro_torch.train",
                 "repro_torch.train.optim", "repro_torch.train.hgnn_step",
                 "repro_torch.train.checkpoint", "repro_torch.train.tree"):
         assert mod in res["imported"]
+
+
+def test_chip_smoke_is_free_of_jax_and_repro():
+    """``chip_smoke.py`` runs where JAX may be absent: none of its imports,
+    at module level or inside a phase, names ``jax`` or ``repro``, and
+    importing it loads neither."""
+    path = SRC.parent / "chip_smoke.py"
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    assert "repro_torch" in roots and not roots & {"jax", "repro"}
+    probe = ("import json, sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+             "print(json.dumps(sorted(k for k in sys.modules "
+             "if k.split('.')[0] in ('jax', 'repro'))))")
+    out = subprocess.run([sys.executable, "-c", probe, str(path.parent)],
+                         capture_output=True, text=True, timeout=100, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def test_cuda_session_raises_without_cuda(monkeypatch):
