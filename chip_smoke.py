@@ -78,6 +78,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    microseconds per mode, requests/s, the extractor's host ms, and K1's ms
    over the slice against its ms over the full packing, each beside the
    card's name and power limit.
+3d. Graph deltas: on the same full-width ACM (seed 0, APA / PAP / PSP),
+   three seeded deltas: (a) 64 PS edges inserted (PSP touched; incremental
+   SGB), (b) 64 existing PA edges removed (APA and PAP touched; recomposed),
+   (c) P grown by 16 vertices with 3 PA edges each (every metapath
+   touched).  For each, ``Session.compile_delta`` on a warm banded session
+   (rgat, then rgcn; the predecessors' views already uploaded) against
+   ``Session(...).compile(graph.apply_delta(delta), ...)`` on a fresh
+   session with a cold cache.  Gates: every ``PackedEdges`` array, row
+   view, source-major view and work list of every metapath bitwise the
+   cold compile's; every untouched packing the predecessor's object;
+   successor forwards on the card bitwise the cold compile's, repeatable,
+   within 1e-4 of the CPU run, launching K1 9 times a forward and K2 9
+   times (rgat) or never (rgcn), as the cold compile does.  A planted
+   fault in the same run (delta (a)'s successor with PSP's spliced packing
+   handed the predecessor's row view and its upload) must break the
+   bitwise gate and read above 1e-4.  K1 and K2 over (a)'s spliced PSP
+   packing: against their plain versions within phase 2's gates, bitwise
+   equal to the same kernels over the cold packing, event medians and
+   queue-full times over both.  Then one ``HGNNServeEngine`` serves ACM
+   rgat (head mode) and IMDB rgcn (dependency mode) through a seeded burst
+   while ``swap_graph`` installs delta (a) and then an off-metapath TP
+   insert on ACM: every future resolves, ACM's versions are monotone in
+   service order, ACM rows bitwise the forward of the version that served
+   them, IMDB's within 1e-4 of its forward, and ``dependency_traces`` flat
+   across the off-metapath swap.  Printed, with the card's name and power
+   limit: ``apply_delta``'s stage times beside a cold
+   ``FrontendPipeline.run`` of the mutated graph, the splice's reused and
+   total blocks, the host ms to rebuild each spliced packing's row view and
+   work list and its upload ms, the first and warm successor forwards, the
+   extractor's adopted entries, ``swap_graph``'s wall time and the queue of
+   the requests in flight by wave.
 4. SGB: ACM, IMDB and DBLP at scale 1.0 under the ``ctt`` planner.  The
    host join and the device composer (K3) must give bitwise-equal products
    and equal per-step costs, K3 must launch once per plan step, and on
@@ -157,7 +188,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    control.
 9. Report: one JSON line ``{"kernels": [...]}`` (K1 and K2 with their
    launches per train step by model, K1 with its launches in one
-   dependency forward, and a row for K1 over phase 3c's sliced packings),
+   dependency forward, a row for K1 over phase 3c's sliced packings, and
+   rows for K1 and K2 over phase 3d's spliced packing),
    the card line, and last the contract line ``{"ok": true, "device":
    {...}}``.
 
@@ -173,6 +205,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -252,6 +285,12 @@ SERVE_WAVE_GAP_S = 0.01
 SERVE_WINDOW_MS = 5.0  # ServePolicy.batch_window_ms: waves coalesce into groups
 SERVE_WHOLE_GRAPH = 2  # whole-graph requests a tenant after the burst
 DEP_COVERAGE = 0.75  # ServePolicy.dependency_threshold (its default)
+DELTA_EDGES = 64  # PS edges phase 3d's delta (a) inserts, PA edges (b) removes
+DELTA_GROW, DELTA_GROW_EDGES = 16, 3  # delta (c): new P vertices, PA edges each
+DELTA_MODELS = ("rgcn", "rgat")
+# every array of a PackedEdges the row views and the kernels derive from
+PACKED_FIELDS = ("src_local", "dst_local", "band", "dst_tile", "first_in_tile",
+                 "count", "edge_block_id", "edge_slot")
 PREFILL_32K = 32768
 SGB_WORKLOADS = {  # dataset -> SGB targets, composed at scale 1.0
     "ACM": ["APA", "PAP", "PSP"],
@@ -955,8 +994,8 @@ def phase_serving(graph, dev, card: str):
     three tenants (ACM rgat head-only; IMDB rgcn and rgat over k-hop
     dependency closures), a seeded burst served by ``engine.run()``; held
     against the card's own forward and the same requests served on the CPU.
-    Returns the kernels line's row for K1 over the sliced packings and the
-    K1 launches of one dependency forward."""
+    Returns the kernels line's row for K1 over the sliced packings, the
+    K1 launches of one dependency forward and the IMDB tenants' depth."""
     from repro_torch.api import ExecutorSpec, ServePolicy, Session, device_features
     from repro_torch.core.hgnn import HGNNConfig
     from repro_torch.hetero import make_dataset
@@ -1194,7 +1233,431 @@ def phase_serving(graph, dev, card: str):
         "slices": slice_rows, "extractor_host_ms": ext_ms,
     }
     require(row["launches"] > 0, "K1 never launched on the serving path")
-    return row, dep_launches
+    return row, dep_launches, layers
+
+
+def graph_deltas(graph) -> dict:
+    """Phase 3d's three seeded deltas on ACM: (a) ``insert`` 64 PS edges
+    (touches PSP), (b) ``remove`` 64 existing PA edges (touches APA and
+    PAP), (c) ``grow`` P by 16 vertices, each with 3 PA edges (touches every
+    target metapath)."""
+    from repro_torch.hetero import GraphDelta
+
+    rng = np.random.default_rng(SEED)
+    ps, pa = graph.relations["PS"], graph.relations["PA"]
+    take = rng.choice(pa.num_edges, size=DELTA_EDGES, replace=False)
+    n_p = graph.num_vertices["P"]
+    grow_src = np.repeat(np.arange(n_p, n_p + DELTA_GROW), DELTA_GROW_EDGES)
+    return {
+        "insert": GraphDelta.insert("PS", rng.integers(0, ps.num_src, DELTA_EDGES),
+                                    rng.integers(0, ps.num_dst, DELTA_EDGES)),
+        "remove": GraphDelta.remove("PA", pa.src[take], pa.dst[take]),
+        "grow": GraphDelta(add_edges={"PA": (grow_src, rng.integers(
+            0, graph.num_vertices["A"], grow_src.size))}, add_vertices={"P": DELTA_GROW}),
+    }
+
+
+def tp_delta(graph, seed: int = SEED):
+    """An off-metapath delta: 3 TP edges, which no target metapath crosses."""
+    from repro_torch.hetero import GraphDelta
+
+    rng = np.random.default_rng(seed)
+    tp = graph.relations["TP"]
+    return GraphDelta.insert("TP", rng.integers(0, tp.num_src, 3),
+                             rng.integers(0, tp.num_dst, 3))
+
+
+def packings_equal(a, b) -> list:
+    """Names of the arrays and views in which two packings differ (empty
+    when they are bitwise equal): every block array, the edge map, the row
+    view, the source-major view and their work lists."""
+    bad = [f for f in PACKED_FIELDS
+           if not (np.asarray(getattr(a, f)).dtype == np.asarray(getattr(b, f)).dtype
+                   and np.array_equal(getattr(a, f), getattr(b, f)))]
+    if (a.num_src, a.num_dst) != (b.num_src, b.num_dst):
+        bad.append("shape")
+    for view in ("row_edges", "src_edges"):
+        for key, x, y in zip(("row_ptr", "row_src", "row_slot", "items"),
+                             getattr(a, view)(), getattr(b, view)()):
+            if not (x.dtype == y.dtype and np.array_equal(x, y)):
+                bad.append(f"{view}.{key}")
+    return bad
+
+
+def stale_view_successor(successor, predecessor, metapath: str, dev):
+    """The planted fault: ``successor``'s graphs with ``metapath``'s spliced
+    packing handed the predecessor's memoized row view and its device copy
+    (the rest of the upload fresh), as a successor that kept a view built
+    for the pre-delta stream would read it.  Checked first to stay inside
+    every buffer K1 and K2 index, so the fault is wrong sums, not a wrong
+    address."""
+    out = []
+    for g, old in zip(successor.graphs, predecessor.graphs):
+        if g.metapath == metapath:
+            pk = dataclasses.replace(g.packed)  # memos (views, uploads) not copied
+            rows = old.packed.row_edges()
+            require(rows.row_ptr.size == pk.num_dst + 1
+                    and int(rows.row_src.max()) < pk.num_src
+                    and int(rows.row_slot.max()) < pk.num_blocks * pk.edge_block,
+                    f"the stale {metapath} view would index outside the spliced packing")
+            fresh = pk.device_blocked(dev)
+            stale = old.packed.device_blocked(dev)
+            pk._row_edges = rows
+            pk._device = {str(torch.device(dev)): dict(
+                fresh, **{k: stale[k] for k in ("row_ptr", "row_src", "row_slot", "items")})}
+            g = dataclasses.replace(g, packed=pk)
+        out.append(g)
+    return out
+
+
+def na_over_spliced(spliced, cold, dev) -> list:
+    """K1 and K2 over delta (a)'s spliced PSP packing: each against its
+    plain version within its phase 2 gate, bitwise equal to the same kernel
+    over the cold packing of the mutated graph, and event medians and
+    queue-full times over both, with the plain version, the library
+    yardstick and the bound.  Returns the ``kernels`` line's two rows."""
+    from repro_torch.kernels.edge_softmax import (NEG, edge_softmax_stats,
+                                                  softmax_stats_plain)
+    from repro_torch.kernels.seg_sum import seg_sum_na, seg_sum_plain
+
+    nb, eb = spliced.src_local.shape
+    e, tiles = spliced.num_edges, spliced.num_dst_tiles
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    h = torch.randn(spliced.num_src, D, device=dev, generator=gen)
+    w = torch.rand(nb, eb, device=dev, generator=gen)
+    logits = torch.randn(nb, eb, device=dev, generator=gen) * 3
+    db = spliced.device_blocked(dev)
+    src_e, dst_e = db["edge_src"], db["edge_dst"]
+    w_e, l_e = w[db["edge_blk"], db["edge_slot"]], logits[db["edge_blk"], db["edge_slot"]]
+    shape = f"ACM PSP after delta (a), spliced: E={e} nb={nb} tiles={tiles} D={D}"
+
+    got, ref = seg_sum_na(spliced, h, w), seg_sum_plain(spliced, h, w)
+    on_cold = seg_sum_na(cold, h, w)
+    torch.cuda.synchronize()
+    k1_err = (got - ref).abs().max().item()
+    require(k1_reading(got, ref) <= 1.0, "K1 over the spliced packing disagrees with plain")
+    require(torch.equal(got, on_cold), "K1 over the spliced packing is not bitwise K1 "
+            "over the cold packing")
+
+    def k1_library():
+        return torch.zeros(spliced.num_dst, D, device=dev).index_add_(
+            0, dst_e, h[src_e] * w_e[:, None])
+
+    require(k1_reading(k1_library(), ref) <= 1.0, "K1 library yardstick disagrees")
+    k1_bytes = (e * (2 + 2 + 4) + spliced.num_src * D * 4 + spliced.num_dst * D * 4
+                + nb * 12 + (tiles + 1) * 4)
+    k1_bound, k1_by = bound(k1_bytes, 2.0 * e * D)
+    k1 = {
+        "name": "seg_sum_na (spliced packing)", "route": "cuda",
+        "source": "src/repro_torch/csrc/na_kernels.cu",
+        "replaces": "src/repro/kernels/seg_sum.py:516",
+        "max_abs_err": k1_err,
+        "ms": median_ms(lambda: seg_sum_na(spliced, h, w)),
+        "queued_ms": queued_ms(lambda: seg_sum_na(spliced, h, w)),
+        "cold_ms": median_ms(lambda: seg_sum_na(cold, h, w)),
+        "cold_queued_ms": queued_ms(lambda: seg_sum_na(cold, h, w)),
+        "plain_ms": median_ms(lambda: seg_sum_plain(spliced, h, w), reps=10),
+        "library_ms": median_ms(k1_library), "bound_ms": k1_bound, "bound_by": k1_by,
+        "bytes": k1_bytes, "bitwise_cold": True, "shape": shape,
+    }
+
+    m, s = edge_softmax_stats(spliced, logits)
+    mr, sr = softmax_stats_plain(spliced, logits)
+    mc, sc = edge_softmax_stats(cold, logits)
+    torch.cuda.synchronize()
+    s_rel = ((s - sr).abs() / sr.abs().clamp(min=1.0)).max().item()
+    require(torch.equal(m, mr) and s_rel <= K2_RTOL,
+            "K2 over the spliced packing disagrees with plain")
+    require(torch.equal(m, mc) and torch.equal(s, sc), "K2 over the spliced packing is "
+            "not bitwise K2 over the cold packing")
+
+    def k2_library():
+        mx = torch.full((spliced.num_dst,), NEG, device=dev).scatter_reduce_(
+            0, dst_e, l_e, "amax")
+        return mx, torch.zeros(spliced.num_dst, device=dev).index_add_(
+            0, dst_e, torch.exp(l_e - mx[dst_e]))
+
+    require(((k2_library()[1] - sr).abs() / sr.abs().clamp(min=1.0)).max().item()
+            <= K2_RTOL, "K2 library yardstick disagrees")
+    k2_bytes = e * (2 + 4) + nb * 8 + (tiles + 1) * 4 + spliced.num_dst * 8
+    k2_bound, k2_by = bound(k2_bytes, 6.0 * e)
+    k2 = {
+        "name": "edge_softmax_stats (spliced packing)", "route": "cuda",
+        "source": "src/repro_torch/csrc/na_kernels.cu",
+        "replaces": "src/repro/kernels/edge_softmax.py:32",
+        "max_abs_err": max((m - mr).abs().max().item(), (s - sr).abs().max().item()),
+        "ms": median_ms(lambda: edge_softmax_stats(spliced, logits)),
+        "queued_ms": queued_ms(lambda: edge_softmax_stats(spliced, logits)),
+        "cold_ms": median_ms(lambda: edge_softmax_stats(cold, logits)),
+        "cold_queued_ms": queued_ms(lambda: edge_softmax_stats(cold, logits)),
+        "plain_ms": median_ms(lambda: softmax_stats_plain(spliced, logits), reps=10),
+        "library_ms": median_ms(k2_library), "bound_ms": k2_bound, "bound_by": k2_by,
+        "bytes": k2_bytes, "bitwise_cold": True, "shape": shape,
+    }
+    for k in (k1, k2):
+        print(f"{k['name']}: kernel {k['ms']:.4f} ms (queue-full {k['queued_ms']:.4f}) "
+              f"against {k['cold_ms']:.4f} ms (queue-full {k['cold_queued_ms']:.4f}) over "
+              f"the cold packing, bitwise equal to it; max|kernel - plain| "
+              f"{k['max_abs_err']:.3e}; plain {k['plain_ms']:.4f} ms, library "
+              f"{k['library_ms']:.4f} ms, bound {k['bound_ms']:.6f} ms ({k['bound_by']}); "
+              f"{shape}")
+    return [k1, k2]
+
+
+def phase_deltas(graph, imdb_layers: int, dev, card: str):
+    """Phase 3d: graph deltas on the card.  For each of ``graph_deltas``,
+    ``Session.compile_delta`` on a warm session against a cold compile of
+    the mutated graph (packings, views, forwards, launches), a planted
+    stale-view fault, then ``swap_graph`` twice while an engine serves a
+    burst.  Returns the ``kernels`` line's rows for K1 and K2 over the
+    spliced PSP packing of delta (a)."""
+    from repro_torch.api import ExecutorSpec, ServePolicy, Session, device_features
+    from repro_torch.core.hgnn import HGNNConfig
+    from repro_torch.hetero import make_dataset
+    from repro_torch.kernels.edge_softmax import edge_softmax_stats
+    from repro_torch.kernels.seg_sum import seg_sum_na
+    from repro_torch.serve import HGNNRequest, HGNNServeEngine
+
+    def cfg(model, tt="P", layers=3):
+        return HGNNConfig(model=model, hidden=64, num_layers=layers, sf_att_dim=64,
+                          target_type=tt)
+
+    deltas = graph_deltas(graph)
+    feats = device_features(graph, dev)
+    ext_ids = [np.unique(np.random.default_rng(SEED + i).integers(
+        0, graph.num_vertices["P"], size=n)) for i, n in enumerate((4, 8, 16))]
+    launches = {"seg_sum_na": 0, "edge_softmax_stats": 0}
+    rows = None
+    for name, delta in deltas.items():
+        sess = Session(ExecutorSpec(na_executor="banded", device=str(dev)))
+        pred = {m: sess.compile(graph, TARGETS, cfg(m)) for m in DELTA_MODELS}
+        params = {m: pred[m].init(SEED) for m in DELTA_MODELS}
+        for m in DELTA_MODELS:
+            pred[m].forward(params[m], feats)  # the predecessors' views go up
+        for ids in ext_ids:
+            pred["rgcn"].dependency_subset(ids)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        succ, g2, dres = {}, None, None
+        succ["rgat"], g2, dres = sess.compile_delta(pred["rgat"], graph, delta)
+        t_delta = time.perf_counter() - t0
+        succ["rgcn"], _, _ = sess.compile_delta(pred["rgcn"], graph, delta)
+        adopted = len(succ["rgcn"]._extractor._memo)
+        cold_sess = Session(ExecutorSpec(na_executor="banded", device=str(dev)))
+        cold = {m: cold_sess.compile(g2, TARGETS, cfg(m)) for m in DELTA_MODELS}
+        print(f"delta ({name}): touched {dres.touched}, {dres.migrated} cache entries "
+              f"migrated, SGB {dres.result.sgb.device_stats if dres.result.sgb else 'cached'}; "
+              f"compile_delta {t_delta * 1e3:.1f} ms; apply_delta stages "
+              f"{ {k: round(v * 1e3, 3) for k, v in dres.result.timings.items()} } ms "
+              f"against a cold FrontendPipeline.run of the mutated graph "
+              f"{ {k: round(v * 1e3, 3) for k, v in cold['rgat'].frontend.timings.items()} } "
+              f"ms; splice (reused, total) blocks {dres.spliced}; the extractor adopted "
+              f"{adopted} of {len(ext_ids)} entries ({card})")
+        for mp in dres.spliced:
+            pk = next(g.packed for g in succ["rgat"].graphs if g.metapath == mp)
+            copy = dataclasses.replace(pk)  # memos not copied: built anew below
+            t0 = time.perf_counter()
+            copy.row_edges()
+            t_rows = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            copy.device_blocked(dev)
+            torch.cuda.synchronize()
+            print(f"delta ({name}) {mp}: row view and work list rebuilt in "
+                  f"{t_rows * 1e3:.2f} ms of host time, uploaded (with the edge map and "
+                  f"tile arrays) in {(time.perf_counter() - t0) * 1e3:.2f} ms ({card})")
+        feats2 = device_features(g2, dev) if delta.add_vertices else feats
+        for m in DELTA_MODELS:
+            seg_sum_na.launches = 0
+            edge_softmax_stats.launches = 0
+            t0 = time.perf_counter()
+            first = succ[m].forward(params[m], feats2)
+            torch.cuda.synchronize()
+            t_first = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            again = succ[m].forward(params[m], feats2)
+            torch.cuda.synchronize()
+            t_warm = time.perf_counter() - t0
+            got = (seg_sum_na.launches, edge_softmax_stats.launches)
+            launches["seg_sum_na"] += got[0]
+            launches["edge_softmax_stats"] += got[1]
+            seg_sum_na.launches = 0
+            edge_softmax_stats.launches = 0
+            want = cold[m].forward(params[m], feats2)
+            torch.cuda.synchronize()
+            cold_counts = (seg_sum_na.launches, edge_softmax_stats.launches)
+            per = (2 * NA_PER_FORWARD, 0 if m == "rgcn" else 2 * NA_PER_FORWARD)
+            c_cpu = Session(ExecutorSpec(na_executor="banded", device="cpu"),
+                            cache=sess.cache).compile(g2, TARGETS, cfg(m))
+            ref = c_cpu.forward(c_cpu.init(SEED), device_features(g2, "cpu"))
+            cpu_err = (first.cpu() - ref).abs().max().item()
+            print(f"delta ({name}) {m}: successor forward first {t_first * 1e3:.2f} ms, "
+                  f"warm {t_warm * 1e3:.2f} ms (host clock, ends in a sync; {card}); K1, K2 "
+                  f"launches over two successor forwards {got}, one cold forward "
+                  f"{cold_counts}; bitwise equal to the cold compile's forward "
+                  f"{torch.equal(first, want)}, repeat {torch.equal(first, again)}; "
+                  f"max|card - cpu| {cpu_err:.3e} (tolerance {LOGIT_ATOL})")
+            require(first.shape == (g2.num_vertices["P"], 3)
+                    and bool(torch.isfinite(first).all()), f"delta ({name}) {m}: logits")
+            require(torch.equal(first, want) and torch.equal(first, again),
+                    f"delta ({name}) {m}: the successor's forward is not bitwise the cold "
+                    "compile's")
+            require(got == per and cold_counts == (per[0] // 2, per[1] // 2),
+                    f"delta ({name}) {m}: launches {got} over two forwards, cold {cold_counts}")
+            require(cpu_err <= LOGIT_ATOL, f"delta ({name}) {m}: card and CPU disagree")
+            for g, c, p in zip(succ[m].graphs, cold[m].graphs, pred[m].graphs):
+                bad = packings_equal(g.packed, c.packed)
+                require(not bad, f"delta ({name}) {m} {g.metapath}: packing differs from "
+                        f"the cold compile's in {bad}")
+                require((g.packed is p.packed) == (g.metapath not in dres.touched),
+                        f"delta ({name}) {g.metapath}: an untouched packing is not the "
+                        "predecessor's object, or a touched one is")
+        if name == "insert":
+            spliced = next(g.packed for g in succ["rgat"].graphs if g.metapath == "PSP")
+            cold_pk = next(g.packed for g in cold["rgat"].graphs if g.metapath == "PSP")
+            faulted = stale_view_successor(succ["rgat"], pred["rgat"], "PSP", dev)
+            with torch.inference_mode():
+                bad = succ["rgat"].model.execute(params["rgat"], feats2, faulted,
+                                                 na_executor="banded")
+            sound = succ["rgat"].forward(params["rgat"], feats2)
+            want = cold["rgat"].forward(params["rgat"], feats2)
+            torch.cuda.synchronize()
+            f_err = (bad - want).abs().max().item()
+            s_err = (sound - want).abs().max().item()
+            print(f"delta (insert) rgat, planted stale-view fault (PSP handed the "
+                  f"predecessor's row view and its upload): max|forward - cold| "
+                  f"{f_err:.3e}, bitwise {torch.equal(bad, want)}; the sound successor "
+                  f"{s_err:.3e}, bitwise {torch.equal(sound, want)} (gate: bitwise, and "
+                  f"{LOGIT_ATOL})")
+            require(not torch.equal(bad, want) and f_err > LOGIT_ATOL,
+                    f"the planted stale-view fault reads {f_err:.3e}, inside the gate")
+            rows = na_over_spliced(spliced, cold_pk, dev)
+    require(launches["seg_sum_na"] > 0 and launches["edge_softmax_stats"] > 0,
+            "K1 or K2 never launched over a successor's packings")
+    for r in rows:  # counted over every successor forward of the three deltas
+        r["launches"] = launches[r["name"].split()[0]]
+
+    # serving: swap_graph twice while a burst is served
+    imdb = make_dataset("IMDB", seed=SEED, scale=1.0)
+    sess = Session(ExecutorSpec(na_executor="banded", device=str(dev)))
+    eng = HGNNServeEngine(session=sess, policy=ServePolicy(
+        batch_window_ms=SERVE_WINDOW_MS, dependency_threshold=DEP_COVERAGE))
+    feats_imdb = device_features(imdb, dev)
+    acm = eng.register("acm-rgat", graph, TARGETS, cfg("rgat"), seed=SEED, features=feats,
+                       subset_mode="head")
+    im = eng.register("imdb-rgcn", imdb, IMDB_TARGETS, cfg("rgcn", "M", imdb_layers),
+                      seed=SEED, features=feats_imdb, subset_mode="dependency")
+    p_acm, p_imdb = eng._registered["acm-rgat"].params, eng._registered["imdb-rgcn"].params
+    im.compiled.forward_subset(p_imdb, feats_imdb, np.arange(8), mode="dependency")
+    by_version = {1: (acm.compiled, feats)}
+    rng = np.random.default_rng(SEED + 3)
+    n_target = {"acm-rgat": graph.num_vertices["P"], "imdb-rgcn": imdb.num_vertices["M"]}
+    per_wave = SERVE_PER_TENANT // SERVE_WAVES
+    swap_waves = {2: ("insert", deltas["insert"]), 5: ("off-metapath TP", None)}
+    reqs, futs, served, order_lock, swap_ms = {}, [], [], threading.Lock(), {}
+    dep_ids = np.unique(rng.integers(0, n_target["acm-rgat"], size=6))
+    dep_flat, adopted, dep_moved = [], None, None
+
+    def record(f):
+        with order_lock:
+            served.append(f.result())
+
+    seg_sum_na.launches = 0
+    edge_softmax_stats.launches = 0
+    graph_now = graph
+    eng.run()
+    try:
+        t0 = time.perf_counter()
+        rid = 0
+        for w in range(SERVE_WAVES):
+            for name in ("acm-rgat", "imdb-rgcn"):
+                wave = []
+                for _ in range(per_wave):
+                    ids = rng.integers(0, n_target[name], size=int(rng.integers(4, 17)))
+                    reqs[rid] = (name, ids, w)
+                    wave.append(HGNNRequest(rid, name, nodes=ids))
+                    rid += 1
+                for f in eng.submit(wave):
+                    f.add_done_callback(record)
+                    futs.append(f)
+            if w in swap_waves:
+                label, delta = swap_waves[w]
+                if delta is None:
+                    delta = tp_delta(graph_now)
+                    c = acm.compiled
+                    before_rows = c.forward_subset(p_acm, by_version[acm.version][1],
+                                                   dep_ids, mode="dependency")
+                    dep_flat.append(c.dependency_traces)
+                ts = time.perf_counter()
+                v = acm.swap_graph(delta)
+                swap_ms[label] = (time.perf_counter() - ts) * 1e3
+                graph_now = graph_now.apply_delta(delta)
+                feats_now = (device_features(graph_now, dev) if delta.add_vertices
+                             else by_version[v - 1][1])
+                by_version[v] = (acm.compiled, feats_now)
+                if label.startswith("off"):
+                    adopted = len(acm.compiled._extractor._memo)
+                    after_rows = acm.compiled.forward_subset(p_acm, feats_now, dep_ids,
+                                                             mode="dependency")
+                    dep_flat.append(acm.compiled.dependency_traces)
+                    # the attention subset sums by index_add_ (float atomics on
+                    # the card), so dependency rows repeat within 1e-4, not bitwise
+                    dep_moved = (before_rows - after_rows).abs().max().item()
+                    require(dep_moved <= LOGIT_ATOL, "dependency rows moved across the "
+                            "off-metapath swap")
+            time.sleep(SERVE_WAVE_GAP_S)
+        responses = [f.result(timeout=300) for f in futs]
+        whole = []
+        for name in ("acm-rgat", "imdb-rgcn"):
+            reqs[rid] = (name, None, SERVE_WAVES)
+            whole.append(HGNNRequest(rid, name))
+            rid += 1
+        responses += [f.result(timeout=300) for f in eng.submit(whole)]
+        t_burst = time.perf_counter() - t0
+    finally:
+        eng.stop()
+    torch.cuda.synchronize()
+    served_launches = (seg_sum_na.launches, edge_softmax_stats.launches)
+    require(sorted(r.rid for r in responses) == list(range(rid)), "a request went unanswered")
+    acm_versions = [r.params_version for r in served if r.graph == "acm-rgat"]
+    require(acm_versions == sorted(acm_versions) and acm.version == 3,
+            f"ACM versions not monotone in service order, or not at 3: {acm.version}")
+    require(all(r.params_version == 1 for r in served if r.graph == "imdb-rgcn"),
+            "the IMDB tenant's version moved")
+    require(dep_flat[0] == dep_flat[1], f"dependency_traces moved across the off-metapath "
+            f"swap: {dep_flat}")
+    full = {v: c.forward(p_acm, f).cpu().numpy() for v, (c, f) in by_version.items()}
+    full_imdb = im.compiled.forward(p_imdb, feats_imdb).cpu().numpy()
+    dep_err = 0.0
+    for r in responses:
+        name, ids, _ = reqs[r.rid]
+        require(np.isfinite(r.logits).all(), f"request {r.rid}: non-finite logits")
+        if name == "acm-rgat":
+            want = full[r.params_version] if ids is None else full[r.params_version][ids]
+            require(np.array_equal(r.logits, want), f"request {r.rid} (ACM, version "
+                    f"{r.params_version}, {r.mode}) is not bitwise that version's forward")
+        else:
+            want = full_imdb if ids is None else full_imdb[ids]
+            dep_err = max(dep_err, float(np.abs(r.logits - want).max()))
+    require(dep_err <= LOGIT_ATOL, "IMDB dependency rows disagree with the forward")
+    st = eng.stats()
+    modes = sorted({r.mode for r in responses})
+    print(f"delta serving: {len(responses)} responses in {t_burst * 1e3:.1f} ms, modes "
+          f"{modes}, ACM versions served {sorted(set(acm_versions))}; swap_graph wall ms "
+          f"{ {k: round(v, 2) for k, v in swap_ms.items()} }, the extractor adopted "
+          f"{adopted} entry at the off-metapath swap; dependency_traces across the "
+          f"off-metapath swap {dep_flat}, its rows moved {dep_moved:.3e}; K1, K2 "
+          f"launches over the served run "
+          f"{served_launches}; retries {st['retries']}, breaker fast-fails "
+          f"{st['breaker_fastfails']}; IMDB dependency rows max|served - forward| "
+          f"{dep_err:.3e} ({card})")
+    by_wave = {}
+    for r in responses:
+        by_wave.setdefault(reqs[r.rid][2], []).append(r.queue_us)
+    print("delta serving: queue p50 / p99 us by wave (a swap follows waves "
+          f"{sorted(swap_waves)}): " + "; ".join(
+              f"{w}: {np.percentile(q, 50):.1f} / {np.percentile(q, 99):.1f}"
+              for w, q in sorted(by_wave.items())) + f" ({card})")
+    return rows
 
 
 def prof_call(label: str, fn) -> list:
@@ -2074,13 +2537,15 @@ def main() -> int:
     train_launches = phase_train(graph, dblp, dev)
     for k in kernels:
         k["launches_train_step"] = {m: c[k["name"]] for m, c in train_launches.items()}
-    slice_row, dep_launches = phase_serving(graph, dev, card)
+    slice_row, dep_launches, imdb_layers = phase_serving(graph, dev, card)
     kernels[0]["launches_dependency_forward"] = dep_launches
+    delta_rows = phase_deltas(graph, imdb_layers, dev, card)
     sgb_rows, sgb_dblp = phase_sgb(make_dataset, dev)
     session_launches = phase_device_session(make_dataset, dev)
     for k in kernels:
         k["launches_device_sgb_path"] = session_launches[k["name"]]
     kernels.append(slice_row)
+    kernels.extend(delta_rows)
     dblp = sgb_rows["DBLP"]  # the plan the device-SGB session runs
     t_ops = sum(r["ops"] for r in dblp) / INT8_OP_PER_S * 1e3
     t_bytes = sum(r["bytes"] for r in dblp) / HBM_BYTES_PER_S * 1e3

@@ -14,6 +14,8 @@ lists instead of the kernels.  ``compiled.forward_subset(params, feats,
 ids)`` serves an explicit id subset, head-only or (``mode="dependency"``)
 over the ids' k-hop dependency closure (``core/subgraph.py``) — what the
 serving engine (``repro_torch.serve.HGNNServeEngine``) calls.
+``sess.compile_delta(compiled, graph, delta)`` re-binds a compiled model to
+a ``GraphDelta``-mutated graph through the frontend's incremental path.
 
 ``compile`` runs the frontend (SGB -> Restructure -> packing, cache-served
 where possible; with ``sgb_backend="device"`` the SGB steps run on the
@@ -36,9 +38,11 @@ import torch
 from repro_torch.api.spec import ExecutorSpec
 from repro_torch.core.hgnn.models import HGNN, HGNNConfig
 from repro_torch.core.subgraph import DependencyExtractor, DependencySubset
+from repro_torch.hetero.delta import GraphDelta
 from repro_torch.hetero.graph import HetGraph
 from repro_torch.pipeline.cache import SemanticGraphCache
-from repro_torch.pipeline.frontend import FrontendPipeline, FrontendResult
+from repro_torch.pipeline.frontend import (DeltaResult, FrontendPipeline,
+                                           FrontendResult)
 
 
 def canonical_node_ids(node_ids, num_target: int, *,
@@ -80,6 +84,22 @@ def device_features(graph: HetGraph, device) -> Dict[str, torch.Tensor]:
         logits = compiled.forward(params, feats)
     """
     return {t: torch.from_numpy(x).to(device) for t, x in graph.features.items()}
+
+
+def _changed_product_dsts(old_sem: Dict, new_sem: Dict,
+                          touched: Sequence[str]) -> Dict[str, np.ndarray]:
+    """Destination ids of added/removed product edges per touched metapath
+    (the extractor-memo invalidation key: frontier expansion only indexes
+    in-neighborhoods by destination, so the source side never matters)."""
+    changed: Dict[str, np.ndarray] = {}
+    for mp in touched:
+        a, b = old_sem[mp], new_sem[mp]
+        m = max(a.num_dst, b.num_dst)
+        ka = a.src.astype(np.int64) * m + a.dst.astype(np.int64)
+        kb = b.src.astype(np.int64) * m + b.dst.astype(np.int64)
+        diff = np.setxor1d(ka, kb, assume_unique=True)
+        changed[mp] = np.unique(diff % m)
+    return changed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -432,6 +452,69 @@ class Session:
         compiled = CompiledHGNN(self, self.spec, model, res, graphs, fp)
         self._compiled[ckey] = compiled
         return compiled
+
+    def compile_delta(self, compiled: CompiledHGNN, graph: HetGraph,
+                      delta: GraphDelta
+                      ) -> Tuple[CompiledHGNN, HetGraph, DeltaResult]:
+        """Re-bind a compiled model to a delta-mutated graph incrementally.
+
+        Runs the frontend's delta path (``FrontendPipeline.apply_delta``:
+        cache migration, incremental SGB on the host, block-splice repack)
+        instead of a cold rebuild, then builds the successor
+        ``CompiledHGNN`` on the spec's device — equal in every product to
+        ``compile(graph.apply_delta(delta), ...)`` on a cold cache, but
+        carrying forward what a delta cannot invalidate:
+
+          * the dependency forward's signature set (the successor shares the
+            predecessor's set object, so requests whose closures keep their
+            bucket signature add nothing to :attr:`CompiledHGNN.
+            dependency_traces`);
+          * extractor memo entries whose closures no changed product edge
+            lands on (``DependencyExtractor.migrate_from``).
+
+        Untouched metapaths keep their ``PackedEdges`` objects, device
+        copies included; spliced ones are new objects whose row views the
+        NA kernels build on first use.  The head-mode buckets and the
+        fusion betas are *not* carried — they close over the topology.
+        Returns ``(new_compiled, new_graph, delta_result)``.
+
+        Example::
+
+            c2, g2, dres = sess.compile_delta(c1, g1, delta)
+            assert c2.dependency_traces == c1.dependency_traces
+        """
+        if graph.fingerprint() != compiled.fingerprint:
+            raise ValueError(
+                "graph does not match the compiled model's fingerprint "
+                "(pass the graph the model was compiled for)")
+        targets = [g.metapath for g in compiled.graphs]
+        dres = self.pipeline.apply_delta(graph, delta, targets)
+        new_graph, res = dres.graph, dres.result
+        fp_new = new_graph.fingerprint()
+        tkey = tuple(sorted(targets))
+        self._frontends[(fp_new, tkey)] = res
+        self._frontend_runs += 1
+        if self.spec.na_executor == "banded":
+            graphs = res.banded_batches(self.spec.device)
+        else:
+            graphs = res.batches(self.spec.device)
+        cfg = compiled.cfg
+        model = HGNN(cfg, new_graph.feature_dims, new_graph.num_vertices,
+                     sorted(targets))
+        successor = CompiledHGNN(self, self.spec, model, res, graphs, fp_new)
+        successor._dependency_signatures = compiled._dependency_signatures
+        if compiled._extractor is not None:
+            ext = DependencyExtractor(model, graphs, res.semantic,
+                                      flavor=self.spec.na_executor,
+                                      device=successor.device)
+            changed = _changed_product_dsts(
+                compiled.frontend.semantic, res.semantic, dres.touched)
+            ext.migrate_from(compiled._extractor, changed,
+                             frozenset(dres.touched))
+            successor._extractor = ext
+        self._compiles += 1
+        self._compiled[(fp_new, tkey, cfg)] = successor
+        return successor, new_graph, dres
 
     def stats(self) -> SessionStats:
         """Snapshot of the session's reuse counters.

@@ -211,6 +211,29 @@ class RestructuredGraph:
         return pack_edge_blocks(s, d, self.original.num_src,
                                 self.original.num_dst)
 
+    def packed_delta(self, old_rg: "RestructuredGraph", old_packed,
+                     renumbered: bool = True):
+        """Banded blocks via block-local repack against a prior packing.
+
+        Splices the unchanged prefix/suffix blocks of ``old_packed`` (the
+        packing of ``old_rg``'s scheduled stream) around a freshly packed
+        edit window (``kernels.seg_sum.splice_pack_edge_blocks``):
+        bitwise-equal to :meth:`packed`.  Returns ``(packed,
+        reused_blocks, total_blocks)``; a splice-incompatible prior
+        packing degrades to a full repack (``reused_blocks == 0``).
+        """
+        from repro_torch.kernels.seg_sum import splice_pack_edge_blocks
+
+        s, d = self.scheduled_edges(renumbered=renumbered)
+        so, do = old_rg.scheduled_edges(renumbered=renumbered)
+        out = splice_pack_edge_blocks(
+            s, d, so, do, old_packed,
+            self.original.num_src, self.original.num_dst)
+        if out is None:
+            pk = self.packed(renumbered=renumbered)
+            return pk, 0, pk.num_blocks
+        return out
+
     def validate(self) -> None:
         """Check the invariants of §4.3.1; raises ``ValueError`` on a breach."""
         rel = self.original

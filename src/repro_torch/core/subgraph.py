@@ -33,8 +33,11 @@ executor takes it as an input frozen from one full calibration forward
 (``HGNN.fusion_betas``), which keeps subset rows exact to reassociation
 tolerance.
 
-Carrying extractions across graph deltas (the reference's
-``migrate_from``) waits for incremental graphs (ROADMAP item M7).
+After a graph delta, ``migrate_from`` carries the predecessor's memo
+entries that are still exact into the successor's extractor.  The banded
+flavor carries none once a target metapath was repacked: its entries hold
+sliced ``PackedEdges`` (and their uploaded row views) cut from the old
+stream.
 """
 from __future__ import annotations
 
@@ -225,6 +228,51 @@ class DependencyExtractor:
             while len(self._memo) > self.max_memo:
                 self._memo.popitem(last=False)
             return sub
+
+    # ----------------------------------------------------- delta migration --
+    def migrate_from(self, old: "DependencyExtractor",
+                     changed_dst: Dict[str, np.ndarray],
+                     touched: frozenset) -> int:
+        """Adopt a pre-delta extractor's memo entries that are still exact.
+
+        Frontier expansion only ever reads the in-neighborhoods of closure
+        vertices, so an old ``DependencySubset`` is still the exact answer
+        iff, for every semantic graph, no changed product edge lands on a
+        closure vertex of its destination type (``changed_dst`` maps
+        metapath -> destination ids of added/removed product edges; the
+        source side is never indexed).  The banded flavor additionally
+        drops every entry when any ``touched`` metapath re-packed — its
+        sliced packings, row views and uploads were cut from the old
+        stream layout.
+
+        ``total_size`` is refreshed on adopted entries (vertex-add deltas
+        grow the coverage denominator).  Returns the number of entries
+        adopted.
+        """
+        new_total = sum(self.num_vertices.values())
+        banded_stale = self.flavor == "banded" and any(
+            g.metapath in touched for g in self.graphs)
+        with old._lock:
+            entries = [] if banded_stale else list(old._memo.items())
+        adopted = 0
+        with self._lock:
+            for key, sub in entries:
+                ok = True
+                for g in self.graphs:
+                    ch = changed_dst.get(g.metapath)
+                    if ch is not None and ch.size and np.intersect1d(
+                            sub.closure[g.dst_type], ch).size:
+                        ok = False
+                        break
+                if not ok:
+                    continue
+                if sub.total_size != new_total:
+                    sub = dataclasses.replace(sub, total_size=new_total)
+                self._memo[key] = sub
+                adopted += 1
+            while len(self._memo) > self.max_memo:
+                self._memo.popitem(last=False)
+        return adopted
 
     def _build(self, ids: np.ndarray, bucket_min: int) -> DependencySubset:
         hops = self.khop_frontiers(ids)

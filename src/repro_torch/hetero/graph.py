@@ -262,6 +262,17 @@ class HetGraph:
         """The one-hop relation called ``name``."""
         return self.relations[name]
 
+    def apply_delta(self, delta) -> "HetGraph":
+        """Return a new canonical graph with a :class:`GraphDelta` applied.
+
+        Thin forwarder to :func:`repro_torch.hetero.delta.apply_delta`
+        (kept there to avoid a circular import); the result shares no
+        mutable state with ``self`` and its fingerprint memo starts cold.
+        """
+        from repro_torch.hetero.delta import apply_delta as _apply
+
+        return _apply(self, delta)
+
     def metapath_is_valid(self, metapath: str) -> bool:
         """A metapath 'APSPA' is valid iff every adjacent pair is a relation."""
         if len(metapath) < 2:

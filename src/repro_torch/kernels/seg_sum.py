@@ -4,7 +4,9 @@ The Graph Restructurer makes sparse aggregation banded: after restructuring,
 each edge block's sources fall in one ``SRC_BAND``-row band of the feature
 matrix and its destinations in one ``DST_TILE``-row output tile.
 ``pack_edge_blocks`` cuts the scheduled edge stream into such blocks
-(host numpy, bitwise-equal to the JAX package's packer), and ``seg_sum_na``
+(host numpy, bitwise-equal to the JAX package's packer;
+``splice_pack_edge_blocks`` repacks an edited stream around an old
+packing's unchanged blocks), and ``seg_sum_na``
 computes, for every block ``b`` in schedule order,
 
     out[dst_tile[b]*128 + dst_local[b,k]] += w[b,k] * h[band[b]*512 + src_local[b,k]]
@@ -516,6 +518,126 @@ def pack_edge_blocks_reference(
         sl, dl, ww, bandv, dt, _first_touch_flags(dt), cnt, num_src, num_dst,
         edge_block=edge_block, src_band=src_band, dst_tile_rows=dst_tile,
     )
+
+
+def splice_pack_edge_blocks(
+    src: np.ndarray,
+    dst: np.ndarray,
+    old_src: np.ndarray,
+    old_dst: np.ndarray,
+    old: PackedEdges,
+    num_src: int,
+    num_dst: int,
+    edge_block: int = EDGE_BLOCK,
+    src_band: int = SRC_BAND,
+    dst_tile: int = DST_TILE,
+) -> Optional[Tuple[PackedEdges, int, int]]:
+    """Repack an edited edge stream by splicing the unchanged blocks of
+    an existing packing around a freshly packed edit window.
+
+    ``pack_edge_blocks`` is deterministic on the scheduled stream: blocks
+    are ``edge_block`` chunks of maximal constant (dst-tile, band) *runs*,
+    with chunk offsets measured from each run's start.  Hence any prefix
+    of the stream that (a) is unchanged and (b) ends on a run boundary
+    packs into exactly the same block rows, and likewise for a suffix that
+    *starts* on a run boundary — only the window between them needs the
+    packer.  This function finds the longest common prefix/suffix of the
+    old and new streams, snaps the window edges outward to run boundaries
+    (a run boundary inside the common region is a boundary of both
+    streams, because the flag at position ``i`` only reads positions
+    ``i-1`` and ``i``), packs the window, and concatenates.  The result is
+    bitwise-equal to ``pack_edge_blocks`` over the full new stream:
+    per-block arrays are reused verbatim, while the global products —
+    ``first_in_tile`` (first-touch-EVER semantics) and the edge->(block,
+    slot) map — are recomputed over the spliced block sequence, which is
+    O(nb)/O(E) arithmetic, not a repack.
+
+    Only unweighted packings are spliced (``old`` must have been built
+    with ``weight=None``; a lazily materialized ones-mask on it is fine —
+    it is ignored and the spliced packing starts lazy again).  Returns
+    ``(packed, reused_blocks, total_blocks)``, or ``None`` when the old
+    packing is not splice-compatible (different geometry, reference-packer
+    dtype, or an empty stream) — callers fall back to a full repack.
+
+    The result is a new ``PackedEdges`` built from new arrays: nothing of
+    ``old`` is written (a predecessor still serving reads it), and none of
+    its memos (the row and source-major views, their work lists, the valid
+    mask, the device copies) carries over, so the row kernels rebuild
+    their views from the spliced blocks on first use.
+    """
+    src = np.asarray(src, np.int64)
+    dst = np.asarray(dst, np.int64)
+    old_src = np.asarray(old_src, np.int64)
+    old_dst = np.asarray(old_dst, np.int64)
+    En, Eo = src.size, old_src.size
+    if En == 0 or Eo == 0:
+        return None
+    if (old.edge_block != edge_block or old.src_band != src_band
+            or old.dst_tile_rows != dst_tile
+            or old.src_local.dtype != np.int16):
+        return None
+
+    # longest common prefix / suffix (clamped so they never overlap)
+    m = min(En, Eo)
+    eq = (src[:m] == old_src[:m]) & (dst[:m] == old_dst[:m])
+    p = m if eq.all() else int(np.argmin(eq))
+    eqs = (src[En - m:] == old_src[Eo - m:]) & (dst[En - m:] == old_dst[Eo - m:])
+    rev = eqs[::-1]
+    q = m if rev.all() else int(np.argmin(rev))
+    if p + q > m:
+        q = m - p
+
+    # run-start flags of the NEW stream; window edges snap to run starts
+    # strictly inside the common prefix (index <= p-1) / suffix
+    # (index >= En-q+1), where old and new agree on the flag
+    dtile = dst // dst_tile
+    band = src // src_band
+    newrun = np.empty(En, bool)
+    newrun[0] = True
+    np.logical_or(dtile[1:] != dtile[:-1], band[1:] != band[:-1],
+                  out=newrun[1:])
+    rs = np.flatnonzero(newrun)
+    lo = int(rs[rs <= p - 1].max()) if p > 0 else 0
+    hi_cand = rs[rs >= En - q + 1]
+    hi = int(hi_cand.min()) if hi_cand.size else En
+    hi_o = hi - En + Eo
+
+    cnt_o = old.count.astype(np.int64)
+    starts_o = np.concatenate(([0], np.cumsum(cnt_o)[:-1]))
+    n_pre = int(np.searchsorted(starts_o, lo))
+    n_suf = int(np.searchsorted(starts_o, hi_o))
+    # run boundaries are block boundaries; anything else means the old
+    # packing did not come from pack_edge_blocks on this stream
+    if n_pre < starts_o.size and starts_o[n_pre] != lo:
+        return None
+    if n_suf < starts_o.size and starts_o[n_suf] != hi_o:
+        return None
+
+    mid = pack_edge_blocks(
+        src[lo:hi], dst[lo:hi], num_src, num_dst, weight=None,
+        edge_block=edge_block, src_band=src_band, dst_tile=dst_tile)
+
+    srcl = np.concatenate(
+        [old.src_local[:n_pre], mid.src_local, old.src_local[n_suf:]])
+    dstl = np.concatenate(
+        [old.dst_local[:n_pre], mid.dst_local, old.dst_local[n_suf:]])
+    bandv = np.concatenate([old.band[:n_pre], mid.band, old.band[n_suf:]])
+    dt = np.concatenate(
+        [old.dst_tile[:n_pre], mid.dst_tile, old.dst_tile[n_suf:]])
+    cnt = np.concatenate([old.count[:n_pre], mid.count, old.count[n_suf:]])
+    nb = int(cnt.shape[0])
+    cnt64 = cnt.astype(np.int64)
+    starts = np.concatenate(([0], np.cumsum(cnt64)[:-1]))
+    blk = np.repeat(np.arange(nb), cnt64)
+    slot = np.arange(En) - np.repeat(starts, cnt64)
+    packed = PackedEdges(
+        srcl, dstl, None, bandv, dt, _first_touch_flags(dt), cnt,
+        num_src, num_dst,
+        edge_block=edge_block, src_band=src_band, dst_tile_rows=dst_tile,
+        edge_block_id=blk.astype(np.int32), edge_slot=slot.astype(np.int32),
+    )
+    reused = n_pre + (old.num_blocks - n_suf)
+    return packed, reused, nb
 
 
 # ----------------------------------------------------------- plain versions --

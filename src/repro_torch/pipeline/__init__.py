@@ -1,11 +1,12 @@
 """Frontend pipeline of the port: SGB -> Restructure -> packing as one
-cached engine (host numpy)."""
+cached engine (host numpy), with an incremental path for graph deltas."""
 from repro_torch.pipeline.cache import CacheStats, SemanticGraphCache
-from repro_torch.pipeline.frontend import (FrontendPipeline, FrontendResult,
-                                           PipelineConfig)
+from repro_torch.pipeline.frontend import (DeltaResult, FrontendPipeline,
+                                           FrontendResult, PipelineConfig)
 
 __all__ = [
     "CacheStats",
+    "DeltaResult",
     "FrontendPipeline",
     "FrontendResult",
     "PipelineConfig",

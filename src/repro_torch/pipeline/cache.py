@@ -7,6 +7,9 @@ results (``RestructuredGraph``, keyed also by the degree_order/affinity
 knobs) and ``PackedEdges`` blocks (keyed also by the renumbered flag).
 Eviction is LRU by entry count.  A ``PackedEdges`` that has fed the banded
 executor also pins its device copies (``PackedEdges.device_blocked``).
+After a graph delta, ``migrate`` re-keys the entries the delta cannot
+change to the new fingerprint (the same objects, device copies included)
+and hands the touched ones back as prior state.
 """
 from __future__ import annotations
 
@@ -27,10 +30,11 @@ class CacheStats:
     hits: int = 0
     misses: int = 0
     evictions: int = 0
+    migrations: int = 0  # entries re-keyed in place by a graph delta
 
     def snapshot(self) -> "CacheStats":
         """A copy of the counters."""
-        return CacheStats(self.hits, self.misses, self.evictions)
+        return CacheStats(self.hits, self.misses, self.evictions, self.migrations)
 
     def delta(self, before: "CacheStats") -> "CacheStats":
         """Counters accumulated since ``before``."""
@@ -38,6 +42,7 @@ class CacheStats:
             self.hits - before.hits,
             self.misses - before.misses,
             self.evictions - before.evictions,
+            self.migrations - before.migrations,
         )
 
 
@@ -48,6 +53,9 @@ class SemanticGraphCache:
         self.max_entries = max_entries
         self._store: "OrderedDict[Tuple, object]" = OrderedDict()
         self.stats = CacheStats()
+        # delta lineage: new fingerprint -> the fingerprint its warm
+        # entries migrated from (most recent delta only)
+        self.lineage: Dict[str, str] = {}
 
     def _get(self, key: Tuple):
         if key in self._store:
@@ -127,3 +135,34 @@ class SemanticGraphCache:
     ) -> None:
         """Store a ``PackedEdges``."""
         self._put(("pkd", fp, metapath, degree_order, affinity, renumbered), packed)
+
+    def migrate(self, fp_old: str, fp_new: str, keep) -> Tuple[int, Dict[Tuple, object]]:
+        """Re-key one topology's warm entries after a graph delta.
+
+        Every entry under ``fp_old`` whose metapath satisfies ``keep(mp)``
+        (i.e. no hop crosses a touched relation — its products are
+        unchanged by the delta) moves in place to ``fp_new``; touched
+        entries are *removed* and handed back keyed by their full old key,
+        so the delta path can consume them as prior state (old semantic
+        graphs seed the incremental composition, old packings seed the
+        block splice) instead of letting them rot under a fingerprint
+        nobody will ask for again.  Records ``fp_new -> fp_old`` lineage
+        and counts migrations; moved entries refresh to most-recently-used
+        (a delta is evidence the tenant is live).
+
+        Returns ``(moved_count, stale)`` where ``stale`` maps old cache
+        keys of touched entries to their values.
+        """
+        moved = 0
+        stale: Dict[Tuple, object] = {}
+        for key in [k for k in self._store if k[1] == fp_old]:
+            val = self._store.pop(key)
+            if keep(key[2]):
+                self._store[(key[0], fp_new) + key[2:]] = val
+                moved += 1
+            else:
+                stale[key] = val
+        self.stats.migrations += moved
+        if moved or stale:
+            self.lineage[fp_new] = fp_old
+        return moved, stale

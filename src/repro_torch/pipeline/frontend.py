@@ -10,7 +10,9 @@
    with ``pack=True`` or on the first ``banded_batches()`` request.
 
 Everything is keyed by ``HetGraph.fingerprint()`` in a
-``SemanticGraphCache``.  Every product is bitwise-equal to the JAX
+``SemanticGraphCache``.  ``apply_delta`` updates the products for a
+``GraphDelta`` incrementally: cache migration, incremental SGB on the host,
+and the block-splice repack.  Every product is bitwise-equal to the JAX
 package's ``repro.pipeline`` on the same graph, whichever SGB backend built
 it, so cached products serve every backend and device.
 """
@@ -23,7 +25,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.core.restructure import RestructuredGraph, restructure
-from repro_torch.core.sgb import SGBResult, execute_plan, make_plan
+from repro_torch.core.sgb import (SGBResult, execute_plan,
+                                  execute_plan_delta, make_plan)
+from repro_torch.hetero.delta import GraphDelta
 from repro_torch.hetero.graph import HetGraph, Relation
 from repro_torch.pipeline.cache import CacheStats, SemanticGraphCache
 
@@ -127,6 +131,19 @@ class FrontendResult:
         return self._banded[key]
 
 
+@dataclasses.dataclass
+class DeltaResult:
+    """Products of one incremental frontend update (``apply_delta``)."""
+
+    graph: HetGraph  # the post-delta graph (canonical)
+    result: FrontendResult  # frontend products over the new graph
+    touched: List[str]  # target metapaths that crossed a touched relation
+    migrated: int  # warm cache entries re-keyed old fp -> new fp
+    # per touched metapath: (reused_blocks, total_blocks) of the splice
+    spliced: Dict[str, Tuple[int, int]] = dataclasses.field(
+        default_factory=dict)
+
+
 class FrontendPipeline:
     """Cached SGB -> Restructure -> packing engine over one cache."""
 
@@ -223,3 +240,155 @@ class FrontendPipeline:
             },
             cache_stats=self.cache.stats.delta(before),
         )
+
+    def apply_delta(self, graph: HetGraph, delta: GraphDelta,
+                    targets: Sequence[str]) -> DeltaResult:
+        """Incremental frontend update: delta in, warm products out.
+
+        Instead of letting the mutated fingerprint force a cold rebuild,
+        the update is bounded to the delta's blast radius:
+
+        1. warm cache entries whose metapath avoids every touched
+           relation migrate in place to the new fingerprint
+           (``SemanticGraphCache.migrate`` — no recompute, no eviction);
+        2. touched semantic graphs recompose incrementally
+           (``core.sgb.execute_plan_delta`` — the insert-only union
+           identity over the stale cached products; removals fall back to
+           a full compose of just the touched products);
+        3. touched packings splice the unchanged edge blocks of the stale
+           ``PackedEdges`` around a freshly packed edit window
+           (``RestructuredGraph.packed_delta``); restructuring itself
+           re-runs for touched graphs (it is deterministic host work, so
+           the permutations stay bitwise-equal to a cold rebuild).
+
+        Every product is bitwise-equal to ``run(graph.apply_delta(delta),
+        targets)`` on a cold cache; only the work differs.
+        """
+        cfg = self.config
+        before = self.cache.stats.snapshot()
+        t0 = time.perf_counter()
+        fp_old = graph.fingerprint()
+        new_graph = graph.apply_delta(delta)
+        for t in targets:
+            if not new_graph.metapath_is_valid(t):
+                raise ValueError(
+                    f"metapath {t!r} invalid for dataset {new_graph.name}")
+        fp_new = new_graph.fingerprint()
+        touched_rel = delta.touched_relations(graph)
+
+        def untouched(mp: str) -> bool:
+            return not any(mp[i:i + 2] in touched_rel
+                           for i in range(len(mp) - 1))
+
+        moved, stale = ((0, {}) if fp_new == fp_old
+                        else self.cache.migrate(fp_old, fp_new, untouched))
+        # stale entries are consumed by kind+metapath+knobs; the old
+        # fingerprint is lineage bookkeeping, not part of the lookup
+        stale = {(k[0],) + k[2:]: v for k, v in stale.items()}
+        t1 = time.perf_counter()
+        semantic, sgb_res = self._sgb_delta(
+            graph, new_graph, delta, targets, fp_new, stale)
+        t2 = time.perf_counter()
+        restructured = (
+            self._restructure(semantic, fp_new) if cfg.restructure else {})
+        t3 = time.perf_counter()
+        packed, spliced = (
+            self._pack_delta(restructured, fp_new, stale)
+            if cfg.pack else ({}, {}))
+        t4 = time.perf_counter()
+        result = FrontendResult(
+            targets=list(targets),
+            config=cfg,
+            semantic=semantic,
+            restructured=restructured,
+            packed=packed,
+            sgb=sgb_res,
+            timings={
+                "migrate": t1 - t0,
+                "sgb": t2 - t1,
+                "restructure": t3 - t2,
+                "pack": t4 - t3,
+                "total": t4 - t0,
+            },
+            cache_stats=self.cache.stats.delta(before),
+        )
+        return DeltaResult(
+            graph=new_graph,
+            result=result,
+            touched=[t for t in targets if not untouched(t)],
+            migrated=moved,
+            spliced=spliced,
+        )
+
+    def _sgb_delta(self, old_graph: HetGraph, new_graph: HetGraph,
+                   delta: GraphDelta, targets: Sequence[str], fp_new: str,
+                   stale: Dict) -> Tuple[Dict[str, Relation],
+                                         Optional[SGBResult]]:
+        """SGB stage of ``apply_delta``: cache-served where migrated,
+        incrementally recomposed where touched."""
+        cfg = self.config
+        semantic: Dict[str, Relation] = {}
+        missing: List[str] = []
+        for t in targets:
+            if len(t) == 2 and t in new_graph.relations:
+                semantic[t] = new_graph.relations[t]
+                continue
+            hit = self.cache.get_relation(fp_new, t)
+            if hit is not None:
+                semantic[t] = hit
+            else:
+                missing.append(t)
+        if not missing:
+            return semantic, None
+
+        preloaded = self.cache.relations_for(fp_new)
+        counts = {name: rel.num_edges for name, rel in preloaded.items()}
+        plan = make_plan(new_graph, missing, planner=cfg.planner,
+                         preloaded=sorted(preloaded), edge_counts=counts)
+        # prior state: the old graph's one-hop relations, the stale
+        # (touched) cached products, and the migrated untouched products
+        # (unchanged by the delta, so they are their own pre-delta values)
+        old_products = dict(old_graph.relations)
+        old_products.update(
+            {k[1]: v for k, v in stale.items() if k[0] == "rel"})
+        old_products.update(preloaded)
+        res = execute_plan_delta(
+            new_graph, plan,
+            old_products=old_products,
+            removed_relations=frozenset(delta.remove_edges),
+            preloaded=preloaded)
+        for name, rel in res.graphs.items():
+            if len(name) > 2:
+                self.cache.put_relation(fp_new, name, rel)
+        for t in missing:
+            semantic[t] = res.graphs[t]
+        return semantic, res
+
+    def _pack_delta(self, restructured: Dict[str, RestructuredGraph],
+                    fp_new: str, stale: Dict
+                    ) -> Tuple[Dict[str, object],
+                               Dict[str, Tuple[int, int]]]:
+        """Pack stage of ``apply_delta``: block splice against the stale
+        packing where one exists, full pack otherwise."""
+        cfg = self.config
+        out: Dict[str, object] = {}
+        spliced: Dict[str, Tuple[int, int]] = {}
+        for mp, rg in restructured.items():
+            pk = self.cache.get_packed(
+                fp_new, mp, cfg.degree_order, cfg.affinity, cfg.renumbered)
+            if pk is None:
+                old_pk = stale.get(("pkd", mp, cfg.degree_order,
+                                    cfg.affinity, cfg.renumbered))
+                old_rg = stale.get(("rst", mp, cfg.degree_order,
+                                    cfg.affinity))
+                if old_pk is not None and old_rg is not None:
+                    pk, reused, total = rg.packed_delta(
+                        old_rg, old_pk, renumbered=cfg.renumbered)
+                    spliced[mp] = (reused, total)
+                else:
+                    pk = rg.packed(renumbered=cfg.renumbered)
+                self.cache.put_packed(
+                    fp_new, mp, cfg.degree_order, cfg.affinity,
+                    cfg.renumbered, pk)
+            out[mp] = pk
+        return out, spliced

@@ -41,10 +41,12 @@ Serving has three layers:
   queue reaches ``batch_max_size`` or when the earliest queued deadline
   would expire mid-window (a request is never held past its SLO).
   ``swap_params()`` atomically installs freshly trained parameters into a
-  live registration, bumping a version stamped on every response.
-  ``swap_graph()`` (a topology delta) raises ``NotImplementedError``
-  until incremental graphs are ported (ROADMAP item M7), and so does
-  ``register(..., device_group=)`` until sharded execution is (M9).
+  live registration, bumping a version stamped on every response, and
+  ``swap_graph()`` installs a ``GraphDelta``-mutated topology the same way
+  (``Session.compile_delta``: cache migration, incremental SGB, the
+  block-splice repack).  ``register(..., device_group=)`` raises
+  ``NotImplementedError`` until sharded execution is ported (ROADMAP item
+  M9).
 
 ``register()`` returns a :class:`TenantHandle` — the per-tenant surface
 (``submit`` / ``swap_params`` / ``swap_graph`` / ``stats``) that replaces
@@ -110,6 +112,7 @@ from repro_torch.api.session import (CompiledHGNN, Session, canonical_node_ids,
                                      device_features)
 from repro_torch.api.spec import ExecutorSpec, ServePolicy
 from repro_torch.core.hgnn.models import HGNNConfig
+from repro_torch.hetero.delta import GraphDelta
 from repro_torch.hetero.graph import HetGraph
 from repro_torch.serve.faults import FaultInjector, is_transient
 
@@ -452,12 +455,28 @@ class TenantHandle:
         """
         return self.engine._do_swap_params(self.name, params)
 
-    def swap_graph(self, delta, *, warm: bool = False) -> int:
-        """Install a delta-mutated topology: not ported yet.
+    def swap_graph(self, delta: GraphDelta, *, warm: bool = False) -> int:
+        """Atomically install a delta-mutated topology; returns the
+        bumped version.
 
-        Raises ``NotImplementedError``: graph deltas (``GraphDelta``,
-        ``Session.compile_delta``, the splice repack and the extractor's
-        memo migration) are ROADMAP item M7.
+        The delta flows through the session's incremental frontend path
+        (``Session.compile_delta``): warm cache entries for untouched
+        metapaths migrate in place (their packings and device copies with
+        them), touched semantic graphs recompose incrementally, packings
+        splice, and the successor shares the dependency forward's
+        signature set — requests whose closures keep their bucket
+        signature add no new dependency trace.  In-flight groups are
+        unaffected: serving snapshots ``(compiled, features, params,
+        version)`` atomically, so each group runs entirely pre- or
+        entirely post-swap.  ``warm=True`` additionally runs one full
+        forward on the successor before installing it (the spliced
+        packings' row views are built and uploaded then, not on the first
+        request).
+
+        Example::
+
+            delta = GraphDelta.insert("PS", src, dst)
+            v = handle.swap_graph(delta)
         """
         return self.engine._do_swap_graph(self.name, delta, warm=warm)
 
@@ -680,19 +699,67 @@ class HGNNServeEngine:
         )
         return self._do_swap_params(name, params)
 
-    def _do_swap_graph(self, name: str, delta, *, warm: bool = False) -> int:
-        """Topology hot-swap (``TenantHandle.swap_graph`` and the deprecated
-        string-keyed shim): raises ``NotImplementedError`` until graph
-        deltas are ported (ROADMAP item M7)."""
-        raise NotImplementedError(
-            f"swap_graph({name!r}, ...) needs graph deltas (GraphDelta, "
-            "Session.compile_delta), not ported yet: ROADMAP item M7")
+    def _do_swap_graph(self, name: str, delta: GraphDelta, *, warm: bool = False) -> int:
+        """Apply a ``GraphDelta`` to a live registration and return the
+        bumped version (the implementation behind
+        ``TenantHandle.swap_graph`` and the deprecated string-keyed
+        shim).
 
-    def swap_graph(self, name: str, delta, *, warm: bool = False) -> int:
+        The heavy work — ``Session.compile_delta``'s cache migration,
+        incremental SGB, splice repack, and successor compile, and the
+        warm forward — runs *outside* the engine lock; the installation of
+        ``(graph, compiled, features, fingerprint, version)`` is one
+        atomic update under it.  Serving snapshots the same tuple
+        atomically per group, so every group runs entirely pre- or
+        entirely post-swap and in-flight futures still resolve.  The
+        successor's uploads and the loop's launches share the device's
+        default stream, so they stay ordered.  A concurrent
+        ``swap_graph`` on the same registration loses the race and raises
+        ``RuntimeError`` (its delta was computed against a superseded
+        topology).
+
+        Feature tensors are carried over unchanged unless the delta adds
+        vertices (then the successor graph's zero-extended features are
+        uploaded to the model's device).  Like ``swap_params``, a
+        successful topology swap resets the circuit breaker.
+        """
+        with self._lock:
+            reg = self._registered.get(name)
+            if reg is None:
+                raise KeyError(
+                    f"graph {name!r} not registered " f"(have {sorted(self._registered)})"
+                )
+            graph, compiled, params = reg.graph, reg.compiled, reg.params
+        successor, new_graph, _ = self.session.compile_delta(compiled, graph, delta)
+        if delta.add_vertices:
+            feats = device_features(new_graph, successor.device)
+        else:
+            feats = reg.features
+        if warm:
+            _synchronize(successor.forward(params, feats))
+        with self._lock:
+            if reg.compiled is not compiled:
+                raise RuntimeError(
+                    f"registration {name!r}: a concurrent swap_graph "
+                    f"superseded this delta's base topology"
+                )
+            reg.graph = new_graph
+            reg.compiled = successor
+            reg.features = feats
+            reg.fingerprint = successor.fingerprint
+            reg.version += 1
+            reg.breaker.record_success()  # fresh topology: breaker resets
+            return reg.version
+
+    def swap_graph(self, name: str, delta: GraphDelta, *, warm: bool = False) -> int:
         """Deprecated string-keyed shim: use
         ``TenantHandle.swap_graph(delta)`` instead (the handle is what
-        ``register`` returns).  Like it, raises ``NotImplementedError``
-        after the warning (graph deltas are ROADMAP item M7)."""
+        ``register`` returns).
+
+        Example::
+
+            v = handle.swap_graph(GraphDelta.insert("PS", src, dst))
+        """
         warnings.warn(
             "HGNNServeEngine.swap_graph(name, delta) is deprecated; "
             "use the TenantHandle returned by register(): "

@@ -869,3 +869,157 @@ def test_subset_forwards_on_the_card(cuda_device, executor, model):
         assert torch.equal(head, rows)
     else:
         np.testing.assert_allclose(head.cpu().numpy(), rows.cpu().numpy(), atol=1e-5)
+
+
+# ----------------------------------------------------------- graph deltas ---
+def _spliced_case(rng, kind):
+    """A scheduled stream packed on the card (its views built and uploaded
+    first), an edited stream, and the splice of the two: ``(old, spliced,
+    fresh)``, ``fresh`` a cold packing of the edited stream."""
+    from repro_torch.kernels.seg_sum import splice_pack_edge_blocks
+
+    ns, nd, ne = 3000, 2000, 60000
+    src, dst = _edges(rng, ns, nd, ne)
+    old = pack_edge_blocks(src, dst, ns, nd)
+    old.device_blocked("cuda"), old.device_src_edges("cuda")
+    i = int(rng.integers(0, ne // 2))
+    j = i if kind == "insert" else i + 500
+    k = 0 if kind == "remove" else 400
+    ns2, nd2 = (ns + 300, nd + 200) if kind == "grow" else (ns, nd)
+    new_src = np.concatenate([src[:i], rng.integers(0, ns2, k), src[j:]])
+    new_dst = np.concatenate([dst[:i], rng.integers(0, nd2, k), dst[j:]])
+    spliced, _, _ = splice_pack_edge_blocks(new_src, new_dst, src, dst, old, ns2, nd2)
+    return old, spliced, pack_edge_blocks(new_src, new_dst, ns2, nd2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["insert", "remove", "grow"])
+def test_na_kernels_over_a_spliced_packing(cuda_device, kind):
+    """K1 and K2 over a spliced packing (the old packing's views already on
+    the card) against their plain versions, and bitwise equal to the same
+    kernels over a cold packing of the edited stream."""
+    rng = np.random.default_rng(17)
+    old, spliced, fresh = _spliced_case(rng, kind)
+    assert "_device" not in vars(spliced)
+    h = torch.from_numpy(rng.standard_normal((spliced.num_src, 64)).astype(np.float32)).to(
+        cuda_device)
+    w = torch.from_numpy(rng.random(spliced.src_local.shape).astype(np.float32)).to(
+        cuda_device)
+    for weights in (None, w):
+        got = seg_sum_na(spliced, h, weights)
+        want = seg_sum_plain(spliced, h, weights)
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   atol=1e-4, rtol=1e-4)
+        assert got.shape == (spliced.num_dst, 64)
+        assert torch.equal(got, seg_sum_na(fresh, h, weights))
+    lb = torch.from_numpy((rng.standard_normal(spliced.src_local.shape) * 3)
+                          .astype(np.float32)).to(cuda_device)
+    m, s = edge_softmax_stats(spliced, lb)
+    m_p, s_p = softmax_stats_plain(spliced, lb)
+    np.testing.assert_allclose(m.cpu().numpy(), m_p.cpu().numpy(), rtol=1e-6)
+    np.testing.assert_allclose(s.cpu().numpy(), s_p.cpu().numpy(), atol=1e-5, rtol=1e-5)
+    m_f, s_f = edge_softmax_stats(fresh, lb)
+    assert torch.equal(m, m_f) and torch.equal(s, s_f)
+
+
+def _delta_sessions(cuda_device, model, kind):
+    """A card session compiled on ACM (scale 0.3), warmed by one forward,
+    then moved by ``compile_delta`` to a seeded delta; and a cold card
+    compile of the mutated graph."""
+    from repro_torch.api import ExecutorSpec, Session, device_features
+    from repro_torch.core.hgnn import HGNNConfig
+    from repro_torch.hetero import GraphDelta, make_dataset
+
+    g = make_dataset("ACM", scale=0.3)
+    rng = np.random.default_rng(4)
+    if kind == "insert":
+        ps = g.relations["PS"]
+        delta = GraphDelta.insert("PS", rng.integers(0, ps.num_src, 16),
+                                  rng.integers(0, ps.num_dst, 16))
+    else:  # vertex growth
+        n_p = g.num_vertices["P"]
+        delta = GraphDelta(add_edges={"PA": (np.repeat(np.arange(n_p, n_p + 8), 3),
+                                             rng.integers(0, g.num_vertices["A"], 24))},
+                           add_vertices={"P": 8})
+    targets = ["APA", "PAP", "PSP"]
+    cfg = HGNNConfig(model=model, hidden=32, num_layers=2, target_type="P")
+    sess = Session(ExecutorSpec(na_executor="banded"))
+    c1 = sess.compile(g, targets, cfg)
+    params = c1.init(0)
+    c1.forward(params, device_features(g, cuda_device))
+    c2, g2, dres = sess.compile_delta(c1, g, delta)
+    cold = Session(ExecutorSpec(na_executor="banded")).compile(g2, targets, cfg)
+    return c1, c2, cold, g2, params, dres
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["rgcn", "rgat"])
+@pytest.mark.parametrize("kind", ["insert", "grow"])
+def test_compile_delta_forward_on_the_card_is_bitwise_a_cold_compile(cuda_device, model, kind):
+    """The successor's forward on the card, over spliced packings whose
+    predecessors' views were uploaded, is bitwise a cold compile's and
+    launches K1 and K2 as often; untouched packings are the same objects."""
+    from repro_torch.api import device_features
+    from repro_torch.kernels.edge_softmax import edge_softmax_stats as k2
+
+    c1, c2, cold, g2, params, dres = _delta_sessions(cuda_device, model, kind)
+    assert dres.spliced
+    for a, b, old in zip(c2.graphs, cold.graphs, c1.graphs):
+        for f in ("src_local", "dst_local", "band", "dst_tile", "count"):
+            np.testing.assert_array_equal(getattr(a.packed, f), getattr(b.packed, f))
+        assert (a.packed is old.packed) == (a.metapath not in dres.touched)
+    feats = device_features(g2, cuda_device)
+    counts = []
+    for c in (c2, cold):
+        k1_0, k2_0 = seg_sum_na.launches, k2.launches
+        out = c.forward(params, feats)
+        torch.cuda.synchronize()
+        counts.append((seg_sum_na.launches - k1_0, k2.launches - k2_0))
+        if c is c2:
+            got = out
+    assert counts[0] == counts[1] == (6, 0 if model == "rgcn" else 6)
+    assert torch.equal(got, out)
+    assert got.shape == (g2.num_vertices["P"], 3) and bool(torch.isfinite(got).all())
+
+
+@pytest.mark.cuda
+def test_swap_graph_with_vertex_growth_serves_on_the_card(cuda_device):
+    """A tenant served on the card takes a delta that grows P: features are
+    re-uploaded to the card, the new vertices' rows are served, and rows
+    are bitwise a cold card compile's."""
+    from repro_torch.api import ExecutorSpec, Session, device_features
+    from repro_torch.core.hgnn import HGNNConfig
+    from repro_torch.hetero import GraphDelta, make_dataset
+    from repro_torch.serve import HGNNRequest, HGNNServeEngine
+
+    g = make_dataset("ACM", scale=0.3)
+    targets = ["APA", "PAP", "PSP"]
+    cfg = HGNNConfig(model="rgat", hidden=32, num_layers=2, target_type="P")
+    eng = HGNNServeEngine(spec=ExecutorSpec(na_executor="banded"))
+    acm = eng.register("acm", g, targets, cfg, seed=0)
+    n_p = g.num_vertices["P"]
+    rng = np.random.default_rng(9)
+    delta = GraphDelta(add_edges={"PA": (np.repeat(np.arange(n_p, n_p + 8), 3),
+                                         rng.integers(0, g.num_vertices["A"], 24))},
+                       add_vertices={"P": 8})
+    ids = np.array([0, n_p + 7, n_p + 1])
+    eng.run()
+    try:
+        before = acm.submit(HGNNRequest(0, nodes=np.array([0, 1])))
+        assert acm.swap_graph(delta, warm=True) == 2
+        after = acm.submit(HGNNRequest(1, nodes=ids))
+        whole = acm.submit(HGNNRequest(2))
+        rows = after.result(timeout=120)
+        full = whole.result(timeout=120)
+        assert before.result(timeout=120).params_version == 1
+    finally:
+        eng.stop()
+    assert rows.params_version == full.params_version == 2
+    feats = eng._registered["acm"].features
+    assert feats["P"].device.type == "cuda" and feats["P"].shape[0] == n_p + 8
+    g2 = g.apply_delta(delta)
+    cold = Session(ExecutorSpec(na_executor="banded")).compile(g2, targets, cfg)
+    want = cold.forward(eng._registered["acm"].params,
+                        device_features(g2, cuda_device)).cpu().numpy()
+    np.testing.assert_array_equal(full.logits, want)
+    np.testing.assert_array_equal(rows.logits, want[ids])

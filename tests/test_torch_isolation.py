@@ -47,7 +47,8 @@ def test_import_closure_is_free_of_jax_and_repro():
                 "repro_torch.serve.engine", "repro_torch.launch.serve",
                 "repro_torch.core.subgraph", "repro_torch.serve",
                 "repro_torch.serve.hgnn", "repro_torch.serve.faults",
-                "repro_torch.pipeline.frontend", "repro_torch.train",
+                "repro_torch.pipeline.frontend", "repro_torch.pipeline.cache",
+                "repro_torch.hetero.delta", "repro_torch.train",
                 "repro_torch.train.optim", "repro_torch.train.hgnn_step",
                 "repro_torch.train.checkpoint", "repro_torch.train.tree"):
         assert mod in res["imported"]

@@ -3,6 +3,7 @@ CPU: the analogues of the reference's serving cases in ``test_api.py``,
 ``test_serve_async.py``, ``test_serve_faults.py`` and
 ``test_serve_window.py`` — admission, backpressure, the loop, quotas,
 deadlines, the breaker, retries, degradation, ``swap_params`` versions,
+``swap_graph`` (rows bitwise a cold compile of the mutated graph),
 window results bitwise equal to per-request serving, and the chaos
 invariant (every admitted future resolves exactly once).
 
@@ -20,7 +21,7 @@ torch = pytest.importorskip("torch")
 from proptest import seeded_property  # noqa: E402
 from repro_torch.api import ExecutorSpec, ServePolicy, Session, device_features  # noqa: E402
 from repro_torch.core.hgnn import HGNNConfig  # noqa: E402
-from repro_torch.hetero import make_dataset  # noqa: E402
+from repro_torch.hetero import GraphDelta, make_dataset  # noqa: E402
 from repro_torch.pipeline import SemanticGraphCache  # noqa: E402
 from repro_torch.serve import (AdmissionError, CircuitOpen,  # noqa: E402
                                DeadlineExceeded, FaultInjector, HGNNRequest,
@@ -126,17 +127,18 @@ def test_register_shares_the_session_frontend(served):
 
 
 def test_unported_graph_deltas_and_device_groups_raise(served):
-    """swap_graph waits for graph deltas (M7), device_group for sharded
-    execution (M9)."""
+    """device_group waits for sharded execution (M9); swap_graph on an
+    unknown registration raises ``KeyError``, through the handle and
+    through the deprecated shim, which still warns."""
     eng = _engine(served)
     with pytest.raises(NotImplementedError, match="M9"):
         eng.register("pinned", served["graph"], TARGETS, _cfg(), device_group=[0])
     assert eng.registered == ["acm"]
-    with pytest.raises(NotImplementedError, match="M7"):
-        TenantHandle(eng, "acm").swap_graph(object())
+    with pytest.raises(KeyError, match="not registered"):
+        TenantHandle(eng, "nope").swap_graph(_tp_delta(served["graph"]))
     with pytest.warns(DeprecationWarning, match="TenantHandle"):
-        with pytest.raises(NotImplementedError, match="M7"):
-            eng.swap_graph("acm", object())
+        with pytest.raises(KeyError, match="not registered"):
+            eng.swap_graph("nope", _tp_delta(served["graph"]))
     assert TenantHandle(eng, "acm").version == 1
 
 
@@ -423,6 +425,149 @@ def test_tenant_handle_submit_stats_and_name_guard(served):
     assert st["version"] == 1 and st["fingerprint"] == acm.fingerprint
     assert st["served"] == 1 and st["submitted"] == 1
     assert acm.compiled is served["compiled"]
+
+
+# --------------------------------------------------------------- graph swap --
+def _tp_delta(graph, seed=0, k=3):
+    """A cheap off-metapath delta: TP feeds none of TARGETS, so the swap
+    migrates every cached product and recomposes nothing."""
+    rng = np.random.default_rng(seed)
+    tp = graph.relations["TP"]
+    return GraphDelta.insert("TP", rng.integers(0, tp.num_src, k),
+                             rng.integers(0, tp.num_dst, k))
+
+
+def _swap_engine(served, executor="jnp", policy=None):
+    """An engine over a session of its own (a swap migrates the session
+    cache's entries to the new fingerprint; the shared session stays as
+    the other tests found it)."""
+    sess = Session(ExecutorSpec(na_executor=executor, device="cpu"))
+    eng = HGNNServeEngine(session=sess, policy=policy)
+    handle = eng.register("acm", served["graph"], TARGETS, _cfg(), params=served["params"])
+    return eng, handle
+
+
+@pytest.mark.parametrize("executor", ["jnp", "banded"])
+@pytest.mark.parametrize("grow", [False, True])
+def test_swap_graph_bumps_version_and_serves_new_topology(served, executor, grow):
+    """An on-metapath delta (with vertex growth: features re-uploaded):
+    rows bitwise a cold compile of the mutated graph, the bumped version on
+    responses, the handle's fingerprint following the graph."""
+    eng, acm = _swap_engine(served, executor)
+    fp0 = acm.fingerprint
+    ps = served["graph"].relations["PS"]
+    rng = np.random.default_rng(11)
+    n_p = served["graph"].num_vertices["P"]
+    if grow:
+        delta = GraphDelta(add_edges={"PS": (np.arange(n_p, n_p + 4),
+                                             rng.integers(0, ps.num_dst, 4))},
+                           add_vertices={"P": 4})
+    else:
+        delta = GraphDelta.insert("PS", rng.integers(0, ps.num_src, 5),
+                                  rng.integers(0, ps.num_dst, 5))
+    feats0 = eng._registered["acm"].features
+    assert acm.swap_graph(delta, warm=True) == 2
+    assert acm.version == 2 and acm.fingerprint != fp0
+    g2 = served["graph"].apply_delta(delta)
+    assert acm.fingerprint == g2.fingerprint() == acm.compiled.fingerprint
+    feats = eng._registered["acm"].features
+    assert (feats is not feats0) == grow
+    assert feats["P"].shape[0] == g2.num_vertices["P"]
+    fut = acm.submit(HGNNRequest(0))  # nodes=None: full-graph rows
+    sub = acm.submit(HGNNRequest(1, nodes=np.array([n_p + 3 if grow else 7, 2])))
+    eng.step()
+    resp = fut.result(timeout=WAIT)
+    assert resp.params_version == 2 and sub.result(timeout=WAIT).params_version == 2
+    cold = Session(ExecutorSpec(na_executor=executor, device="cpu")).compile(
+        g2, TARGETS, _cfg())
+    want = cold.forward(served["params"], device_features(g2, "cpu")).numpy()
+    np.testing.assert_array_equal(resp.logits, want)
+    np.testing.assert_array_equal(sub.result(timeout=WAIT).logits,
+                                  want[[n_p + 3 if grow else 7, 2]])
+
+
+@pytest.mark.parametrize("executor", ["jnp", "banded"])
+def test_swap_graph_zero_new_dependency_traces_off_metapath(served, executor):
+    """An off-metapath delta changes no product: a dependency-mode group
+    after the swap adds no dependency trace and returns the same rows."""
+    eng, acm = _swap_engine(served, executor, ServePolicy(
+        subset_mode="dependency", subset_threshold=0.9))
+    ids = np.array([3, 1, 4], np.int64)
+    acm.submit(HGNNRequest(0, nodes=ids))
+    (before,) = eng.step()
+    assert before.mode == "dependency"
+    t0 = acm.compiled.dependency_traces
+    assert t0 > 0
+    assert acm.swap_graph(_tp_delta(served["graph"], seed=7)) == 2
+    acm.submit(HGNNRequest(1, nodes=ids))
+    (after,) = eng.step()
+    assert after.mode == "dependency" and after.params_version == 2
+    assert acm.compiled.dependency_traces == t0
+    np.testing.assert_array_equal(before.logits, after.logits)
+
+
+def test_swap_graph_mid_stream_futures_resolve_and_versions_monotone(served):
+    """swap_graph races the background loop: every future resolves, and
+    versions are non-decreasing in service order."""
+    eng, acm = _swap_engine(served)
+    versions, order_lock, futs = [], threading.Lock(), []
+
+    def _record(f):
+        with order_lock:
+            versions.append(f.result(timeout=WAIT).params_version)
+
+    stop_flag = threading.Event()
+
+    def _submitter():
+        rid = 0
+        while not stop_flag.is_set():
+            fut = acm.submit(HGNNRequest(rid, nodes=np.array([rid % 50])))
+            fut.add_done_callback(_record)
+            futs.append(fut)
+            rid += 1
+            time.sleep(0.002)
+
+    eng.run()
+    t = threading.Thread(target=_submitter)
+    t.start()
+    try:
+        graph, last = served["graph"], 1
+        for seed in range(2):
+            time.sleep(0.05)
+            delta = _tp_delta(graph, seed=seed)
+            last = acm.swap_graph(delta)
+            graph = graph.apply_delta(delta)
+    finally:
+        stop_flag.set()
+        t.join(timeout=WAIT)
+        eng.stop()
+    assert not t.is_alive() and last == 3 and acm.version == 3
+    assert [f.result(timeout=WAIT).rid for f in futs] == list(range(len(futs)))
+    assert len(versions) == len(futs) > 0
+    assert versions == sorted(versions) and all(1 <= v <= 3 for v in versions)
+
+
+def test_swap_graph_rejects_stale_base_topology(served):
+    """Deltas chain on the registration's current graph; a successor built
+    from a superseded base loses the install race with ``RuntimeError``,
+    and ``compile_delta`` refuses a graph that is not the model's."""
+    eng, acm = _swap_engine(served)
+    reg = eng._registered["acm"]
+    acm.swap_graph(_tp_delta(served["graph"], seed=1))
+    assert acm.swap_graph(_tp_delta(served["graph"], seed=2)) == 3
+    with pytest.raises(ValueError, match="fingerprint"):
+        eng.session.compile_delta(acm.compiled, served["graph"], _tp_delta(served["graph"]))
+    real = eng.session.compile_delta
+
+    def racing(compiled, graph, delta):
+        out = real(compiled, graph, delta)
+        reg.compiled = out[0]  # another swap installed first
+        return out
+
+    eng.session.compile_delta = racing
+    with pytest.raises(RuntimeError, match="superseded"):
+        acm.swap_graph(_tp_delta(reg.graph, seed=3))
+    assert acm.version == 3
 
 
 # ---------------------------------------------------------- fault injector --
