@@ -68,13 +68,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    deadline sheds or breaker trips; subset and full rows bitwise equal to
    the card's ``compiled.forward`` rows, dependency rows within 1e-4 of
    them, and every row within 1e-4 of the same requests served on the CPU;
-   one dependency forward launches K1 layers x semantic graphs times (and
-   K2 never); ``subset_traces`` and ``dependency_traces`` stay flat across
+   one dependency forward launches K1 layers x semantic graphs times, and
+   K2 as often for rgat (never for rgcn); a second dependency forward is
+   bitwise the first, and the same check must fire on a copy of it with
+   one entry nudged by one ulp; ``subset_traces`` and ``dependency_traces`` stay flat across
    resubmissions in one bucket; K1 over each semantic graph's sliced
    packing of one request's extraction within K1's tolerance of
    ``seg_sum_plain`` and bitwise repeatable, while a fault planted in the
    same run (the slice's row view without its largest work item) reads
-   above that gate.  Printed: p50 / p99 latency, queue and compute
+   above that gate; K2 over the rgat tenant's slices against
+   ``softmax_stats_plain`` (``m`` bitwise, ``s`` within 1e-5), repeatable,
+   with event and queue-full medians.  Printed: p50 / p99 latency, queue and compute
    microseconds per mode, requests/s, the extractor's host ms, and K1's ms
    over the slice against its ms over the full packing, each beside the
    card's name and power limit.
@@ -101,14 +105,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    while ``swap_graph`` installs delta (a) and then an off-metapath TP
    insert on ACM: every future resolves, ACM's versions are monotone in
    service order, ACM rows bitwise the forward of the version that served
-   them, IMDB's within 1e-4 of its forward, and ``dependency_traces`` flat
-   across the off-metapath swap.  Printed, with the card's name and power
+   them, IMDB's within 1e-4 of its forward, ``dependency_traces`` flat
+   across the off-metapath swap and ACM rgat's dependency rows bitwise
+   equal across it (a copy nudged by one ulp must fail that check).  Printed, with the card's name and power
    limit: ``apply_delta``'s stage times beside a cold
    ``FrontendPipeline.run`` of the mutated graph, the splice's reused and
    total blocks, the host ms to rebuild each spliced packing's row view and
    work list and its upload ms, the first and warm successor forwards, the
    extractor's adopted entries, ``swap_graph``'s wall time and the queue of
    the requests in flight by wave.
+3e. Sharded execution: ``REPRO_TORCH_VIRTUAL_DEVICES=4``, so 4 ranks on the
+   one card.  ``Session(ExecutorSpec(na_executor="banded", shard=mode,
+   mesh_shape=(4,)))`` compiles full-width ACM (scale 1.0, APA / PAP / PSP,
+   hidden 64, 3 layers) for rgcn, rgat and shgn in modes ``relation`` and
+   ``edge_block``, and IMDB rgat in ``edge_block``; each plan's
+   ``summary()`` is printed.  Gates per case: logits within 1e-4 of the
+   single-device card forward (whether bitwise is printed), within 1e-4 of
+   the CPU sharded run, two forwards bitwise equal, K1 launched once per
+   non-empty rank and layer (K2 as often for rgat and shgn), the counts set
+   to 0 just before the forward and read just after, ``shard_traces == 1``;
+   a planted fault in the same run (the lightest non-empty rank dropped from
+   the sum) must read above 1e-4.  K1 and K2 over the largest rank's
+   merged stream of ACM's edge_block plan go through phase 2's checks, with
+   queue-full medians.  An ``HGNNServeEngine`` with ACM rgcn pinned to
+   ``device_group=[0, 1]`` and ACM rgat to ``[2, 3]`` serves a burst (id
+   subsets and whole-graph requests): every request answered, rows within
+   1e-4 of the unsharded card forwards.  Printed: event medians of the
+   sharded and single-device forwards, with the card's name and limit.
 4. SGB: ACM, IMDB and DBLP at scale 1.0 under the ``ctt`` planner.  The
    host join and the device composer (K3) must give bitwise-equal products
    and equal per-step costs, K3 must launch once per plan step, and on
@@ -188,8 +211,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    control.
 9. Report: one JSON line ``{"kernels": [...]}`` (K1 and K2 with their
    launches per train step by model, K1 with its launches in one
-   dependency forward, a row for K1 over phase 3c's sliced packings, and
-   rows for K1 and K2 over phase 3d's spliced packing),
+   dependency forward, rows for K1 and K2 over phase 3c's sliced packings,
+   rows for K1 and K2 over phase 3d's spliced packing and rows for K1 and
+   K2 over phase 3e's largest merged shard stream),
    the card line, and last the contract line ``{"ok": true, "device":
    {...}}``.
 
@@ -291,6 +315,10 @@ DELTA_MODELS = ("rgcn", "rgat")
 # every array of a PackedEdges the row views and the kernels derive from
 PACKED_FIELDS = ("src_local", "dst_local", "band", "dst_tile", "first_in_tile",
                  "count", "edge_block_id", "edge_slot")
+SHARD_RANKS = 4  # phase 3e's ranks (REPRO_TORCH_VIRTUAL_DEVICES), all on the one card
+SHARD_MODES = ("relation", "edge_block")
+SHARD_GROUPS = {"acm-rgcn": ("rgcn", [0, 1]), "acm-rgat": ("rgat", [2, 3])}  # pinned tenants
+SHARD_SERVE_PER_TENANT = 12  # phase 3e's burst: requests a tenant, the last 2 whole-graph
 PREFILL_32K = 32768
 SGB_WORKLOADS = {  # dataset -> SGB targets, composed at scale 1.0
     "ACM": ["APA", "PAP", "PSP"],
@@ -989,6 +1017,57 @@ def k1_over_slice(sub, compiled, label: str, dev) -> dict:
     return rows
 
 
+def k2_over_slice(sub, compiled, label: str, dev) -> list:
+    """K2 over each semantic graph's sliced packing of one extraction,
+    random logits: ``m`` bitwise and ``s`` within ``K2_RTOL`` of
+    ``softmax_stats_plain``, bitwise repeatable, event and queue-full
+    medians beside the plain version and the library yardstick."""
+    from repro_torch.kernels.edge_softmax import (NEG, edge_softmax_stats,
+                                                  softmax_stats_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = []
+    for g, dg in zip(compiled.graphs, sub.arrays["graphs"]):
+        pk = dg["packed"]
+        logits = torch.randn(pk.src_local.shape, device=dev, generator=gen) * 3
+        (m, s), (m2, s2) = edge_softmax_stats(pk, logits), edge_softmax_stats(pk, logits)
+        mr, sr = softmax_stats_plain(pk, logits)
+        torch.cuda.synchronize()
+        es_rel = ((s - sr).abs() / sr.abs().clamp(min=1.0)).max().item()
+        db = pk.device_blocked(dev)
+        dst_e, l_e = db["edge_dst"], logits[db["edge_blk"], db["edge_slot"]]
+
+        def library():
+            mm = torch.full((pk.num_dst,), NEG, device=dev).scatter_reduce_(
+                0, dst_e, l_e, "amax")
+            return mm, torch.zeros(pk.num_dst, device=dev).index_add_(
+                0, dst_e, torch.exp(l_e - mm[dst_e]))
+
+        e, nb = pk.num_edges, pk.num_blocks
+        nbytes = e * (2 + 4) + nb * 8 + (pk.num_dst_tiles + 1) * 4 + pk.num_dst * 8
+        t_bound, by = bound(nbytes, 6.0 * e)
+        row = {"metapath": g.metapath, "edges": e, "blocks": nb, "rows": pk.num_dst,
+               "max_abs_err": max((m - mr).abs().max().item(), (s - sr).abs().max().item()),
+               "s_rel_err": es_rel, "m_bitwise": torch.equal(m, mr),
+               "bitwise_repeat": torch.equal(m, m2) and torch.equal(s, s2),
+               "ms": median_ms(lambda: edge_softmax_stats(pk, logits)),
+               "queued_ms": queued_ms(lambda: edge_softmax_stats(pk, logits)),
+               "plain_ms": median_ms(lambda: softmax_stats_plain(pk, logits), reps=10),
+               "library_ms": median_ms(library), "bound_ms": t_bound, "bound_by": by,
+               "bytes": nbytes}
+        print(f"K2 over {label} {g.metapath}'s slice: {e} edges, {nb} blocks; m bitwise "
+              f"{row['m_bitwise']}, s relative error {es_rel:.3e} (tolerance {K2_RTOL}), "
+              f"bitwise repeat {row['bitwise_repeat']}; kernel {row['ms']:.4f} ms "
+              f"(queue-full {row['queued_ms']:.4f}), plain {row['plain_ms']:.4f} ms, "
+              f"scatter_reduce + index_add_ {row['library_ms']:.4f} ms, bound "
+              f"{t_bound:.6f} ms ({by})")
+        require(row["m_bitwise"] and es_rel <= K2_RTOL,
+                f"K2 over {label} {g.metapath}'s slice disagrees with the plain version")
+        require(row["bitwise_repeat"], f"K2 over {label} {g.metapath}'s slice not repeatable")
+        rows.append(row)
+    return rows
+
+
 def phase_serving(graph, dev, card: str):
     """Phase 3c: ``HGNNServeEngine`` on the card at full width, two graphs and
     three tenants (ACM rgat head-only; IMDB rgcn and rgat over k-hop
@@ -1153,9 +1232,11 @@ def phase_serving(graph, dev, card: str):
           f"max|card - cpu| {cpu_err:.3e} (tolerance {LOGIT_ATOL})")
     require(cpu_err <= LOGIT_ATOL, "served card rows disagree with the CPU's")
 
-    # K1 launches of one dependency forward, and its rows
+    # K1 and K2 launches of one dependency forward, its rows, and a second
+    # forward bit for bit (no float atomics on the dependency path); the
+    # bitwise check must fire on a copy of the second nudged by one ulp
     fresh = np.unique(np.random.default_rng(SEED + 1).integers(0, n_target["imdb"], size=64))
-    dep_launches = {}
+    dep_launches, dep_k2 = {}, {}
     for name in ("imdb-rgcn", "imdb-rgat"):
         c = handles[name].compiled
         c.dependency_subset(fresh)  # extraction and upload outside the count
@@ -1164,14 +1245,25 @@ def phase_serving(graph, dev, card: str):
         out = c.forward_subset(params[name], feats["imdb"], fresh, mode="dependency")
         torch.cuda.synchronize()
         want_k1 = c.cfg.num_layers * len(c.graphs)
+        want_k2 = 0 if c.cfg.model == "rgcn" else want_k1
         dep_launches[name] = seg_sum_na.launches
+        dep_k2[name] = edge_softmax_stats.launches
         err = float(np.abs(out.cpu().numpy() - full[name][fresh]).max())
+        again = c.forward_subset(params[name], feats["imdb"], fresh, mode="dependency")
+        nudged = again.clone()
+        nudged[0, 0] = torch.nextafter(nudged[0, 0], torch.tensor(np.inf, device=dev))
+        fired = not torch.equal(out, nudged)
         print(f"serve {name}: one dependency forward over {fresh.size} ids launched K1 "
-              f"{seg_sum_na.launches} times (layers x semantic graphs = {want_k1}), K2 "
-              f"{edge_softmax_stats.launches}; max|rows - forward| {err:.3e}")
-        require(seg_sum_na.launches == want_k1 and edge_softmax_stats.launches == 0,
-                f"{name}: a dependency forward launched K1 {seg_sum_na.launches} times")
+              f"{dep_launches[name]} times (layers x semantic graphs = {want_k1}), K2 "
+              f"{dep_k2[name]} (want {want_k2}); max|rows - forward| {err:.3e}; a second "
+              f"forward bitwise equal {torch.equal(out, again)}, the check on a one-ulp "
+              f"nudge fires {fired}")
+        require(dep_launches[name] == want_k1 and dep_k2[name] == want_k2,
+                f"{name}: a dependency forward launched K1 {dep_launches[name]} and K2 "
+                f"{dep_k2[name]} times")
         require(err <= LOGIT_ATOL, f"{name}: dependency rows disagree with the forward")
+        require(torch.equal(out, again), f"{name}: dependency rows do not repeat bit for bit")
+        require(fired, f"{name}: the bitwise check missed a one-ulp nudge")
 
     # the counters stay flat across resubmissions in one bucket
     c_acm = handles["acm-rgat"].compiled
@@ -1233,7 +1325,31 @@ def phase_serving(graph, dev, card: str):
         "slices": slice_rows, "extractor_host_ms": ext_ms,
     }
     require(row["launches"] > 0, "K1 never launched on the serving path")
-    return row, dep_launches, layers
+    k2_rows = k2_over_slice(handles["imdb-rgat"].compiled.dependency_subset(one),
+                            handles["imdb-rgat"].compiled, "IMDB", dev)
+    e = sum(r["edges"] for r in k2_rows)
+    t_bytes = sum(r["bytes"] for r in k2_rows) / HBM_BYTES_PER_S * 1e3
+    t_ops = 6.0 * e / FP32_FLOP_PER_S * 1e3
+    k2_row = {
+        "name": "edge_softmax_stats (dependency slice)", "route": "cuda",
+        "source": "src/repro_torch/csrc/na_kernels.cu",
+        "replaces": "src/repro/kernels/edge_softmax.py:32",
+        "launches": launches["edge_softmax_stats"],
+        "launches_dependency_forward": dep_k2,
+        "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
+        "ms": sum(r["ms"] for r in k2_rows),
+        "plain_ms": sum(r["plain_ms"] for r in k2_rows),
+        "bound_ms": sum(r["bound_ms"] for r in k2_rows),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": sum(r["library_ms"] for r in k2_rows),
+        "queued_ms": sum(r["queued_ms"] for r in k2_rows),
+        "shape": f"IMDB scale 1.0, one request's {one.size}-id extraction over "
+                 f"{len(k2_rows)} semantic graphs (times summed)",
+        "slices": k2_rows,
+    }
+    require(k2_row["launches"] > 0 and dep_k2["imdb-rgat"] > 0,
+            "K2 never launched on the serving path's dependency forwards")
+    return [row, k2_row], dep_launches, layers
 
 
 def graph_deltas(graph) -> dict:
@@ -1555,7 +1671,7 @@ def phase_deltas(graph, imdb_layers: int, dev, card: str):
     swap_waves = {2: ("insert", deltas["insert"]), 5: ("off-metapath TP", None)}
     reqs, futs, served, order_lock, swap_ms = {}, [], [], threading.Lock(), {}
     dep_ids = np.unique(rng.integers(0, n_target["acm-rgat"], size=6))
-    dep_flat, adopted, dep_moved = [], None, None
+    dep_flat, adopted, dep_moved, dep_fault_fired = [], None, None, None
 
     def record(f):
         with order_lock:
@@ -1599,11 +1715,18 @@ def phase_deltas(graph, imdb_layers: int, dev, card: str):
                     after_rows = acm.compiled.forward_subset(p_acm, feats_now, dep_ids,
                                                              mode="dependency")
                     dep_flat.append(acm.compiled.dependency_traces)
-                    # the attention subset sums by index_add_ (float atomics on
-                    # the card), so dependency rows repeat within 1e-4, not bitwise
+                    # the attention subset runs K2 and K1 (no float atomics),
+                    # so its rows repeat bit for bit across the swap; the check
+                    # must fire on a copy nudged by one ulp
                     dep_moved = (before_rows - after_rows).abs().max().item()
-                    require(dep_moved <= LOGIT_ATOL, "dependency rows moved across the "
-                            "off-metapath swap")
+                    nudged = after_rows.clone()
+                    nudged[0, 0] = torch.nextafter(nudged[0, 0],
+                                                   torch.tensor(np.inf, device=dev))
+                    dep_fault_fired = not torch.equal(before_rows, nudged)
+                    require(torch.equal(before_rows, after_rows), "dependency rows "
+                            f"moved across the off-metapath swap by {dep_moved:.3e}")
+                    require(dep_fault_fired, "the bitwise check on the swap's dependency "
+                            "rows missed a one-ulp nudge")
             time.sleep(SERVE_WAVE_GAP_S)
         responses = [f.result(timeout=300) for f in futs]
         whole = []
@@ -1645,7 +1768,8 @@ def phase_deltas(graph, imdb_layers: int, dev, card: str):
           f"{modes}, ACM versions served {sorted(set(acm_versions))}; swap_graph wall ms "
           f"{ {k: round(v, 2) for k, v in swap_ms.items()} }, the extractor adopted "
           f"{adopted} entry at the off-metapath swap; dependency_traces across the "
-          f"off-metapath swap {dep_flat}, its rows moved {dep_moved:.3e}; K1, K2 "
+          f"off-metapath swap {dep_flat}, its rows moved {dep_moved:.3e} (gate: bitwise; "
+          f"the check on a one-ulp nudge fires {dep_fault_fired}); K1, K2 "
           f"launches over the served run "
           f"{served_launches}; retries {st['retries']}, breaker fast-fails "
           f"{st['breaker_fastfails']}; IMDB dependency rows max|served - forward| "
@@ -1657,6 +1781,195 @@ def phase_deltas(graph, imdb_layers: int, dev, card: str):
           f"{sorted(swap_waves)}): " + "; ".join(
               f"{w}: {np.percentile(q, 50):.1f} / {np.percentile(q, 99):.1f}"
               for w, q in sorted(by_wave.items())) + f" ({card})")
+    return rows
+
+
+def drop_rank_forward(compiled, params, feats):
+    """Planted fault for phase 3e: a forward of a sharded compile with one
+    rank left out of the sum (its stream set to none for one call): the
+    lightest rank holding blocks of a semantic graph that ends at the
+    target type (APA's and AMA's outputs never reach the logits).  Returns
+    the logits and the rank dropped."""
+    ex = compiled._shard_exec
+    streams = ex.streams()
+    live = {s.device for s in compiled.shard_plan.slices
+            if s.metapath[-1] == compiled.cfg.target_type}
+    light = min((streams[r] for r in live), key=lambda st: st.packed.num_edges)
+    ex._streams = [None if st is light else st for st in streams]
+    try:
+        return compiled.forward(params, feats), light.rank
+    finally:
+        ex._streams = streams
+
+
+def phase_sharded(graph, dev, card: str) -> list:
+    """Phase 3e: sharded execution over ``SHARD_RANKS`` ranks on the one card
+    (``REPRO_TORCH_VIRTUAL_DEVICES``).  Full-width ACM rgcn, rgat and shgn in
+    both modes and IMDB rgat in edge_block mode, held to the single-device
+    card forward, the CPU sharded run and themselves; a dropped-rank fault;
+    K1 and K2 over the largest rank's merged stream; and an engine with two
+    tenants pinned to disjoint rank groups.  Returns the kernels line's
+    rows for K1 and K2 over the merged stream."""
+    import os
+
+    from repro_torch.api import ExecutorSpec, ServePolicy, Session, device_features
+    from repro_torch.core.hgnn import HGNNConfig
+    from repro_torch.hetero import make_dataset
+    from repro_torch.kernels.edge_softmax import edge_softmax_stats
+    from repro_torch.kernels.seg_sum import seg_sum_na
+    from repro_torch.launch.mesh import VIRTUAL_DEVICES_ENV
+    from repro_torch.serve import HGNNRequest, HGNNServeEngine
+
+    t_phase = time.perf_counter()
+    before_env = os.environ.get(VIRTUAL_DEVICES_ENV)
+    os.environ[VIRTUAL_DEVICES_ENV] = str(SHARD_RANKS)
+    try:
+        imdb = make_dataset("IMDB", seed=SEED, scale=1.0)
+        data = {"ACM": (graph, TARGETS, "P"), "IMDB": (imdb, IMDB_TARGETS, "M")}
+        feats = {ds: device_features(g, dev) for ds, (g, _, _) in data.items()}
+        feats_cpu = {ds: device_features(g, "cpu") for ds, (g, _, _) in data.items()}
+        single = Session(ExecutorSpec(na_executor="banded", device=str(dev)))
+        sess = {mode: Session(ExecutorSpec(na_executor="banded", device=str(dev), shard=mode,
+                                           mesh_shape=(SHARD_RANKS,)), cache=single.cache)
+                for mode in SHARD_MODES}
+        cpu = {mode: Session(ExecutorSpec(na_executor="banded", device="cpu", shard=mode,
+                                          mesh_shape=(SHARD_RANKS,)), cache=single.cache)
+               for mode in SHARD_MODES}
+        cases = [("ACM", mode, m) for mode in SHARD_MODES for m in MODELS]
+        cases.append(("IMDB", "edge_block", "rgat"))
+
+        def cfg(model, tt):
+            return HGNNConfig(model=model, hidden=64, num_layers=3, sf_att_dim=64,
+                              target_type=tt)
+
+        launched = {"seg_sum_na": 0, "edge_softmax_stats": 0}
+        plans = {}
+        for ds, mode, model in cases:
+            g, targets, tt = data[ds]
+            c = sess[mode].compile(g, targets, cfg(model, tt))
+            plan = c.shard_plan
+            if (ds, mode) not in plans:
+                plans[ds, mode] = plan
+                print(f"shard {ds} {mode}: plan {plan.summary()}")
+            params = c.init(SEED)
+            seg_sum_na.launches = 0
+            edge_softmax_stats.launches = 0
+            t0 = time.perf_counter()
+            got = c.forward(params, feats[ds])
+            torch.cuda.synchronize()
+            t_first = (time.perf_counter() - t0) * 1e3
+            once = (seg_sum_na.launches, edge_softmax_stats.launches)
+            again = c.forward(params, feats[ds])
+            torch.cuda.synchronize()
+            launched["seg_sum_na"] += seg_sum_na.launches
+            launched["edge_softmax_stats"] += edge_softmax_stats.launches
+            busy = int((plan.device_block_counts() > 0).sum())
+            want = (busy * 3, 0 if model == "rgcn" else busy * 3)
+            one_rank = single.compile(g, targets, cfg(model, tt))
+            ref = one_rank.forward(params, feats[ds])
+            err = (got - ref).abs().max().item()
+            cc = cpu[mode].compile(g, targets, cfg(model, tt))
+            cpu_err = (got.cpu() - cc.forward(cc.init(SEED), feats_cpu[ds])).abs().max().item()
+            bad, dropped = drop_rank_forward(c, params, feats[ds])
+            f_err = (bad - ref).abs().max().item()
+            t_shard = median_ms(lambda: c.forward(params, feats[ds]), reps=10, warmup=1)
+            t_single = median_ms(lambda: one_rank.forward(params, feats[ds]), reps=10, warmup=1)
+            print(f"shard {ds} {mode} {model}: logits {tuple(got.shape)}, bitwise equal to the "
+                  f"single-device card forward {torch.equal(got, ref)} (max|d| {err:.3e}, "
+                  f"tolerance {LOGIT_ATOL}); max|card - cpu sharded| {cpu_err:.3e}; repeat "
+                  f"bitwise {torch.equal(got, again)}; K1, K2 launches a forward {once} (want "
+                  f"{want}: {busy} non-empty ranks x 3 layers); shard_traces {c.shard_traces}; "
+                  f"planted fault (rank {dropped} dropped from the sum) max|d| {f_err:.3e}; "
+                  f"forward first {t_first:.2f} ms (host clock, builds the rank streams), "
+                  f"event median {t_shard:.3f} ms against {t_single:.3f} ms on one rank "
+                  f"({card})")
+            require(got.shape == (g.num_vertices[tt], 3) and bool(torch.isfinite(got).all()),
+                    f"shard {ds} {mode} {model}: logits")
+            require(err <= LOGIT_ATOL, f"shard {ds} {mode} {model}: sharded logits disagree "
+                    "with the single-device forward")
+            require(cpu_err <= LOGIT_ATOL, f"shard {ds} {mode} {model}: card and CPU disagree")
+            require(torch.equal(got, again), f"shard {ds} {mode} {model}: not repeatable")
+            require(once == want, f"shard {ds} {mode} {model}: launches {once}, want {want}")
+            require(c.shard_traces == 1, f"shard {ds} {mode} {model}: shard_traces "
+                    f"{c.shard_traces}")
+            require(f_err > LOGIT_ATOL, f"shard {ds} {mode} {model}: the dropped-rank fault "
+                    f"reads {f_err:.3e}, inside the gate")
+
+        # K1 and K2 over the largest rank's merged stream
+        c = sess["edge_block"].compile(graph, TARGETS, cfg("rgat", "P"))
+        big = max((st for st in c._shard_exec.streams() if st is not None),
+                  key=lambda st: st.packed.num_edges)
+        pk = big.packed
+        rows = na_kernels_on(pk, f"ACM edge_block rank {big.rank} merged stream", dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        h = torch.randn(pk.num_src, D, device=dev, generator=gen)
+        w = torch.rand(pk.src_local.shape, device=dev, generator=gen)
+        logits = torch.randn(pk.src_local.shape, device=dev, generator=gen) * 3
+        queued = {"seg_sum_na": queued_ms(lambda: seg_sum_na(pk, h, w)),
+                  "edge_softmax_stats": queued_ms(lambda: edge_softmax_stats(pk, logits))}
+        for r in rows:
+            kind = r["name"]
+            r["name"] = f"{kind} (merged shard stream)"
+            r["launches"] = launched[kind]
+            r["queued_ms"] = queued[kind]
+            r["plan"] = plans["ACM", "edge_block"].summary()
+            print(f"{r['name']}: queue-full {r['queued_ms']:.4f} ms, event {r['ms']:.4f} ms, "
+                  f"launches over phase 3e's sharded forwards {r['launches']} ({card})")
+            require(r["launches"] > 0, f"{kind} never launched on the sharded path")
+
+        # two tenants pinned to disjoint rank groups
+        eng = HGNNServeEngine(session=sess["edge_block"],
+                              policy=ServePolicy(batch_window_ms=SERVE_WINDOW_MS))
+        handles = {name: eng.register(name, graph, TARGETS, cfg(model, "P"), seed=SEED,
+                                      features=feats["ACM"], device_group=group)
+                   for name, (model, group) in SHARD_GROUPS.items()}
+        rng = np.random.default_rng(SEED + 4)
+        reqs, rid = {}, 0
+        eng.run()
+        try:
+            responses = []
+            for whole in (False, True):  # id subsets, then whole-graph requests
+                futs = []
+                for i in range(2 if whole else SHARD_SERVE_PER_TENANT - 2):
+                    wave = []
+                    for name in SHARD_GROUPS:
+                        ids = None if whole else rng.integers(
+                            0, graph.num_vertices["P"], size=int(rng.integers(4, 17)))
+                        reqs[rid] = (name, ids)
+                        wave.append(HGNNRequest(rid, name, nodes=ids))
+                        rid += 1
+                    futs += eng.submit(wave)
+                responses += [f.result(timeout=300) for f in futs]
+        finally:
+            eng.stop()
+        require(sorted(r.rid for r in responses) == list(range(rid)),
+                "a pinned tenant's request went unanswered")
+        worst, bitwise = 0.0, True
+        for name, (model, group) in SHARD_GROUPS.items():
+            comp = handles[name].compiled
+            require(comp.shard_plan.num_devices == len(group) and comp._devkey == tuple(group),
+                    f"{name} is not pinned to ranks {group}")
+        full = {name: single.compile(graph, TARGETS, cfg(model, "P")).forward(
+            eng._registered[name].params, feats["ACM"]).cpu().numpy()
+            for name, (model, _) in SHARD_GROUPS.items()}
+        for r in responses:
+            name, ids = reqs[r.rid]
+            want = full[name] if ids is None else full[name][ids]
+            worst = max(worst, float(np.abs(r.logits - want).max()))
+            bitwise = bitwise and np.array_equal(r.logits, want)
+        modes = sorted({r.mode for r in responses})
+        print(f"shard serving: tenants {dict(SHARD_GROUPS)} answered {len(responses)} of {rid} "
+              f"requests, modes {modes}; max|served - unsharded forward| {worst:.3e} "
+              f"(tolerance {LOGIT_ATOL}), bitwise {bitwise}; latency "
+              f"{percentiles([r.latency_us for r in responses])} ({card})")
+        require(worst <= LOGIT_ATOL, "pinned tenants' rows disagree with the unsharded forward")
+        require(modes == ["full", "subset"], f"pinned tenants served modes {modes}")
+    finally:
+        if before_env is None:
+            os.environ.pop(VIRTUAL_DEVICES_ENV, None)
+        else:
+            os.environ[VIRTUAL_DEVICES_ENV] = before_env
+    print(f"shard: phase 3e took {time.perf_counter() - t_phase:.1f} s of wall time")
     return rows
 
 
@@ -2537,15 +2850,17 @@ def main() -> int:
     train_launches = phase_train(graph, dblp, dev)
     for k in kernels:
         k["launches_train_step"] = {m: c[k["name"]] for m, c in train_launches.items()}
-    slice_row, dep_launches, imdb_layers = phase_serving(graph, dev, card)
+    slice_rows, dep_launches, imdb_layers = phase_serving(graph, dev, card)
     kernels[0]["launches_dependency_forward"] = dep_launches
     delta_rows = phase_deltas(graph, imdb_layers, dev, card)
+    shard_rows = phase_sharded(graph, dev, card)
     sgb_rows, sgb_dblp = phase_sgb(make_dataset, dev)
     session_launches = phase_device_session(make_dataset, dev)
     for k in kernels:
         k["launches_device_sgb_path"] = session_launches[k["name"]]
-    kernels.append(slice_row)
+    kernels.extend(slice_rows)
     kernels.extend(delta_rows)
+    kernels.extend(shard_rows)
     dblp = sgb_rows["DBLP"]  # the plan the device-SGB session runs
     t_ops = sum(r["ops"] for r in dblp) / INT8_OP_PER_S * 1e3
     t_bytes = sum(r["bytes"] for r in dblp) / HBM_BYTES_PER_S * 1e3

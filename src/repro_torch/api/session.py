@@ -16,6 +16,9 @@ over the ids' k-hop dependency closure (``core/subgraph.py``) — what the
 serving engine (``repro_torch.serve.HGNNServeEngine``) calls.
 ``sess.compile_delta(compiled, graph, delta)`` re-binds a compiled model to
 a ``GraphDelta``-mutated graph through the frontend's incremental path.
+On a sharded spec (``ExecutorSpec(shard=..., mesh_shape=...)``)
+``compile(..., devices=)`` builds a shard plan (memoized) and ``forward``
+runs the ``ShardedHGNNExecutor`` over the compile's ranks.
 
 ``compile`` runs the frontend (SGB -> Restructure -> packing, cache-served
 where possible; with ``sgb_backend="device"`` the SGB steps run on the
@@ -38,8 +41,11 @@ import torch
 from repro_torch.api.spec import ExecutorSpec
 from repro_torch.core.hgnn.models import HGNN, HGNNConfig
 from repro_torch.core.subgraph import DependencyExtractor, DependencySubset
+from repro_torch.distributed.hgnn import (ShardedHGNNExecutor, ShardPlan,
+                                          build_shard_plan)
 from repro_torch.hetero.delta import GraphDelta
 from repro_torch.hetero.graph import HetGraph
+from repro_torch.launch.mesh import device_pool
 from repro_torch.pipeline.cache import SemanticGraphCache
 from repro_torch.pipeline.frontend import (DeltaResult, FrontendPipeline,
                                            FrontendResult)
@@ -109,6 +115,9 @@ class SessionStats:
     ``frontend_runs`` counts pipeline passes that executed;
     ``frontend_served`` counts requests answered from the session's memo.
     Cache counters are cumulative for the session's ``SemanticGraphCache``.
+    ``shard`` is ``None`` on unsharded sessions; on sharded ones it sums
+    every memoized plan's per-rank loads, with their max-over-mean
+    ``load_balance``.
     """
 
     compiles: int
@@ -120,6 +129,7 @@ class SessionStats:
     cache_evictions: int
     cache_entries: int
     cache_nbytes: int
+    shard: Optional[Dict] = None
 
     @property
     def hit_rate(self) -> float:
@@ -139,17 +149,30 @@ class CompiledHGNN:
     Entry points run eagerly.  Where the reference counts ``jax.jit``
     traces (:attr:`subset_traces`, :attr:`dependency_traces`), the port
     counts the distinct bucket signatures first seen: the shapes a trace,
-    or a captured forward, would be keyed by.
+    or a captured forward, would be keyed by.  On a sharded compile
+    ``shard_plan`` is the plan and ``forward`` runs the
+    ``ShardedHGNNExecutor`` over the compile's ranks; the subset forwards
+    run the single-device banded path, as the reference's do.
     """
 
     def __init__(self, session: "Session", spec: ExecutorSpec, model: HGNN,
-                 frontend: FrontendResult, graphs: List, fingerprint: str):
+                 frontend: FrontendResult, graphs: List, fingerprint: str,
+                 shard_plan: Optional[ShardPlan] = None,
+                 devices: Optional[List[torch.device]] = None,
+                 devkey: Optional[Tuple] = None):
         self.session = session
         self.spec = spec
         self.model = model
         self.frontend = frontend
         self.graphs = graphs
         self.fingerprint = fingerprint
+        # sharded compiles: the plan (built by Session.compile, memoized),
+        # the ranks and their compile-cache key; the executor builds its
+        # streams on first forward
+        self.shard_plan = shard_plan
+        self._devices = devices
+        self._devkey = devkey
+        self._shard_exec: Optional[ShardedHGNNExecutor] = None
         self._extractor: Optional[DependencyExtractor] = None
         self._subset_buckets: set = set()
         self._dependency_signatures: set = set()
@@ -188,10 +211,27 @@ class CompiledHGNN:
 
             logits = compiled.forward(params, device_features(graph, "cuda"))
             assert logits.shape == (compiled.num_target, cfg.num_classes)
+
+        On a sharded compile the logits lie on the group's lead rank.
         """
+        if self.shard_plan is not None:
+            if self._shard_exec is None:
+                with self._build_lock:
+                    if self._shard_exec is None:
+                        self._shard_exec = ShardedHGNNExecutor(
+                            self.model, self.graphs, self.shard_plan,
+                            devices=self._devices)
+            return self._shard_exec.forward(params, features)
         with torch.inference_mode():
             return self.model.execute(params, features, self.graphs,
                                       na_executor=self.spec.na_executor)
+
+    @property
+    def shard_traces(self) -> int:
+        """How many times the sharded forward built its per-rank streams:
+        1 after any number of forwards on a sharded compile (0 before the
+        first, and on an unsharded one)."""
+        return self._shard_exec.traces if self._shard_exec is not None else 0
 
     @property
     def subset_traces(self) -> int:
@@ -410,10 +450,55 @@ class Session:
                                          cache=self.cache)
         self._frontends: Dict[Tuple[str, Tuple[str, ...]], FrontendResult] = {}
         self._compiled: Dict[Tuple, CompiledHGNN] = {}
+        self._shard_plans: Dict[Tuple, ShardPlan] = {}
         self._frontend_runs = 0
         self._frontend_served = 0
         self._compiles = 0
         self._compiles_cached = 0
+
+    # ------------------------------------------------------------ sharding --
+    def _resolve_devices(self, devices) -> Tuple[Optional[List[torch.device]], Optional[Tuple]]:
+        """The ranks of a sharded compile and their compile-cache key
+        (``(None, None)`` if the spec is unsharded).
+
+        ``devices`` may hold ``torch.device``s or integer indices into
+        ``device_pool(spec.device)`` (the serving engine pins tenants by
+        index); ``None`` takes the whole pool, truncated to
+        ``spec.mesh_shape``'s size when the spec fixes one.
+        """
+        if self.spec.shard == "none":
+            return None, None
+        pool = device_pool(self.spec.device)
+        if devices is None:
+            n = len(pool)
+            if self.spec.mesh_shape is not None:
+                n = int(np.prod(self.spec.mesh_shape))
+                if n > len(pool):
+                    raise ValueError(
+                        f"mesh_shape {self.spec.mesh_shape} needs {n} "
+                        f"devices, the pool has {len(pool)}")
+            return pool[:n], tuple(range(n))
+        devs, key = [], []
+        for d in devices:
+            if isinstance(d, (int, np.integer)):
+                devs.append(pool[int(d)])
+                key.append(int(d))
+            else:
+                devs.append(torch.device(d))
+                key.append(str(devs[-1]))
+        return devs, tuple(key)
+
+    def _shard_plan_for(self, fp: str, tkey: Tuple[str, ...], graphs: List,
+                        num_devices: int, feature_dim: int) -> ShardPlan:
+        """The shard plan for a fingerprinted set of banded batches over
+        ``num_devices`` ranks, built once and then served from the memo."""
+        pkey = (fp, tkey, self.spec.shard, num_devices, feature_dim)
+        plan = self._shard_plans.get(pkey)
+        if plan is None:
+            plan = build_shard_plan(graphs, num_devices, self.spec.shard,
+                                    feature_dim=feature_dim)
+            self._shard_plans[pkey] = plan
+        return plan
 
     def frontend(self, graph: HetGraph, targets: Sequence[str]) -> FrontendResult:
         """The frontend pass for ``(graph, targets)`` — run once per
@@ -429,15 +514,28 @@ class Session:
         return res
 
     def compile(self, graph: HetGraph, targets: Sequence[str],
-                cfg: HGNNConfig) -> CompiledHGNN:
+                cfg: HGNNConfig, *, devices=None) -> CompiledHGNN:
         """Bind a model to the cached frontend products for this graph.
 
         Compiling more models over the same ``(graph, targets)`` reuses
-        every frontend product; an identical ``(graph, targets, cfg)``
-        compile returns the same object.
+        every frontend product; an identical ``(graph, targets, cfg,
+        devices)`` compile returns the same object.
+
+        On a sharded spec the shard plan is built here (memoized by graph
+        fingerprint, targets, mode, rank count and hidden width, so every
+        model over the same products shares it), and ``devices``
+        optionally pins the compile to a group of ranks (``torch.device``s
+        or indices into ``device_pool(spec.device)``): the serving
+        engine's per-tenant pinning.  ``devices`` is rejected on an
+        unsharded spec.
         """
+        if devices is not None and self.spec.shard == "none":
+            raise ValueError(
+                "devices= requires a sharded spec (ExecutorSpec.shard is "
+                "'none'): an unsharded compile has no mesh to pin")
         fp = graph.fingerprint()
-        ckey = (fp, tuple(sorted(targets)), cfg)
+        devs, devkey = self._resolve_devices(devices)
+        ckey = (fp, tuple(sorted(targets)), cfg, devkey)
         self._compiles += 1
         hit = self._compiled.get(ckey)
         if hit is not None:
@@ -449,7 +547,11 @@ class Session:
         else:
             graphs = res.batches(self.spec.device)
         model = HGNN(cfg, graph.feature_dims, graph.num_vertices, sorted(targets))
-        compiled = CompiledHGNN(self, self.spec, model, res, graphs, fp)
+        plan = None
+        if devs is not None:
+            plan = self._shard_plan_for(fp, ckey[1], graphs, len(devs), cfg.hidden)
+        compiled = CompiledHGNN(self, self.spec, model, res, graphs, fp,
+                                shard_plan=plan, devices=devs, devkey=devkey)
         self._compiled[ckey] = compiled
         return compiled
 
@@ -470,7 +572,9 @@ class Session:
             bucket signature add nothing to :attr:`CompiledHGNN.
             dependency_traces`);
           * extractor memo entries whose closures no changed product edge
-            lands on (``DependencyExtractor.migrate_from``).
+            lands on (``DependencyExtractor.migrate_from``);
+          * on a sharded compile, its ranks: the successor replans (memoized
+            by the new fingerprint) over the predecessor's device group.
 
         Untouched metapaths keep their ``PackedEdges`` objects, device
         copies included; spliced ones are new objects whose row views the
@@ -501,7 +605,12 @@ class Session:
         cfg = compiled.cfg
         model = HGNN(cfg, new_graph.feature_dims, new_graph.num_vertices,
                      sorted(targets))
-        successor = CompiledHGNN(self, self.spec, model, res, graphs, fp_new)
+        devs = compiled._devices
+        plan = None
+        if devs is not None:
+            plan = self._shard_plan_for(fp_new, tkey, graphs, len(devs), cfg.hidden)
+        successor = CompiledHGNN(self, self.spec, model, res, graphs, fp_new,
+                                 shard_plan=plan, devices=devs, devkey=compiled._devkey)
         successor._dependency_signatures = compiled._dependency_signatures
         if compiled._extractor is not None:
             ext = DependencyExtractor(model, graphs, res.semantic,
@@ -513,7 +622,7 @@ class Session:
                              frozenset(dres.touched))
             successor._extractor = ext
         self._compiles += 1
-        self._compiled[(fp_new, tkey, cfg)] = successor
+        self._compiled[(fp_new, tkey, cfg, compiled._devkey)] = successor
         return successor, new_graph, dres
 
     def stats(self) -> SessionStats:
@@ -535,4 +644,31 @@ class Session:
             cache_evictions=cs.evictions,
             cache_entries=len(self.cache),
             cache_nbytes=self.cache.nbytes(),
+            shard=self._shard_stats(),
         )
+
+    def _shard_stats(self) -> Optional[Dict]:
+        """Per-rank edge-block, edge and MAC counts summed over every
+        memoized shard plan, and their max-over-mean edge load (``None``
+        when the spec is unsharded)."""
+        if self.spec.shard == "none":
+            return None
+        plans = list(self._shard_plans.values())
+        ndev = max((p.num_devices for p in plans), default=0)
+        blocks = np.zeros(ndev, np.int64)
+        edges = np.zeros(ndev, np.int64)
+        macs = np.zeros(ndev, np.int64)
+        for p in plans:
+            blocks[: p.num_devices] += p.device_block_counts()
+            edges[: p.num_devices] += p.device_edge_counts()
+            macs[: p.num_devices] += p.device_mac_counts()
+        total = int(edges.sum())
+        lb = float(edges.max() / (total / ndev)) if total else 1.0
+        return {
+            "mode": self.spec.shard,
+            "plans": len(plans),
+            "per_device_edge_blocks": blocks.tolist(),
+            "per_device_edges": edges.tolist(),
+            "per_device_macs": macs.tolist(),
+            "load_balance": lb,
+        }

@@ -7,8 +7,10 @@ launches the hand-written CUDA kernels, on ``"cpu"`` it runs their plain
 versions.  ``na_executor="jnp"`` keeps the reference's name for the
 segment-sum executor (plain PyTorch scatters over global edge lists).
 The other validation invariants stay: ``banded`` implies packing and
-requires ``restructure``, and unknown values raise ``ValueError``.  Values the port does not run yet raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+requires ``restructure``, and unknown values raise ``ValueError``.
+``shard`` (``"relation"`` or ``"edge_block"``, with the banded executor)
+runs the forward over a shard plan on a mesh of ranks
+(``repro_torch.distributed``); ``mesh_shape`` fixes the rank count.
 
 ``ServePolicy`` is the serving sibling (how ``HGNNServeEngine`` admits and
 batches requests): the reference's knobs, defaults and validation.
@@ -17,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -37,11 +39,16 @@ class ExecutorSpec:
     ``device`` is where the model runs (``"cuda"``, ``"cuda:N"`` or
     ``"cpu"``), and with ``sgb_backend="device"`` also where the semantic
     graphs are composed; ``pack=None`` resolves to what ``na_executor``
-    needs.
+    needs.  ``shard`` spreads the banded NA over the ranks of
+    ``launch.mesh.device_pool(device)``: ``"relation"`` keeps each
+    semantic graph's block stream whole, ``"edge_block"`` also splits
+    oversized relations along dst-tile boundaries.  ``mesh_shape``
+    optionally fixes the rank count (e.g. ``(4,)``).
 
     Example::
 
         ExecutorSpec(na_executor="banded", device="cpu").pack  # True
+        ExecutorSpec(shard="edge_block", mesh_shape=(4,))
     """
 
     planner: str = "ctt"
@@ -53,6 +60,7 @@ class ExecutorSpec:
     affinity: str = "barycenter"
     pack: Optional[bool] = None
     shard: str = "none"
+    mesh_shape: Optional[Tuple[int, ...]] = None
 
     def __post_init__(self):
         """Validate every field (unknown values raise ``ValueError``)."""
@@ -84,10 +92,22 @@ class ExecutorSpec:
             raise ValueError(
                 "pack=True requires restructure=True (PackedEdges blocks "
                 "are built from the restructured schedule)")
-        if self.shard != "none":
-            raise NotImplementedError(
-                f"shard={self.shard!r} (multi-device execution) is not "
-                "ported yet: ROADMAP item M9")
+        if self.shard != "none" and self.na_executor != "banded":
+            raise ValueError(
+                f"shard={self.shard!r} requires na_executor='banded': the "
+                "shard plan assigns the restructurer's packed edge-block "
+                "streams to devices (the jnp path has none)")
+        if self.mesh_shape is not None:
+            if self.shard == "none":
+                raise ValueError(
+                    "mesh_shape without sharding: set shard='relation' or "
+                    "'edge_block' (or drop mesh_shape)")
+            shape = tuple(int(s) for s in self.mesh_shape)
+            if not shape or any(s < 1 for s in shape):
+                raise ValueError(
+                    f"mesh_shape must be a non-empty tuple of positive "
+                    f"ints, got {self.mesh_shape!r}")
+            object.__setattr__(self, "mesh_shape", shape)
         if self.pack is None:
             object.__setattr__(self, "pack", self.na_executor == "banded")
 

@@ -223,6 +223,62 @@ class HGNN:
         return init_params(seed, self.cfg, self.feature_dims, self.metapaths,
                            device=device)
 
+    # The FP, SF and head stages, shared by every forward (full, subsets,
+    # the sharded executor), so all of them run the same operations.
+    def input_states(self, features: Dict[str, torch.Tensor], device,
+                     rows: Optional[Dict[str, torch.Tensor]] = None
+                     ) -> Dict[str, torch.Tensor]:
+        """Layer-0 states per type: the features (their ``rows`` when
+        given), or a ones column for a featureless type."""
+        h: Dict[str, torch.Tensor] = {}
+        for t, n in self.num_vertices.items():
+            if rows is not None:
+                n = rows[t].shape[0]
+            if self.feature_dims.get(t, 0) > 0:
+                h[t] = features[t] if rows is None else features[t][rows[t]]
+            else:
+                h[t] = torch.ones((n, 1), dtype=torch.float32, device=device)
+        return h
+
+    @staticmethod
+    def project(lp: Dict, h: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """FP sub-stage of one layer: ``relu(x @ w + b)`` per type."""
+        return {t: torch.relu(feature_projection(lp["fp"][t]["w"], lp["fp"][t]["b"], x))
+                for t, x in h.items()}
+
+    @staticmethod
+    def fuse(lp: Dict, hp: Dict[str, torch.Tensor],
+             z_by_dst: Dict[str, List[torch.Tensor]],
+             betas: Optional[Dict[str, torch.Tensor]] = None,
+             betas_out: Optional[Dict[str, torch.Tensor]] = None
+             ) -> Dict[str, torch.Tensor]:
+        """SF sub-stage of one layer, then ReLU: per type, the semantic
+        attention over its NA outputs and its self path.  ``betas`` freezes
+        the attention weights (the dependency-subset executor); otherwise
+        they are computed here and, when ``betas_out`` is a dict, stored
+        in it by type."""
+        h_next: Dict[str, torch.Tensor] = {}
+        for t, x in hp.items():
+            sf = lp["sf"][t]
+            self_z = x @ sf["w_self"]
+            if t in z_by_dst:
+                stack = torch.stack(z_by_dst[t] + [self_z])  # (P+1, N, D)
+                if betas is not None:
+                    beta = betas[t]
+                else:
+                    beta = semantic_fusion_beta(stack, sf["w"], sf["b"], sf["q"])
+                    if betas_out is not None:
+                        betas_out[t] = beta
+                h_next[t] = torch.einsum("p,pnd->nd", beta, stack)
+            else:
+                h_next[t] = self_z
+        return {t: torch.relu(v) for t, v in h_next.items()}
+
+    def head(self, params: Dict, h: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Logits of every ``cfg.target_type`` row of ``h``."""
+        head = params["head"]
+        return h[self.cfg.target_type] @ head["w"] + head["b"]
+
     def hidden_states(
         self,
         params: Dict,
@@ -263,19 +319,9 @@ class HGNN:
                     f"{'BandedBatch' if banded else 'SemanticGraphBatch'} "
                     f"inputs, got {type(g).__name__} for "
                     f"{getattr(g, 'metapath', '?')!r}")
-        device = params["head"]["w"].device
-        h: Dict[str, torch.Tensor] = {}
-        for t, n in self.num_vertices.items():
-            if self.feature_dims.get(t, 0) > 0:
-                h[t] = features[t]
-            else:
-                h[t] = torch.ones((n, 1), dtype=torch.float32, device=device)
-
+        h = self.input_states(features, params["head"]["w"].device)
         for lp in params["layers"]:
-            hp = {
-                t: torch.relu(feature_projection(lp["fp"][t]["w"], lp["fp"][t]["b"], x))
-                for t, x in h.items()
-            }
+            hp = self.project(lp, h)
             z_by_dst: Dict[str, List[torch.Tensor]] = {}
             for g in graphs:
                 na_p = lp["na"][g.metapath]
@@ -301,21 +347,10 @@ class HGNN:
                                      g.num_dst, na_p["a_src"], na_p["a_dst"],
                                      edge_bias=edge_bias)
                 z_by_dst.setdefault(g.dst_type, []).append(z)
-            h_next: Dict[str, torch.Tensor] = {}
             layer_betas: Dict[str, torch.Tensor] = {}
-            for t, x in hp.items():
-                sf = lp["sf"][t]
-                self_z = x @ sf["w_self"]
-                if t in z_by_dst:
-                    stack = torch.stack(z_by_dst[t] + [self_z])  # (P+1, N, D)
-                    beta = semantic_fusion_beta(stack, sf["w"], sf["b"], sf["q"])
-                    layer_betas[t] = beta
-                    h_next[t] = torch.einsum("p,pnd->nd", beta, stack)
-                else:
-                    h_next[t] = self_z
+            h = self.fuse(lp, hp, z_by_dst, betas_out=layer_betas)
             if betas_out is not None:
                 betas_out.append(layer_betas)
-            h = {t: torch.relu(v) for t, v in h_next.items()}
         return h
 
     def fusion_betas(
@@ -363,7 +398,7 @@ class HGNN:
         receptive field while garbage on deeper-frontier rows only flows
         into outputs nothing reads.  On the banded flavor each NA call is
         one K1 launch over the extraction's sliced packing (CUDA) or its
-        plain version (CPU).
+        plain version (CPU), after one K2 launch for rgat and shgn.
         """
         from repro_torch.core.subgraph import (na_attention_subset_banded,
                                                na_mean_subset_banded)
@@ -373,20 +408,9 @@ class HGNN:
             raise ValueError(f"unknown na_executor {na_executor!r}")
         banded = na_executor == "banded"
         gather = dep["gather"]
-        device = params["head"]["w"].device
-        h: Dict[str, torch.Tensor] = {}
-        for t in self.num_vertices:
-            rows = gather[t]
-            if self.feature_dims.get(t, 0) > 0:
-                h[t] = features[t][rows]
-            else:
-                h[t] = torch.ones((rows.shape[0], 1), dtype=torch.float32, device=device)
-
+        h = self.input_states(features, params["head"]["w"].device, rows=gather)
         for li, lp in enumerate(params["layers"]):
-            hp = {
-                t: torch.relu(feature_projection(lp["fp"][t]["w"], lp["fp"][t]["b"], x))
-                for t, x in h.items()
-            }
+            hp = self.project(lp, h)
             z_by_dst: Dict[str, List[torch.Tensor]] = {}
             for g, dg in zip(graphs, dep["graphs"]):
                 na_p = lp["na"][g.metapath]
@@ -412,20 +436,8 @@ class HGNN:
                                          na_p["a_src"], na_p["a_dst"],
                                          edge_bias=edge_bias)
                 z_by_dst.setdefault(g.dst_type, []).append(z)
-            h_next: Dict[str, torch.Tensor] = {}
-            for t, x in hp.items():
-                sf = lp["sf"][t]
-                self_z = x @ sf["w_self"]
-                if t in z_by_dst:
-                    stack = torch.stack(z_by_dst[t] + [self_z])
-                    h_next[t] = torch.einsum("p,pnd->nd", betas[li][t], stack)
-                else:
-                    h_next[t] = self_z
-            h = {t: torch.relu(v) for t, v in h_next.items()}
-
-        head = params["head"]
-        rows = h[cfg.target_type][dep["node_rows"]]
-        return rows @ head["w"] + head["b"]
+            h = self.fuse(lp, hp, z_by_dst, betas=betas[li])
+        return self.head(params, {cfg.target_type: h[cfg.target_type][dep["node_rows"]]})
 
     def execute(
         self,
@@ -436,9 +448,8 @@ class HGNN:
         na_executor: str = "banded",
     ) -> torch.Tensor:
         """Full GFP stage; logits for every ``cfg.target_type`` vertex."""
-        h = self.hidden_states(params, features, graphs, na_executor=na_executor)
-        head = params["head"]
-        return h[self.cfg.target_type] @ head["w"] + head["b"]
+        return self.head(params, self.hidden_states(params, features, graphs,
+                                                    na_executor=na_executor))
 
     def execute_subset(
         self,

@@ -14,7 +14,8 @@ executors consume:
   only blocks whose destination tile holds an expandable vertex, with
   band and tile indices re-ranked to the touched subset.  The slice is a
   ``PackedEdges`` of its own (``arrays["graphs"][i]["packed"]``), so K1
-  reaches it through ``seg_sum_na`` like any packing: its row view and
+  reaches it through ``seg_sum_na`` like any packing (and K2 through
+  ``edge_softmax_stats`` for the attention models): its row view and
   work list are built and uploaded once per extraction.
 
 Every array is padded to power-of-two buckets exactly as in the JAX
@@ -49,6 +50,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels.edge_softmax import NEG, edge_softmax_stats
 from repro_torch.kernels.seg_sum import (PackedEdges, _first_touch_flags,
                                          seg_sum_na)
 
@@ -493,34 +495,36 @@ def na_attention_subset_banded(dg: Dict, h_src: torch.Tensor, h_dst: torch.Tenso
                                a_src: torch.Tensor, a_dst: torch.Tensor,
                                edge_bias: Optional[torch.Tensor] = None,
                                leaky_slope: float = 0.2) -> torch.Tensor:
-    """GAT-style NA over one sliced banded graph.
+    """GAT-style NA over one sliced banded graph, on kernels K2 and K1.
 
-    The edge softmax runs as segment ops over the sliced flat edge map
-    (the reference's route on this serving path, which has no backward);
-    the alpha-weighted aggregation is K1 over the slice's ``PackedEdges``
-    with alpha scattered into the blocked layout.  Pad edges are masked
-    to ``-1e30`` before the stats and their alpha is zeroed, and the
-    scatter *adds*, so pad slots (all aliased to (pad block, 0)) can
-    never clobber a real weight.
+    The logits are computed over the sliced flat edge map and written into
+    the blocked layout of the slice's ``PackedEdges``; K2 folds them into
+    per-destination ``(m, s)``, alpha is computed in the blocked layout,
+    and K1 aggregates with alpha as the block weights.  No float atomics,
+    so the rows repeat bit for bit on the card.  Pad edges all alias
+    (pad block, slot 0), a slot that no real edge uses and that K2 and
+    K1 skip (validity comes from ``count``); every pad writes the same
+    value there, so the writes' order does not matter.
     """
     pk = dg["packed"]
     hb = h_src[dg["src_rows"]]
     hd = h_dst[dg["dst_rows"]]
-    num_rows = pk.num_dst
-    e_dst = dg["e_dst"].long()  # scatter_reduce takes int64 indices
-    valid = dg["e_valid"]
+    e_dst = dg["e_dst"].long()
+    valid = dg["e_valid"] > 0
     logits = (hb @ a_src)[dg["e_src"]] + (hd @ a_dst)[e_dst]
     if edge_bias is not None:
         logits = logits + edge_bias
     logits = torch.nn.functional.leaky_relu(logits, leaky_slope)
-    logits = torch.where(valid > 0, logits, torch.full_like(logits, -1e30))
-    m = logits.new_full((num_rows,), -torch.inf).scatter_reduce(
-        0, e_dst, logits, "amax", include_self=False)
-    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-    ex = torch.exp(logits - m[e_dst])
-    s = torch.zeros(num_rows, dtype=ex.dtype, device=ex.device).index_add_(0, e_dst, ex)
-    alpha = ex / torch.clamp(s[e_dst], min=1e-9) * valid
-    wblk = torch.zeros(dg["srcl"].shape, dtype=torch.float32, device=hb.device)
-    wblk.index_put_((dg["e_blk"].long(), dg["e_slot"].long()), alpha, accumulate=True)
-    out = seg_sum_na(pk, hb, wblk)
+    slots = (dg["e_blk"].long(), dg["e_slot"].long())
+
+    def blocked(flat: torch.Tensor, fill) -> torch.Tensor:
+        out = torch.full(dg["srcl"].shape, fill, dtype=flat.dtype, device=flat.device)
+        return out.index_put_(slots, torch.where(valid, flat, torch.full_like(flat, fill)))
+
+    lb = blocked(logits, NEG)
+    dst_b = blocked(e_dst, 0)
+    valid_b = blocked(valid, False)
+    m, s = edge_softmax_stats(pk, lb)
+    alpha = torch.exp(lb - m[dst_b]) / torch.clamp(s[dst_b], min=1e-9)
+    out = seg_sum_na(pk, hb, torch.where(valid_b, alpha, torch.zeros_like(alpha)))
     return out[dg["dst_pick"]] * dg["pick_valid"][:, None]

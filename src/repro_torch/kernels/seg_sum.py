@@ -400,6 +400,31 @@ def _first_touch_flags(dt: np.ndarray) -> np.ndarray:
     return ft
 
 
+def shard_blocked(packed: PackedEdges, block_ids: np.ndarray) -> dict:
+    """Host-side slice of a packing's block stream for one shard.
+
+    ``block_ids`` selects blocks (strictly ascending, so the shard keeps
+    the schedule's within-tile accumulation order).  ``first`` is
+    recomputed over the slice: a shard plan that keeps every block of a
+    dst tile on one rank (``repro_torch.distributed.hgnn``) makes
+    first-touch-in-shard coincide with first-touch-ever.  The arrays equal
+    the JAX package's ``shard_blocked`` bit for bit.
+    """
+    ids = np.asarray(block_ids, np.int64)
+    if ids.size and not (np.diff(ids) > 0).all():
+        raise ValueError("block_ids must be strictly ascending (schedule order)")
+    dt = packed.dst_tile[ids]
+    return {
+        "band": packed.band[ids].astype(np.int32),
+        "dst_tile": dt.astype(np.int32),
+        "first": _first_touch_flags(dt),
+        "src_local": packed.src_local[ids],
+        "dst_local": packed.dst_local[ids],
+        "weight": packed.valid_weight()[ids],
+        "count": packed.count[ids].astype(np.int32),
+    }
+
+
 def pack_edge_blocks(
     src: np.ndarray,
     dst: np.ndarray,

@@ -44,9 +44,10 @@ Serving has three layers:
   live registration, bumping a version stamped on every response, and
   ``swap_graph()`` installs a ``GraphDelta``-mutated topology the same way
   (``Session.compile_delta``: cache migration, incremental SGB, the
-  block-splice repack).  ``register(..., device_group=)`` raises
-  ``NotImplementedError`` until sharded execution is ported (ROADMAP item
-  M9).
+  block-splice repack).  ``register(..., device_group=)`` pins a tenant
+  to a group of ranks on a sharded session (``ExecutorSpec(shard=...)``):
+  its full forwards run the sharded executor over that group, and
+  ``swap_graph`` keeps the group.
 
 ``register()`` returns a :class:`TenantHandle` — the per-tenant surface
 (``submit`` / ``swap_params`` / ``swap_graph`` / ``stats``) that replaces
@@ -609,9 +610,11 @@ class HGNNServeEngine:
         beside one served over k-hop closures; ``None`` keeps the
         policy's.
 
-        ``device_group`` (pinning a tenant to part of a device mesh)
-        raises ``NotImplementedError``: sharded execution is ROADMAP item
-        M9.
+        ``device_group`` (sharded sessions only: the engine's
+        ``ExecutorSpec.shard`` must not be ``"none"``) pins this tenant's
+        forwards to a group of ranks, given as ``torch.device``s or
+        indices into ``launch.mesh.device_pool(spec.device)``; tenants
+        pinned to disjoint groups run on disjoint ranks.
 
         Example::
 
@@ -621,14 +624,10 @@ class HGNNServeEngine:
         if subset_mode not in (None, "head", "dependency"):
             raise ValueError(f"subset_mode={subset_mode!r} not in "
                              "(None, 'head', 'dependency')")
-        if device_group is not None:
-            raise NotImplementedError(
-                "register(..., device_group=) pins a tenant to a device "
-                "mesh; sharded execution is not ported yet: ROADMAP item M9")
         with self._lock:
             if name in self._registered:
                 raise ValueError(f"graph {name!r} already registered")
-        compiled = self.session.compile(graph, targets, cfg)
+        compiled = self.session.compile(graph, targets, cfg, devices=device_group)
         feats = (features if features is not None
                  else device_features(graph, compiled.device))
         if params is None:

@@ -9,8 +9,9 @@ latest complete checkpoint: ``steps`` lists only directories with a
 manifest, and ``.tmp-`` directories are skipped and removed by the next
 save.  Leaves are stored in ``jax.tree.flatten``'s order
 (``train.tree``), so a checkpoint written by either package restores in
-the other.  Restoring onto a device mesh waits for sharded execution
-(ROADMAP M9).
+the other.  HGNN parameters are replicated on every rank of a sharded
+forward, so they restore as they are; restoring LM parameters onto a
+mesh by partition spec is not ported yet.
 """
 from __future__ import annotations
 

@@ -1023,3 +1023,132 @@ def test_swap_graph_with_vertex_growth_serves_on_the_card(cuda_device):
                         device_features(g2, cuda_device)).cpu().numpy()
     np.testing.assert_array_equal(full.logits, want)
     np.testing.assert_array_equal(rows.logits, want[ids])
+
+
+# ------------------------------------------------------- sharded execution ---
+def _merged_streams(g, targets, target_type, mode, ranks=4):
+    """Each non-empty rank's merged stream of a ``ranks``-rank plan over
+    ``g``'s banded batches (their views not yet built)."""
+    from repro_torch.api import ExecutorSpec, Session
+    from repro_torch.core.hgnn import HGNNConfig
+    from repro_torch.distributed import build_shard_plan
+    from repro_torch.distributed.hgnn import _build_geometry, merged_stream
+
+    cfg = HGNNConfig(model="rgcn", hidden=32, num_layers=2, target_type=target_type)
+    graphs = Session(ExecutorSpec(na_executor="banded")).compile(g, targets, cfg).graphs
+    plan = build_shard_plan(graphs, ranks, mode)
+    geom = _build_geometry(graphs)
+    return [pk for pk, _ in (merged_stream(graphs, plan, geom, r) for r in range(ranks))
+            if pk is not None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["relation", "edge_block"])
+def test_na_kernels_over_a_merged_rank_stream(cuda_device, mode):
+    """K1 (unit and random weights) and K2 over each rank's merged stream
+    of a 4-rank plan on ACM against their plain versions, bitwise
+    repeatable."""
+    from repro_torch.hetero import make_dataset
+
+    streams = _merged_streams(make_dataset("ACM", scale=0.3), ["APA", "PAP", "PSP"], "P",
+                              mode)
+    rng = np.random.default_rng(21)
+    for pk in streams:
+        h = torch.from_numpy(rng.standard_normal((pk.num_src, 64)).astype(np.float32)).to(
+            cuda_device)
+        w = torch.from_numpy(rng.random(pk.src_local.shape).astype(np.float32)).to(cuda_device)
+        for weights in (None, w):
+            got, again = seg_sum_na(pk, h, weights), seg_sum_na(pk, h, weights)
+            want = seg_sum_plain(pk, h, weights)
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                       atol=1e-4, rtol=1e-4)
+            assert torch.equal(got, again)
+        logits = torch.from_numpy(3 * rng.standard_normal(pk.src_local.shape)
+                                  .astype(np.float32)).to(cuda_device)
+        (m, s), (m2, s2) = edge_softmax_stats(pk, logits), edge_softmax_stats(pk, logits)
+        mr, sr = softmax_stats_plain(pk, logits)
+        assert torch.equal(m, mr) and torch.equal(m, m2) and torch.equal(s, s2)
+        np.testing.assert_allclose(s.cpu().numpy(), sr.cpu().numpy(), rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_k2_over_a_dependency_slice(cuda_device):
+    """K2 over each semantic graph's sliced packing of one extraction
+    against ``softmax_stats_plain``: ``m`` bitwise, ``s`` within 1e-5."""
+    card, *_ = _dep_pair(cuda_device, "IMDB", ["AMA", "MAM", "MDM"], "M", "rgat")
+    rng = np.random.default_rng(6)
+    sub = card.dependency_subset(np.unique(rng.integers(0, card.num_target, size=13)))
+    for dg in sub.arrays["graphs"]:
+        pk = dg["packed"]
+        logits = torch.from_numpy(3 * rng.standard_normal(pk.src_local.shape)
+                                  .astype(np.float32)).to(cuda_device)
+        before = edge_softmax_stats.launches
+        m, s = edge_softmax_stats(pk, logits)
+        torch.cuda.synchronize()
+        assert edge_softmax_stats.launches == before + 1
+        mr, sr = softmax_stats_plain(pk, logits)
+        assert torch.equal(m, mr)
+        np.testing.assert_allclose(s.cpu().numpy(), sr.cpu().numpy(), rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["rgat", "shgn"])
+def test_dependency_rows_repeat_bitwise_on_the_card(cuda_device, model):
+    """Two dependency forwards on the card are bitwise equal (K2 and K1,
+    no float atomics), launching K2 and K1 once per layer and semantic
+    graph, within 1e-4 of the CPU's rows; the same check fires on a copy
+    of the second with one entry nudged by one ulp."""
+    card, cpu, p_card, p_cpu, f_card, f_cpu = _dep_pair(
+        cuda_device, "IMDB", ["AMA", "MAM", "MDM"], "M", model)
+    ids = np.unique(np.random.default_rng(3).integers(0, card.num_target, size=13))
+    card.dependency_subset(ids)
+    card._fusion_betas(p_card, f_card)
+    k1, k2 = seg_sum_na.launches, edge_softmax_stats.launches
+    first = card.forward_subset(p_card, f_card, ids, mode="dependency")
+    torch.cuda.synchronize()
+    per = card.cfg.num_layers * len(card.graphs)
+    assert (seg_sum_na.launches - k1, edge_softmax_stats.launches - k2) == (per, per)
+    second = card.forward_subset(p_card, f_card, ids, mode="dependency")
+    assert torch.equal(first, second)
+    nudged = second.clone()
+    nudged[0, 0] = torch.nextafter(nudged[0, 0], torch.tensor(np.inf, device=cuda_device))
+    assert not torch.equal(first, nudged)
+    want = cpu.forward_subset(p_cpu, f_cpu, ids, mode="dependency")
+    np.testing.assert_allclose(first.cpu().numpy(), want.numpy(), atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["relation", "edge_block"])
+@pytest.mark.parametrize("model", ["rgcn", "rgat", "shgn"])
+def test_sharded_forward_on_the_card(cuda_device, monkeypatch, mode, model):
+    """A 4-rank sharded forward with every rank on the one card: bitwise
+    the single-device card forward, within 1e-4 of the CPU sharded run,
+    repeatable, K1 (and K2 for attention) launched once per non-empty rank
+    and layer, ``shard_traces`` 1."""
+    from repro_torch.api import ExecutorSpec, Session, device_features
+    from repro_torch.core.hgnn import HGNNConfig
+    from repro_torch.hetero import make_dataset
+
+    monkeypatch.setenv("REPRO_TORCH_VIRTUAL_DEVICES", "4")
+    g = make_dataset("ACM", scale=0.3)
+    targets = ["APA", "PAP", "PSP"]
+    cfg = HGNNConfig(model=model, hidden=32, num_layers=2, target_type="P")
+    single = Session(ExecutorSpec(na_executor="banded")).compile(g, targets, cfg)
+    sharded = Session(ExecutorSpec(na_executor="banded", shard=mode)).compile(
+        g, targets, cfg)
+    cpu = Session(ExecutorSpec(na_executor="banded", shard=mode, device="cpu")).compile(
+        g, targets, cfg)
+    params, feats = sharded.init(0), device_features(g, cuda_device)
+    want = single.forward(params, feats)
+    sharded.forward(params, feats)
+    k1, k2 = seg_sum_na.launches, edge_softmax_stats.launches
+    got = sharded.forward(params, feats)
+    torch.cuda.synchronize()
+    busy = int((sharded.shard_plan.device_block_counts() > 0).sum())
+    per = busy * cfg.num_layers
+    assert (seg_sum_na.launches - k1, edge_softmax_stats.launches - k2) == (
+        per, 0 if model == "rgcn" else per)
+    assert torch.equal(got, want) and torch.equal(got, sharded.forward(params, feats))
+    assert sharded.shard_traces == 1
+    ref = cpu.forward(cpu.init(0), device_features(g, "cpu"))
+    np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), atol=1e-4)

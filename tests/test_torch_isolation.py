@@ -50,7 +50,9 @@ def test_import_closure_is_free_of_jax_and_repro():
                 "repro_torch.pipeline.frontend", "repro_torch.pipeline.cache",
                 "repro_torch.hetero.delta", "repro_torch.train",
                 "repro_torch.train.optim", "repro_torch.train.hgnn_step",
-                "repro_torch.train.checkpoint", "repro_torch.train.tree"):
+                "repro_torch.train.checkpoint", "repro_torch.train.tree",
+                "repro_torch.distributed", "repro_torch.distributed.hgnn",
+                "repro_torch.launch.mesh", "repro_torch.core.buffersim"):
         assert mod in res["imported"]
 
 

@@ -127,11 +127,12 @@ def test_register_shares_the_session_frontend(served):
 
 
 def test_unported_graph_deltas_and_device_groups_raise(served):
-    """device_group waits for sharded execution (M9); swap_graph on an
-    unknown registration raises ``KeyError``, through the handle and
-    through the deprecated shim, which still warns."""
+    """device_group needs a sharded session (the reference's
+    ``ValueError``); swap_graph on an unknown registration raises
+    ``KeyError``, through the handle and through the deprecated shim,
+    which still warns."""
     eng = _engine(served)
-    with pytest.raises(NotImplementedError, match="M9"):
+    with pytest.raises(ValueError, match="requires a sharded spec"):
         eng.register("pinned", served["graph"], TARGETS, _cfg(), device_group=[0])
     assert eng.registered == ["acm"]
     with pytest.raises(KeyError, match="not registered"):

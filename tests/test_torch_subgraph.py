@@ -191,6 +191,31 @@ def test_dependency_forward_matches_reference(env, ds, executor, model):
         np.testing.assert_array_equal(head.numpy(), full[ids])
 
 
+@pytest.mark.parametrize("model", ["rgat", "shgn"])
+def test_dependency_attention_takes_k2(env, model, monkeypatch):
+    """The banded attention subset takes its softmax statistics from K2's
+    route (``edge_softmax_stats``, the plain version on the CPU) over each
+    slice's own ``PackedEdges``, once per layer and semantic graph, and its
+    IMDB rows stay within 1e-4 of the reference's."""
+    import repro_torch.core.subgraph as subgraph
+
+    real, calls = subgraph.edge_softmax_stats, []
+
+    def spy(pk, logits):
+        calls.append(pk)
+        return real(pk, logits)
+
+    monkeypatch.setattr(subgraph, "edge_softmax_stats", spy)
+    c_ref, c_port, p_ref, params, f_ref, f_port = _pair(env, "imdb_small", "banded", model)
+    ids = _id_sets(c_port.num_target)[2]
+    sub = c_port.dependency_subset(ids)
+    got = c_port.forward_subset(params, f_port, ids, mode="dependency")
+    slices = [dg["packed"] for dg in sub.arrays["graphs"]]
+    assert calls == slices * c_port.cfg.num_layers
+    want = np.asarray(c_ref.forward_subset(p_ref, f_ref, ids, mode="dependency"))
+    np.testing.assert_allclose(got.numpy(), want, atol=LOGIT_ATOL)
+
+
 def test_subset_forwards_keep_caller_order(env):
     """Unsorted and duplicated ids come back per position, in both modes."""
     _, c, _, params, _, feats = _pair(env, "acm_small", "banded", "rgat")
