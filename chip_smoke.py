@@ -176,18 +176,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    8 KV heads, S = 4096), and at gemma2-2b's local layer (B = 1, 8 query
    and 4 KV heads of 256, S = 8192, causal, window 4096, softcap 50; the
    library call there is causal attention without window or softcap, a
-   yardstick of time only).  The bf16 K4's registers, dynamic shared memory
+   yardstick of time only), and at the head layouts phase 8b's prefills
+   give it (B = 4, S = T = 2048, causal, head dim 64 or 128): olmoe-1b-7b's
+   16 / 16, granite-moe-1b-a400m's 16 / 8, qwen2-vl-7b's 28 / 4 and
+   jamba-v0.1-52b's 32 / 8 query / KV heads, each by the same float32
+   gates with its dropped-tile fault.  The bf16 K4's registers, dynamic shared memory
    and local (spill) bytes are printed as the runtime reports them, at
    head dims 64, 128 and 256.  K5's plain version runs with TF32 off; a
    planted fault (the plain version of the second half of the sequence
    alone, which drops the state carried across the midpoint) must break
-   K5's tolerance.
+   K5's tolerance.  Then K4's padded route (head dims the kernel does not
+   take, zero-padded to the next one, at the true scale) at the two layers
+   that take it: hubert-xlarge's (B = 4, 16 heads of 80, S = T = 2048,
+   non-causal) and minicpm3-4b's MLA prefill (B = 4, 40 heads, q and k at
+   96, v at 64, S = 2048, causal), each against the float32 plain version
+   within 3e-2 per element and by the per-tile gate, bitwise repeatable,
+   with two planted faults that must break the tile gate (the padded head
+   dim's scale; one key tile dropped); printed: the kernel's event median
+   and queue-full time, the padding copies' time, the plain version's, the
+   bound at the true head dims, and SDPA's time at the true shapes with the
+   backend it picked.
 7. LM serving, a functional check and not a load: ``ServeEngine`` on
-   full-width smollm-135m with ``launch/serve.py``'s defaults (6 requests,
-   4 slots, prompt 6, 8 new tokens, max_len 64), twice: every request
-   answered, tokens below the vocab, the same tokens both times.  Its tokens
-   per second are printed as a smoke reading; at this size they are mostly
-   per-call host overhead.
+   full-width smollm-135m, olmoe-1b-7b and minicpm3-4b with
+   ``launch/serve.py``'s defaults (6 requests, 4 slots, prompt 6, 8 new
+   tokens, max_len 64), twice each: every request answered, tokens below
+   the vocab, the same tokens both times.  Tokens per second are printed
+   as a smoke reading; at this size they are mostly per-call host overhead.
 8. LM prefill: ``LM.forward(params, tokens, last_only=True)`` of
    full-width smollm-135m (30 layers), mamba2-370m (48 layers) and
    gemma2-2b (26 layers, head dim 256), weights from the port's init with
@@ -209,12 +223,48 @@ Phases, in order; any failure raises and the script exits non-zero:
    planted fault (one key tile dropped from the second half's rows in
    its first K4 call), which must read above the tolerance against the
    control.
+8b. LM prefill of the families ported last, each full-width model loaded
+   alone (weights from the port's init, seed 0) and freed before the next:
+   olmoe-1b-7b (16 layers, 64 experts top 8), granite-moe-1b-a400m (24),
+   minicpm3-4b (62, MLA), qwen2-vl-7b (28, from ``embeds`` = embedding rows
+   and a ``pos3`` grid with distinct temporal, height and width
+   components), hubert-xlarge (48, encoder, from random frame
+   ``embeds``) and jamba-v0.1-52b cut to one block-pattern group (8 of its
+   32 layers: the full model's bf16 weights exceed the card's 80 GB).  For
+   each, ``LM.forward(..., last_only=True)`` at B = 4, S = 2048 twice with
+   the counters set to 0 just before and read just after: K4 launches once
+   per attention or MLA layer (16, 24, 62, 28, 48, 1) and K5 once per SSM
+   layer (jamba: 7), logits finite and bitwise repeatable, the MoE aux
+   finite and positive; one forward profiled, with K4's share of the device
+   time and the MoE dispatch, expert and combine einsums' shares.  Gates:
+   olmoe's first MoE layer at the prefill's activations against its
+   float32 per-token plain version within 3e-2 (absolute and of the largest
+   output), a planted fault (the most-chosen expert's output zeroed in the
+   combine) above it; every attention stack but jamba's (whose SSM layers
+   phase 8 gates) against the same prefill with the float32 plain attention
+   in place of K4 (B = 2, S = 256; ``CONTROL_GATE_LAYERS``, ``logit_tol``,
+   the tolerance printed for each), a key tile dropped in every K4 call
+   above it; every model's first K4 call of the B = 4, S = 2048 prefill
+   (jamba's attention layer, hubert's first layer, minicpm3's first MLA
+   layer) rerun on its real q, k and v against the float32 plain version
+   per element and per 128-row tile, a dropped key tile above the tile
+   gate; minicpm3's absorbed MLA decode against its prefill within 5e-2
+   (``MLA_DECODE_GATE_LAYERS``), a decode without the ``q_r k_r`` term of
+   the logits (a planted fault: the rope key projection zeroed) above it,
+   and its prefill timed with q and k built at K4's padded width against
+   q and k concatenated at the true head dim as the reference does,
+   interleaved (logits bitwise equal); qwen2-vl's forward
+   from ``embeds = embed[tokens]`` with the positions on all three M-RoPE
+   components against its token forward within 5e-2.  Each phase prints
+   its wall time.
 9. Report: one JSON line ``{"kernels": [...]}`` (K1 and K2 with their
    launches per train step by model, K1 with its launches in one
    dependency forward, rows for K1 and K2 over phase 3c's sliced packings,
-   rows for K1 and K2 over phase 3d's spliced packing and rows for K1 and
-   K2 over phase 3e's largest merged shard stream),
-   the card line, and last the contract line ``{"ok": true, "device":
+   rows for K1 and K2 over phase 3d's spliced packing, rows for K1 and
+   K2 over phase 3e's largest merged shard stream, K4's and K5's rows with
+   their launches by model, and a row for K4's padded route at each of
+   hubert-xlarge's and minicpm3-4b's layers, with its launches in phase
+   8b), the card line, and last the contract line ``{"ok": true, "device":
    {...}}``.
 
 Needs one CUDA card; exits non-zero without one, or without the repository
@@ -224,6 +274,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -287,6 +338,13 @@ SSM_DECODE_GATE_LAYERS = 2
 DECODE_LOGIT_TOL = {"gemma2-2b": 4 * 2 ** -5}
 K4_SHAPES = [(4, 9, 3, 2048, 64), (4, 9, 3, 4096, 64)]  # B, Hq, Hkv, S = T, Dh
 K4_DH128 = (1, 24, 8, 4096, 128)  # minitron-4b's head layout
+# the head layouts phase 8b's prefills give K4: B, Hq, Hkv, S = T, Dh
+K4_MODEL_LAYOUTS = {
+    "olmoe-1b-7b": (4, 16, 16, 2048, 128),
+    "granite-moe-1b-a400m": (4, 16, 8, 2048, 64),
+    "qwen2-vl-7b": (4, 28, 4, 2048, 128),
+    "jamba-v0.1-52b": (4, 32, 8, 2048, 128),
+}
 # gemma2-2b's local layer at twice its window: B, Hq, Hkv, S = T, Dh, window, softcap
 K4_GEMMA_LOCAL = (1, 8, 4, 8192, 256, 4096, 50.0)
 K4_PLAIN_LOGITS = 4 * 9 * 4096 * 4096  # the largest B * Hq * S * T run in full plain
@@ -302,6 +360,34 @@ K5_TF32_PRODUCTS = 3  # 3xTF32: each float32 product is three TF32 products
 K5_PASSES = ("ssd_chunk_state_kernel", "ssd_cb_kernel", "ssd_state_pass_kernel",
              "ssd_output_kernel")
 LM_ARCHS = ("smollm-135m", "mamba2-370m", "gemma2-2b")  # phase 8's full-width models
+# phase 8b's full-width models, each loaded alone and freed before the next
+LM_NEW_ARCHS = ("olmoe-1b-7b", "granite-moe-1b-a400m", "minicpm3-4b", "qwen2-vl-7b",
+                "hubert-xlarge", "jamba-v0.1-52b")
+# depth cuts: jamba-v0.1-52b's 32 layers hold about 104 GB of bf16 weights,
+# more than the card's 80 GB; one block-pattern group of 8 layers (about
+# 26.5 GB) runs its SSM, attention, MLP and MoE layers
+LM_DEPTH_CUT = {"jamba-v0.1-52b": 8}
+LM_SERVE_ARCHS = ("olmoe-1b-7b", "minicpm3-4b")  # phase 7's models beside smollm-135m
+# K4's padded route at the two layers that take it: B, H, S = T, Dqk, Dv, causal
+K4_PADDED = {
+    "hubert-xlarge": (4, 16, 2048, 80, 80, False),
+    "minicpm3-4b": (4, 40, 2048, 96, 64, True),
+}
+MOE_TOL = 3e-2  # the MoE layer against its float32 plain version (bf16 einsums)
+# Phase 8b's logit gates are bf16 products: two prefills (or a prefill and
+# a decode) whose attention rounds at other places drift apart with depth.
+# On the card (PERF.md, PR 22), replacing K4 by an independent bf16 flash
+# attention (SDPA's cuDNN kernel) moves each stack from the float32 control
+# as far as K4 does, at every depth: 0.084-0.29 at full depth for olmoe,
+# minicpm3 and qwen2-vl, 0.031-0.29 already at 2 layers where the logits
+# reach 8-19 (one bf16 step there is 0.0625-0.125, above 5e-2).  So the
+# gates read the first layers only (the depth below; hubert-xlarge holds at
+# full depth), within LM_LOGIT_TOL or two bf16 steps at the logits' largest
+# magnitude, and print the full depth beside the SDPA yardstick; the planted
+# fault (a key tile dropped in every K4 call) is read at the gated depth.
+CONTROL_GATE_LAYERS = {"olmoe-1b-7b": 1, "granite-moe-1b-a400m": 1, "minicpm3-4b": 1,
+                       "qwen2-vl-7b": 1}
+MLA_DECODE_GATE_LAYERS = 2  # minicpm3-4b's absorbed decode against its prefill
 IMDB_TARGETS = ["AMA", "MAM", "MDM"]  # phase 3c's IMDB tenants (target M)
 SERVE_PER_TENANT = 64  # requests a tenant in phase 3c's burst, of 4-16 ids each
 SERVE_WAVES = 8  # the burst arrives in waves, one every SERVE_WAVE_GAP_S
@@ -2367,22 +2453,24 @@ def tile_rms(out, ref) -> torch.Tensor:
     return (per_tile((out.float() - ref).square()) / per_tile(ref.square())).sqrt()
 
 
-def plain_rows(q, k, v, first, window=None, softcap=None, drop=None):
+def plain_rows(q, k, v, first, window=None, softcap=None, drop=None, causal=True,
+               scale=None):
     """float32 plain attention of the query rows ``q`` (key positions
-    ``first`` on; S = T, causal) over all of ``k`` and ``v``, with the key
-    range ``drop`` masked out where given: the output of a kernel that
-    skipped that key tile."""
+    ``first`` on; S = T) over all of ``k`` and ``v``, scaled by ``scale``
+    (default q's head dim ``** -0.5``), with the key range ``drop`` masked
+    out where given: the output of a kernel that skipped that key tile."""
     from repro_torch.kernels.flash_attention import NEG
 
     rows, dh, t = q.shape[2], q.shape[3], k.shape[2]
     g = q.shape[1] // k.shape[1]
     kf = k.float().repeat_interleave(g, dim=1)
-    logits = (q.float() @ kf.transpose(-1, -2)) * dh ** -0.5
+    logits = (q.float() @ kf.transpose(-1, -2)) * (dh ** -0.5 if scale is None else scale)
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
     qpos = torch.arange(first, first + rows, device=q.device)[:, None]
     kpos = torch.arange(t, device=q.device)[None, :]
-    live = kpos <= qpos
+    live = kpos <= qpos if causal else torch.ones((rows, t), dtype=torch.bool,
+                                                  device=q.device)
     if window is not None:
         live &= kpos > qpos - window
     if drop is not None:
@@ -2507,6 +2595,116 @@ def k4_shape(dev, gen, b, hq, hkv, s, dh, window=None, softcap=None):
     return row
 
 
+def attention_f32(q, k, v, causal, scale=None):
+    """The float32 plain version of a bf16 attention call, a batch element at
+    a time (the (S, T) logits of one element at once)."""
+    from repro_torch.kernels.flash_attention import attention_plain
+
+    return torch.cat([attention_plain(q[i:i + 1].float(), k[i:i + 1].float(),
+                                      v[i:i + 1].float(), causal=causal, scale=scale)
+                      for i in range(q.shape[0])])
+
+
+def sdpa_backend(q, k, v, causal: bool) -> str:
+    """The backend ``scaled_dot_product_attention`` dispatches these inputs
+    to, as its own chooser (``torch._fused_sdp_choice``) names it."""
+    from torch.nn.attention import SDPBackend
+
+    choose = getattr(torch, "_fused_sdp_choice", None)
+    if choose is None:
+        return "not measured (no backend chooser in this PyTorch)"
+    pick = choose(q, k, v, is_causal=causal)
+    return next((name for name, b in SDPBackend.__members__.items() if int(b) == pick),
+                str(pick))
+
+
+def k4_padded_shape(dev, gen, arch, b, h, s, dqk, dv, causal):
+    """K4 through its padded route at one layer's shapes (S = T, no GQA):
+    against the float32 plain version per element (within K4_TOL for bf16)
+    and per 128-row query tile (K4_TILE_RMS), bitwise repeatable; two
+    planted faults read in the same run must break the tile gate: the
+    padded head dim's scale in place of the true one, and one key tile
+    dropped from the last 256 rows.  Times: the kernel (event median and
+    queue-full), the padding copies alone, the float32 plain version, and
+    SDPA at the true shapes (v's head dim may differ from q's) with the
+    backend it picked; the bound at the true head dims."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (attention_plain, flash_attention,
+                                                     kernel_info, pad_head_dims,
+                                                     padded_head_dim)
+
+    dp = padded_head_dim(dqk, dv)
+    q = _randn(gen, (b, h, s, dqk), dev, torch.bfloat16)
+    k = _randn(gen, (b, h, s, dqk), dev, torch.bfloat16)
+    v = _randn(gen, (b, h, s, dv), dev, torch.bfloat16)
+    out = flash_attention(q, k, v, causal=causal)
+    again = flash_attention(q, k, v, causal=causal)
+    wrong_scale = flash_attention(q, k, v, causal=causal, scale=dp ** -0.5)
+    ref = attention_f32(q, k, v, causal)
+    torch.cuda.synchronize()
+    label = f"{arch} layer: B={b} H={h} S=T={s} q/k Dh={dqk} v Dh={dv} (padded to {dp})"
+    require(out.shape == (b, h, s, dv), f"K4 {label}: output shape {tuple(out.shape)}")
+    require(torch.equal(out, again), f"K4 not bitwise repeatable at {label}")
+    err = (out.float() - ref).abs().max().item()
+    rms = tile_rms(out, ref).max().item()
+    scale_rms = tile_rms(wrong_scale, ref).max().item()
+    bk = kernel_info(dp)["block_k"]
+    first = s - 256
+    d0 = (first // 2) // bk * bk
+    qb = q[:, :, first:]
+    fault = plain_rows(qb, k, v, first, drop=slice(d0, d0 + bk), causal=causal)
+    drop_rms = tile_rms(fault, plain_rows(qb, k, v, first, causal=causal)).max().item()
+    tol = K4_TOL[torch.bfloat16]
+    print(f"K4 {label}, {'causal' if causal else 'non-causal'}: max|kernel - float32 plain| "
+          f"= {err:.3e} (at most {tol}); largest 128-row tile ||d|| / ||ref|| = {rms:.3e} "
+          f"(at most {K4_TILE_RMS}); planted faults: the padded head dim's scale "
+          f"{dp}**-0.5 reads {scale_rms:.3e} ({scale_rms / K4_TILE_RMS:.1f}x the limit), one "
+          f"key tile dropped from the last 256 rows {drop_rms:.3e} "
+          f"({drop_rms / K4_TILE_RMS:.1f}x); run-to-run bitwise equal")
+    require(err <= tol, f"K4 disagrees with its float32 plain version at {label}: {err}")
+    require(rms <= K4_TILE_RMS, f"K4 tile error {rms} over {K4_TILE_RMS} at {label}")
+    require(scale_rms > K4_TILE_RMS, f"K4 gate would pass the padded scale at {label}")
+    require(drop_rms > K4_TILE_RMS, f"K4 gate would pass a dropped key tile at {label}")
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+
+    lib_err = (sdpa().float() - ref).abs().max().item()
+    ms = median_ms(lambda: flash_attention(q, k, v, causal=causal))
+    q_ms = queued_ms(lambda: flash_attention(q, k, v, causal=causal))
+    pad_ms = median_ms(lambda: pad_head_dims(q, k, v))
+    pad_q_ms = queued_ms(lambda: pad_head_dims(q, k, v))
+    qp, kp, vp, true_scale, _ = pad_head_dims(q, k, v)  # the kernel alone, at Dp
+    kernel_q_ms = queued_ms(lambda: flash_attention(qp, kp, vp, causal=causal, scale=true_scale))
+    plain_ms = median_ms(lambda: attention_plain(q, k, v, causal=causal), reps=3)
+    lib_ms = median_ms(sdpa)
+    lib_q_ms = queued_ms(sdpa)
+    backend = sdpa_backend(q, k, v, causal)
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = 2.0 * pairs * (dqk + dv) * h * b  # q k^T and p v at the true head dims
+    nbytes = 2 * b * h * s * (2 * dqk + 2 * dv)  # q, k (Dqk) and v, o (Dv) in bf16
+    t_ops, t_bytes = flops / BF16_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    row = {"shape": f"{label}, bf16 {'causal' if causal else 'non-causal'}",
+           "max_abs_err": err, "f32_tile_rms": rms, "fault_scale_tile_rms": scale_rms,
+           "fault_drop_tile_rms": drop_rms, "ms": ms, "queued_ms": q_ms,
+           "kernel_padded_queued_ms": kernel_q_ms,
+           "padding_ms": pad_ms, "padding_queued_ms": pad_q_ms, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "library_queued_ms": lib_q_ms, "library_err": lib_err,
+           "library_fn": f"scaled_dot_product_attention at the true head dims "
+                         f"({'is_causal' if causal else 'no mask'}), backend {backend}",
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "flops": flops, "bytes": nbytes}
+    print(f"K4 {label}: kernel {ms:.4f} ms, queue full {q_ms:.4f} ms, of which padding copies "
+          f"{pad_ms:.4f} ms ({pad_q_ms:.4f} queue full), the kernel alone on padded operands "
+          f"{kernel_q_ms:.4f} ms queue full; plain {plain_ms:.3f} ms; SDPA "
+          f"{lib_ms:.4f} ms, queue full {lib_q_ms:.4f} ms (backend {backend}, max|SDPA - plain| "
+          f"{lib_err:.3e}); bound at the true head dims {row['bound_ms']:.5f} ms "
+          f"({row['bound_by']}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    return row
+
+
 def k5_shape(dev, gen, b, s, h, g, p, n, chunk):
     """K5 at one mamba2 prefill shape: agreement, repeatability, a planted
     fault, times of the kernel and of the plain version, each pass's device
@@ -2599,23 +2797,34 @@ def phase_lm_kernels(dev):
               f"{info['shared_bytes']} bytes of dynamic shared memory, "
               f"{info['local_bytes']} bytes of local memory a thread, "
               f"{info['threads']} threads a CTA")
+    for arch, shape in K4_MODEL_LAYOUTS.items():
+        k4_rows.append(dict(k4_shape(dev, gen, *shape), model=arch))
     k5_rows = [k5_shape(dev, gen, *shape) for shape in K5_SHAPES]
-    return k4_rows, f32_err, k5_rows
+    padded_rows = {arch: k4_padded_shape(dev, gen, arch, *shape)
+                   for arch, shape in K4_PADDED.items()}
+    return k4_rows, f32_err, k5_rows, padded_rows
 
 
 def launches_per_forward(cfg) -> dict:
     """K4 and K5 launches one cache-less forward makes: one per attention
-    (``attn`` / ``local``) or ``ssm`` mixer of the block pattern, per group."""
+    (``attn`` / ``local`` / ``mla``) or ``ssm`` mixer of the block pattern,
+    per group."""
     def count(kinds):
         return cfg.num_groups * sum(mixer in kinds for mixer, _ in cfg.block_pattern)
-    return {"flash_attention": count(("attn", "local")), "ssd_scan": count(("ssm",))}
+    return {"flash_attention": count(("attn", "local", "mla")), "ssd_scan": count(("ssm",))}
 
 
 def _lm(arch, dev):
+    """A full-width model and its seeded weights; jamba-v0.1-52b cut to its
+    first block-pattern group (``LM_DEPTH_CUT``), which alone fits the card
+    (the init's depth scale of the output projections follows the cut)."""
     from repro_torch.configs import get_config
     from repro_torch.models import LM
 
-    model = LM(get_config(arch), device=dev)
+    cfg = get_config(arch)
+    if arch in LM_DEPTH_CUT:
+        cfg = dataclasses.replace(cfg, num_layers=LM_DEPTH_CUT[arch])
+    model = LM(cfg, device=dev)
     return model, model.init(SEED)
 
 
@@ -2660,10 +2869,11 @@ def cut_depth(model, params, layers: int):
     return LM(cfg, device=model.device), dict(params, blocks=[cut(b) for b in params["blocks"]])
 
 
-def prefill_vs_decode(model, params, prompt, label: str):
+def prefill_vs_decode(model, params, prompt, label: str, decode_params=None):
     """max |last-position logits of the prefill - of the token-by-token
     decode| over the real vocab, and the prefill's and the decode's last
-    logits; checks that decoding launches no kernel."""
+    logits; checks that decoding launches no kernel.  ``decode_params``
+    (default ``params``) are the weights the decode runs with."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ssd_scan import ssd_scan
 
@@ -2674,7 +2884,8 @@ def prefill_vs_decode(model, params, prompt, label: str):
     flash_attention.launches = ssd_scan.launches = 0
     t0 = time.perf_counter()
     for i in range(s):
-        step, cache, _ = model.forward(params, prompt[:, i:i + 1], cache=cache, cache_pos=i)
+        step, cache, _ = model.forward(decode_params or params, prompt[:, i:i + 1],
+                                       cache=cache, cache_pos=i)
     torch.cuda.synchronize()
     dec_ms = (time.perf_counter() - t0) * 1e3 / s
     v = cfg.vocab_size
@@ -2694,35 +2905,54 @@ def prefill_vs_decode(model, params, prompt, label: str):
 
 def prefill_with(model, params, prompt, attention):
     """Last-position logits of a prefill whose attention calls
-    ``attention`` in place of K4."""
+    ``attention`` in place of K4; ``prompt`` is token ids or a dict of
+    ``forward``'s inputs."""
     from repro_torch.kernels import ops
 
+    inputs = prompt if isinstance(prompt, dict) else {"tokens": prompt}
     kernel = ops.flash_attention
     ops.flash_attention = attention
     try:
-        return model.forward(params, prompt, last_only=True)[0][:, 0]
+        return model.forward(params, last_only=True, **inputs)[0][:, 0]
     finally:
         ops.flash_attention = kernel
 
 
-def dropped_tile_attention():
-    """K4 with a planted fault in its first call: the rows of the second
-    half lose one key tile (of the kernel's width) from the middle of the
-    first half, the fault a wrong tile plan would make."""
-    from repro_torch.kernels.flash_attention import flash_attention, kernel_info
+def sdpa_attention(q, k, v, causal=True, window=None, softcap=None, scale=None):
+    """``scaled_dot_product_attention`` in place of K4, a bf16 flash
+    attention independent of the port's, at the same scale: a yardstick of
+    how far a model's bf16 prefill moves when only its attention's rounding
+    changes.  It takes no window or softcap."""
+    import torch.nn.functional as F
+
+    if window is not None or softcap is not None:
+        raise ValueError("the SDPA yardstick takes no window or softcap")
+    return F.scaled_dot_product_attention(q, k, v, is_causal=causal, scale=scale,
+                                          enable_gqa=q.shape[1] != k.shape[1])
+
+
+def dropped_tile_attention(every_call: bool = False):
+    """K4 with a planted fault in its first call (``every_call``: in each
+    call): the rows of the second half lose one key tile (of the kernel's
+    width) from the middle of the first half, the fault a wrong tile plan
+    would make."""
+    from repro_torch.kernels.flash_attention import (flash_attention, kernel_info,
+                                                     padded_head_dim)
 
     calls = []
 
-    def attention(q, k, v, causal=True, window=None, softcap=None):
-        out = flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
-        if not calls:
+    def attention(q, k, v, causal=True, window=None, softcap=None, scale=None):
+        out = flash_attention(q, k, v, causal=causal, window=window, softcap=softcap,
+                              scale=scale)
+        if every_call or not calls:
             s = q.shape[2]
-            bk = kernel_info(q.shape[3])["block_k"]
+            bk = kernel_info(padded_head_dim(q.shape[3], v.shape[3]))["block_k"]
             first = s // 2
             d0 = first // 2 // bk * bk
             out = out.clone()
             out[:, :, first:] = plain_rows(q[:, :, first:], k, v, first, window, softcap,
-                                           drop=slice(d0, d0 + bk)).to(out.dtype)
+                                           drop=slice(d0, d0 + bk), causal=causal,
+                                           scale=scale).to(out.dtype)
         calls.append(q.shape)
         return out
 
@@ -2812,6 +3042,424 @@ def phase_lm_prefill(dev, models):
     return launches
 
 
+def lm_inputs(model, params, gen, b, s) -> dict:
+    """Seeded ``forward`` inputs of one arch at (B, S): token ids; for the
+    audio stub (hubert) random frame embeddings; for the vision stub
+    (qwen2-vl) the embedding rows of random tokens and a ``pos3`` grid of
+    16 x 16 patches per frame whose temporal, height and width components
+    all differ."""
+    cfg = model.cfg
+    dev = model.device
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
+    if cfg.frontend == "none":
+        return {"tokens": tokens}
+    if cfg.mrope_sections is None:
+        return {"embeds": torch.randn((b, s, cfg.d_model), generator=gen, device=dev)}
+    i = torch.arange(s, device=dev)
+    grid = torch.stack([i // 256, (i // 16) % 16, i % 16])
+    return {"embeds": params["embed"][tokens], "pos3": grid[:, None].expand(3, b, s)}
+
+
+def spanned_profile(label: str, fn, spans) -> dict:
+    """Device time of one warm call of ``fn`` (torch.profiler), in total,
+    in K4 (``fa_forward``) and in each of ``spans`` ((label, module,
+    attribute) wrapped in a ``record_function`` range for the run; a
+    range's device time is that of the kernels launched inside it).  With
+    an ``ffn`` span (``moe_ffn``), ``build`` is its time outside the other
+    spans: building the dispatch and combine tensors."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def labelled(name, f):
+        def run(*args, **kwargs):
+            with record_function(f"span::{name}"):
+                return f(*args, **kwargs)
+        return run
+
+    saved = [(mod, attr, getattr(mod, attr)) for _, mod, attr in spans]
+    for (name, mod, attr), (_, _, f) in zip(spans, saved):
+        setattr(mod, attr, labelled(name, f))
+    try:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for mod, attr, f in saved:
+            setattr(mod, attr, f)
+    rows = [r for r in _device_events(prof) if not r[2].startswith("span::")]
+    busy = sum(r[0] for r in rows) / 1e3
+    k4 = [r for r in rows if "fa_forward" in r[2]]
+    out = {"wall_ms": wall, "busy_ms": busy, "k4_ms": sum(r[0] for r in k4) / 1e3,
+           "k4_launches_traced": sum(r[1] for r in k4), "launches": sum(r[1] for r in rows)}
+    for name, _, _ in spans:
+        evs = [e for e in prof.events() if e.name == f"span::{name}"
+               and "CPU" in str(getattr(e, "device_type", ""))]
+        out[name + "_ms"] = sum(e.device_time_total for e in evs) / 1e3
+        out[name + "_calls"] = len(evs)
+    if "ffn_ms" in out:  # what moe_ffn does outside its inner spans: the dispatch tensors
+        out["build_ms"] = out["ffn_ms"] - sum(out[n + "_ms"] for n in
+                                              ("route", "dispatch", "experts", "combine"))
+        out["build_calls"] = out["ffn_calls"]
+        spans = spans + [("build", None, None)]
+    share = ", ".join(f"{name} {out[name + '_ms']:.3f} ms ({100 * out[name + '_ms'] / busy:.1f}%, "
+                      f"{out[name + '_calls']} calls)" for name, _, _ in spans) if busy else ""
+    print(f"profile {label}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+          f"({100 * busy / wall:.1f}% of wall), {out['launches']} kernel launches; K4 "
+          + (f"{out['k4_ms']:.3f} ms, {100 * out['k4_ms'] / busy:.1f}% of the device time over "
+             f"{out['k4_launches_traced']} launches recorded" if busy else "not measured")
+          + (f"; {share}" if share else ""))
+    for dev_us, count, key in sorted(rows, reverse=True)[:8]:
+        print(f"  {dev_us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
+    return out
+
+
+def logit_tol(logits) -> float:
+    """Phase 8b's logit tolerance: LM_LOGIT_TOL, or two bf16 steps at the
+    logits' largest magnitude where that is wider (the logits are a bf16
+    product; at |logit| in [8, 16) one step is 0.0625)."""
+    top = logits.abs().max().item()
+    return max(LM_LOGIT_TOL, 2 * 2.0 ** (math.floor(math.log2(top)) - 7)) if top else LM_LOGIT_TOL
+
+
+def control_readings(model, params, prompt, label: str) -> dict:
+    """Last-position logits of a prefill through K4, through the float32
+    plain attention (the control), through SDPA (an independent bf16 flash
+    attention, a yardstick of rounding drift) and through K4 with a key
+    tile dropped in every call (a planted fault): each one's distance to
+    the control, and ``logit_tol`` of the control."""
+    from repro_torch.kernels.flash_attention import attention_plain
+
+    v = model.cfg.vocab_size
+    pre = model.forward(params, last_only=True, **prompt)[0][:, 0, :v]
+    control = prefill_with(model, params, prompt, attention_plain)[:, :v]
+    sdpa = prefill_with(model, params, prompt, sdpa_attention)[:, :v]
+    fault = prefill_with(model, params, prompt, dropped_tile_attention(every_call=True))[:, :v]
+    r = {"k4": (pre - control).abs().max().item(), "sdpa": (sdpa - control).abs().max().item(),
+         "fault": (fault - control).abs().max().item(), "tol": logit_tol(control),
+         "max_logit": control.abs().max().item(), "layers": model.cfg.num_layers}
+    b, s = next(iter(prompt.values())).shape[:2]
+    print(f"prefill vs control {model.cfg.name} ({label}, {r['layers']} layers, B={b} S={s} from "
+          f"{'+'.join(sorted(prompt))}; control: attention by the float32 plain version in place "
+          f"of K4, max|logit| {r['max_logit']:.4f}, tolerance {r['tol']:.4f}): max|K4 prefill - "
+          f"control| = {r['k4']:.4e}; SDPA in place of K4 (yardstick) {r['sdpa']:.4e}; planted "
+          f"fault (a key tile dropped in every K4 call) {r['fault']:.4e}, "
+          f"{r['fault'] / r['tol']:.1f}x the tolerance")
+    return r
+
+
+def without_k_r(params) -> dict:
+    """MLA weights with the rope key projection ``w_kr`` zeroed: run by the
+    absorbed decode, whose cache then holds ``k_r = 0``, they leave the
+    ``q_r k_r`` term out of its logits (a planted fault)."""
+    def block(b):
+        m = b["mixer"]
+        return dict(b, mixer=dict(m, w_kr=torch.zeros_like(m["w_kr"]))) if "w_kr" in m else b
+    return dict(params, blocks=[block(b) for b in params["blocks"]])
+
+
+def k4_at_activations(model, params, inputs) -> dict:
+    """K4's first call of a full-width prefill rerun on that call's own q,
+    k and v (the first attention or MLA layer's real activations, at the
+    layout, strides, head dims and scale the model gives it): against the
+    float32 plain version per element (``|d| / (K4_BF16_ATOL + K4_BF16_RTOL
+    |ref|)`` at most 1) and per 128-row query tile (K4_TILE_RMS); one key
+    tile dropped from the last 256 rows (a planted fault, read in the same
+    run) must break the tile gate.  The layer's attention output is read
+    before the residual stream dilutes it, as hubert's N(0, 1) frames do in
+    its logits."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (flash_attention, kernel_info,
+                                                     padded_head_dim)
+
+    seen = []
+    kernel = ops.flash_attention
+
+    def capture(q, k, v, causal=True, window=None, softcap=None, scale=None):
+        if not seen:
+            seen.append((q.clone(), k.clone(), v.clone(),
+                         dict(causal=causal, window=window, softcap=softcap, scale=scale)))
+        return kernel(q, k, v, causal=causal, window=window, softcap=softcap, scale=scale)
+
+    ops.flash_attention = capture
+    try:
+        model.forward(params, last_only=True, **inputs)
+    finally:
+        ops.flash_attention = kernel
+    q, k, v, kw = seen[0]
+    name = model.cfg.name
+    require(kw["window"] is None and kw["softcap"] is None,
+            f"{name}: the activation gate takes no window or softcap")
+    causal, scale = kw["causal"], kw["scale"]
+    out = flash_attention(q, k, v, causal=causal, scale=scale)
+    ref = attention_f32(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    elem = ((out.float() - ref).abs() / (K4_BF16_ATOL + K4_BF16_RTOL * ref.abs())).max().item()
+    err = (out.float() - ref).abs().max().item()
+    rms = tile_rms(out, ref).max().item()
+    s = q.shape[2]
+    bk = kernel_info(padded_head_dim(q.shape[3], v.shape[3]))["block_k"]
+    first = s - 256
+    d0 = first // 2 // bk * bk
+    qb = q[:, :, first:]
+    fault = plain_rows(qb, k, v, first, drop=slice(d0, d0 + bk), causal=causal, scale=scale)
+    drop_rms = tile_rms(fault, plain_rows(qb, k, v, first, causal=causal,
+                                          scale=scale)).max().item()
+    layout = (f"B={q.shape[0]} Hq={q.shape[1]} Hkv={k.shape[1]} S=T={s} q/k Dh={q.shape[3]} "
+              f"v Dh={v.shape[3]}, {'causal' if causal else 'non-causal'}, scale "
+              f"{q.shape[3] ** -0.5 if scale is None else scale:.6f}")
+    print(f"K4 at {name}'s first attention call of the prefill, on its real activations "
+          f"({layout}; q strides {q.stride()}): max|kernel - float32 plain| = {err:.3e}, "
+          f"max|d| / ({K4_BF16_ATOL} + {K4_BF16_RTOL}|ref|) = {elem:.3f} (at most 1), max|ref| "
+          f"{ref.abs().max().item():.4f}; largest 128-row tile ||d|| / ||ref|| = {rms:.3e} "
+          f"(at most {K4_TILE_RMS}); planted fault (one key tile dropped from the last 256 "
+          f"rows) {drop_rms:.3e}, {drop_rms / K4_TILE_RMS:.1f}x the limit")
+    require(elem <= 1.0, f"{name}: K4 disagrees with its float32 plain version on the "
+            f"prefill's activations: {elem}")
+    require(rms <= K4_TILE_RMS, f"{name}: K4 tile error {rms} on the prefill's activations")
+    require(drop_rms > K4_TILE_RMS,
+            f"{name}: the activation gate would pass a dropped key tile")
+    return {"layout": layout, "max_abs_err": err, "f32_elem_ratio": elem, "f32_tile_rms": rms,
+            "fault_drop_tile_rms": drop_rms}
+
+
+def mla_width_ab(model, params, inputs, rounds: int = 3) -> dict:
+    """An MLA prefill as the port runs it (q and k built at K4's padded
+    width, ``ops.attention_width``, so the wrapper pads only v) against the
+    same prefill with q and k concatenated at the true head dim as the
+    reference does (the wrapper then pads all three), interleaved A B B A in
+    one process: the median CUDA-event milliseconds of each forward, and
+    whether the two give the same logits bit for bit (the padding is
+    exact)."""
+    from repro_torch.kernels import ops
+
+    width = ops.attention_width
+
+    def forward(concat: bool):
+        ops.attention_width = (lambda dqk, dv, device: dqk) if concat else width
+        try:
+            return model.forward(params, last_only=True, **inputs)[0]
+        finally:
+            ops.attention_width = width
+
+    same = torch.equal(forward(False), forward(True))
+    times = {False: [], True: []}
+    for i in range(4 * rounds):
+        concat = i % 4 in (1, 2)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        forward(concat)
+        end.record()
+        end.synchronize()
+        times[concat].append(start.elapsed_time(end))
+    width_ms, concat_ms = (statistics.median(times[c]) for c in (False, True))
+    print(f"MLA q/k width A/B {model.cfg.name} (B={LM_BATCH} S={LM_SEQ}, {2 * rounds} forwards "
+          f"each, interleaved): q and k built at K4's width {width_ms:.3f} ms (median; "
+          f"{['%.3f' % t for t in times[False]]}), concatenated at the true head dim and "
+          f"padded by the wrapper {concat_ms:.3f} ms ({['%.3f' % t for t in times[True]]}), "
+          f"{100 * (concat_ms / width_ms - 1):+.2f}%; logits bitwise equal: {same}")
+    require(same, f"{model.cfg.name}: MLA's width changes the prefill's logits")
+    return {"width_ms": width_ms, "concat_ms": concat_ms, "width_runs": times[False],
+            "concat_runs": times[True]}
+
+
+def moe_gate(model, params, inputs) -> dict:
+    """The first MoE layer of a full-width prefill at its real activations:
+    ``moe_ffn`` on the card against its float32 per-token plain version
+    (``moe_plain`` over the router's own slots), within MOE_TOL; a fault
+    planted in the same run (the output of the expert most tokens pick
+    first zeroed in the combine) must read above it."""
+    from repro_torch.models import layers
+
+    seen = []
+    moe_ffn = layers.moe_ffn
+
+    def capture(p, x, **kw):
+        if not seen:
+            seen.append((p, x.clone(), kw))
+        return moe_ffn(p, x, **kw)
+
+    layers.moe_ffn = capture
+    try:
+        model.forward(params, last_only=True, **inputs)
+    finally:
+        layers.moe_ffn = moe_ffn
+    p, x, kw = seen[0]
+    d = x.shape[-1]
+    out, aux = moe_ffn(p, x, **kw)
+    route = layers.moe_route(p, x.reshape(-1, kw["group_size"], d),
+                             num_experts=kw["num_experts"], top_k=kw["top_k"])
+    plain = layers.moe_plain(p, x, route)
+    top = int(torch.bincount(route["idx"][..., 0].reshape(-1),
+                             minlength=kw["num_experts"]).argmax())
+    combine = layers.moe_combine
+    layers.moe_combine = lambda comb, ye: combine(comb, ye.index_fill(
+        1, torch.tensor([top], device=ye.device), 0))
+    try:
+        fault, _ = moe_ffn(p, x, **kw)
+    finally:
+        layers.moe_combine = combine
+    torch.cuda.synchronize()
+    err = (out.float() - plain).abs().max().item()
+    fault_err = (fault.float() - plain).abs().max().item()
+    top_plain = plain.abs().max().item()
+    tok_rms = ((out.float() - plain).norm(dim=-1) / plain.norm(dim=-1)).max().item()
+    kept = int(route["keep"].sum())
+    slots = x.shape[0] * x.shape[1] * kw["top_k"]
+    ms = median_ms(lambda: moe_ffn(p, x, **kw), reps=10)
+    plain_ms = median_ms(lambda: layers.moe_plain(p, x, route), reps=3)
+    name = model.cfg.name
+    print(f"MoE {name} layer 0 at the prefill's activations: {x.shape[0] * x.shape[1]} tokens "
+          f"in groups of {kw['group_size']}, capacity {route['cap']}, {kept} of {slots} "
+          f"(token, slot)s kept; aux {float(aux):.6f}; max|moe_ffn - float32 plain| = "
+          f"{err:.3e}, {err / top_plain:.3e} of max|plain| {top_plain:.4f} (tolerance "
+          f"{MOE_TOL} for both; largest per-token ||d|| / ||plain|| {tok_rms:.3e}); planted "
+          f"fault (expert {top}'s output zeroed in the combine) reads {fault_err:.3e}, "
+          f"{fault_err / top_plain:.3e} of max|plain|, {fault_err / MOE_TOL:.1f}x the "
+          f"tolerance; moe_ffn {ms:.3f} ms, plain {plain_ms:.3f} ms a layer")
+    require(max(err, err / top_plain) <= MOE_TOL,
+            f"{name}: moe_ffn differs from its plain version by {err} (max|plain| {top_plain})")
+    require(min(fault_err, fault_err / top_plain) > MOE_TOL,
+            f"{name}: the MoE gate would pass a zeroed expert ({fault_err})")
+    return {"err": err, "fault_err": fault_err, "ms": ms, "plain_ms": plain_ms}
+
+
+def phase_lm_new(dev, arch, model, params, card: str) -> dict:
+    """Phase 8b on one full-width model of the families ported last:
+    prefill launches, repeatability and aux; its gates (MoE layer, K4
+    against the float32 control, absorbed MLA decode, M-RoPE); a profile."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models import layers
+
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    cut = (f"; depth cut to {cfg.num_layers} of {get_config(arch).num_layers} layers (one "
+           "block-pattern group: the full model's bf16 weights exceed the card)"
+           if arch in LM_DEPTH_CUT else "")
+    inputs = lm_inputs(model, params, gen, LM_BATCH, LM_SEQ)
+    torch.cuda.synchronize()
+    flash_attention.launches = ssd_scan.launches = 0
+    outs, auxes, lat = [], [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        logits, _, aux = model.forward(params, last_only=True, **inputs)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        outs.append(logits)
+        auxes.append(aux)
+    counts = {"flash_attention": flash_attention.launches, "ssd_scan": ssd_scan.launches}
+    per = launches_per_forward(cfg)
+    v = cfg.vocab_size
+    print(f"prefill {arch} ({cfg.num_layers} layers, d_model {cfg.d_model}, from "
+          f"{'+'.join(sorted(inputs))}{cut}): B={LM_BATCH} S={LM_SEQ}, launches over 2 forwards "
+          f"{counts} (want {({k: 2 * n for k, n in per.items()})}); forward ms "
+          f"{['%.3f' % x for x in lat]} ({LM_BATCH * LM_SEQ / (min(lat) / 1e3):.0f} tokens/s); "
+          f"logits {tuple(outs[0].shape)}, max|logit| {outs[0][..., :v].abs().max().item():.4f}; "
+          f"aux {float(auxes[0]):.6f} ({card})")
+    for name, n in per.items():
+        require(counts[name] == 2 * n, f"{arch}: {name} launched {counts[name]} times in 2 "
+                f"forwards, want {2 * n}")
+    require(bool(torch.isfinite(outs[0][..., :v]).all()), f"{arch}: non-finite logits")
+    require(torch.equal(outs[0], outs[1]), f"{arch}: logits differ between forwards")
+    require(torch.equal(auxes[0], auxes[1]), f"{arch}: aux differs between forwards")
+    if cfg.num_experts:
+        require(bool(torch.isfinite(auxes[0])) and float(auxes[0]) > 0,
+                f"{arch}: MoE aux {float(auxes[0])} not finite and positive")
+    out = {"launches": counts, "per_forward": per, "forward_ms": lat}
+    spans = [(n, layers, "moe_" + n) for n in ("ffn", "route", "dispatch", "experts", "combine")] \
+        if cfg.num_experts else []
+    out["profile"] = spanned_profile(f"{arch} prefill B={LM_BATCH} S={LM_SEQ}",
+                                     lambda: model.forward(params, last_only=True, **inputs),
+                                     spans)
+    out["k4_activations"] = k4_at_activations(model, params, inputs)
+    if arch == "olmoe-1b-7b":
+        out["moe"] = moe_gate(model, params, inputs)
+
+    mixers = {mixer for mixer, _ in cfg.block_pattern}
+    if "ssm" not in mixers:  # attention stacks: K4 against the float32 control
+        prompt = lm_inputs(model, params, gen, DECODE_BATCH, DECODE_SEQ)
+        out["control_full_depth"] = control_readings(model, params, prompt, "full depth")
+        gated = out["control_full_depth"]
+        if arch in CONTROL_GATE_LAYERS:
+            gated = control_readings(*cut_depth(model, params, CONTROL_GATE_LAYERS[arch]),
+                                     prompt, "gated cut")
+        require(gated["k4"] <= gated["tol"],
+                f"{arch}: K4's prefill and the plain attention's differ by {gated['k4']}")
+        require(gated["fault"] > gated["tol"],
+                f"{arch}: the control gate would pass a dropped key tile")
+        out["control"] = gated
+    if "mla" in mixers:
+        out["mla_width_ab"] = mla_width_ab(model, params, inputs)
+        prompt = torch.randint(0, v, (DECODE_BATCH, DECODE_SEQ), generator=gen, device=dev)
+        out["decode_err_full_depth"], _, _ = prefill_vs_decode(model, params, prompt,
+                                                               "full depth")
+        gated_model, gated_params = cut_depth(model, params, MLA_DECODE_GATE_LAYERS)
+        err, _, _ = prefill_vs_decode(gated_model, gated_params, prompt, "gated cut")
+        fault, _, _ = prefill_vs_decode(gated_model, gated_params, prompt, "planted fault",
+                                        decode_params=without_k_r(gated_params))
+        tol = LM_LOGIT_TOL
+        print(f"absorbed MLA decode {arch}: gated on the first {MLA_DECODE_GATE_LAYERS} layers "
+              f"within {tol}: {err:.4e}; planted fault (the decode's q_r k_r logit term left "
+              f"out) {fault:.4e}, {fault / tol:.1f}x the tolerance; full depth "
+              f"{out['decode_err_full_depth']:.4e} (printed)")
+        require(err <= tol, f"{arch}: prefill and absorbed decode differ by {err}")
+        require(fault > tol, f"{arch}: the decode gate would pass a decode without k_r")
+        out["decode_err"], out["decode_tol"], out["decode_fault"] = err, tol, fault
+    if cfg.mrope_sections is not None:
+        toks = torch.randint(0, v, (DECODE_BATCH, DECODE_SEQ), generator=gen, device=dev)
+        b, s = toks.shape
+        pos = torch.arange(s, device=dev)[None].expand(b, s)
+        by_tokens = model.forward(params, toks, last_only=True)[0][:, 0, :v]
+        by_embeds = model.forward(params, embeds=params["embed"][toks],
+                                  pos3=pos[None].expand(3, b, s), last_only=True)[0][:, 0, :v]
+        err = (by_tokens - by_embeds).abs().max().item()
+        print(f"M-RoPE {arch}: embeds = embed[tokens] with pos3 the positions on all three "
+              f"components against the token forward, B={b} S={s}: max|d| = {err:.4e} "
+              f"(tolerance {LM_LOGIT_TOL}; bitwise {torch.equal(by_tokens, by_embeds)})")
+        require(err <= LM_LOGIT_TOL, f"{arch}: M-RoPE embeds forward differs by {err}")
+        out["mrope_err"] = err
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 8b {arch}: {out['seconds']:.1f} s of wall time")
+    return out
+
+
+def lm_new_phases(dev, card: str) -> dict:
+    """Phases 8b and 7 for the families ported last: each full-width model
+    loaded alone, prefilled and gated (``phase_lm_new``), served where it
+    decodes (``LM_SERVE_ARCHS``), and freed before the next."""
+    results = {}
+    for arch in LM_NEW_ARCHS:
+        t0 = time.perf_counter()
+        model, params = _lm(arch, dev)
+        torch.cuda.synchronize()
+        n = sum(t.numel() for t in _leaves(params))
+        print(f"load {arch}: {n / 1e9:.3f} B parameters "
+              f"({sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9:.2f} GB) "
+              f"in {time.perf_counter() - t0:.1f} s")
+        results[arch] = phase_lm_new(dev, arch, model, params, card)
+        if arch in LM_SERVE_ARCHS:
+            t0 = time.perf_counter()
+            phase_lm_serving(dev, model, params)
+            print(f"phase 7 {arch}: {time.perf_counter() - t0:.1f} s of wall time")
+        del model, params
+        torch.cuda.empty_cache()
+    return results
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
 def main() -> int:
     """Run every phase; the last line of stdout is the contract line."""
     if not torch.cuda.is_available():
@@ -2890,10 +3538,23 @@ def main() -> int:
     })
     require(kernels[-1]["launches"] > 0, "spgemm_bsr never launched on the device-SGB path")
 
-    k4_rows, k4_f32_err, k5_rows = phase_lm_kernels(dev)
+    t0 = time.perf_counter()
+    k4_rows, k4_f32_err, k5_rows, k4_padded = phase_lm_kernels(dev)
+    print(f"phase 6: {time.perf_counter() - t0:.1f} s of wall time")
+    t0 = time.perf_counter()
     models = {arch: _lm(arch, dev) for arch in LM_ARCHS}
     phase_lm_serving(dev, *models["smollm-135m"])
     lm_launches = phase_lm_prefill(dev, models)
+    del models
+    torch.cuda.empty_cache()
+    print(f"phases 7-8: {time.perf_counter() - t0:.1f} s of wall time")
+    t0 = time.perf_counter()
+    lm_new = lm_new_phases(dev, card)
+    print(f"phases 7-8b, new families: {time.perf_counter() - t0:.1f} s of wall time")
+    padded = {arch: r for arch, r in lm_new.items() if arch in K4_PADDED}
+    for arch, r in lm_new.items():
+        if arch not in padded:
+            lm_launches[arch] = r["launches"]
     for name, rows, src, line in (
             ("flash_attention", k4_rows, "flash_attention.cu",
              "src/repro/kernels/flash_attention.py:30"),
@@ -2912,7 +3573,22 @@ def main() -> int:
             "library_ms": top["library_ms"], "bytes": top["bytes"],
             "shape": top["shape"], "shapes": rows,
         })
+        if name == "flash_attention":
+            kernels[-1]["prefill_activations"] = {
+                arch: r["k4_activations"] for arch, r in lm_new.items() if arch not in padded}
         require(kernels[-1]["launches"] > 0, f"{name} never launched on an LM prefill")
+    for arch, row in k4_padded.items():
+        cfg_per = padded[arch]["per_forward"]["flash_attention"]
+        kernels.append({
+            "name": f"flash_attention (padded route, {arch})", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "wrapper": "src/repro_torch/kernels/flash_attention.py",
+            "replaces": "src/repro/kernels/flash_attention.py:30",
+            "launches": padded[arch]["launches"]["flash_attention"],
+            "launches_per_forward": cfg_per, **row,
+            "prefill_activations": padded[arch]["k4_activations"],
+        })
+        require(kernels[-1]["launches"] > 0, f"K4's padded route never launched on {arch}")
     for k in kernels:
         k["kernel_ms"] = k["ms"]
     print(json.dumps({"kernels": kernels}))

@@ -10,7 +10,8 @@
                      ``repro/kernels/spgemm_bsr.py::_spgemm_kernel``).
 * ``flash_attention`` — K4, block-wise attention forward with the online
                      softmax (replaces
-                     ``repro/kernels/flash_attention.py::_fa_kernel``).
+                     ``repro/kernels/flash_attention.py::_fa_kernel``);
+                     head dims the kernel does not take run zero-padded.
 * ``ssd_scan``     — K5, the Mamba2 SSD chunked scan (replaces
                      ``repro/kernels/ssd_scan.py::_ssd_kernel``).
 * ``ops``          — the NA operations, SGB compositions, attention and SSD

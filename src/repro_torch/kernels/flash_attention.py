@@ -5,6 +5,8 @@ Computes ``softmax(q kᵀ · scale) v`` for ``(B, Hq, S, Dh)`` queries against
 (Hq / Hkv)), queries end-aligned at key position ``T - S``, an optional
 causal mask, sliding window and tanh softcap.  A query row with no live key
 gives 0, as the TPU kernel's ``/ max(l, 1e-20)`` does; no valid call has one.
+The value head dim may differ from the query / key one (MLA's prefill: q
+and k at 96, v at 64); the output takes v's.
 
 On a CUDA tensor ``flash_attention`` launches the hand-written Hopper kernel
 in ``csrc/flash_attention.cu`` (``fa_forward``), which replaces the TPU
@@ -15,11 +17,17 @@ bfloat16 inputs run on the tensor cores: 128-row query tiles, ``wgmma`` fed
 with K and V tiles by TMA through an ``mbarrier`` ring, float32
 accumulators, P rounded to bf16 for the P V product (key tiles of 128, of 64
 at head dim 256).  float32 inputs run on the CUDA cores in float32
-throughout.  It takes one type for q, k, v and the output, a head dim of 64,
-128 or 256, and any strides whose last one is 1 (for bfloat16 the others and
-the addresses must be multiples of 16 bytes, which the tensor maps require),
-so transposed views need no copy; the output has q's layout.  On a CPU
-tensor it runs ``attention_plain``.
+throughout.  The kernel takes one type for q, k, v and the output, one head
+dim of 64, 128 or 256 (``HEAD_DIMS``), and any strides whose last one is 1
+(for bfloat16 the others and the addresses must be multiples of 16 bytes,
+which the tensor maps require), so transposed views need no copy; the
+output has q's layout.  Any other head dims up to 256 (hubert's 80, MLA's
+96 / 64) take the padded route: ``pad_head_dims`` copies q, k and v into
+zero-filled buffers at the next head dim the kernel takes, the kernel runs
+there with the true scale ``Dqk ** -0.5``, and the output is sliced to v's
+head dim.  That is exact: a zero column adds 0.0 to every q·k dot product
+of the float32 accumulator, and a zero v column only fills output columns
+that are dropped.  On a CPU tensor it runs ``attention_plain``, unpadded.
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ import ctypes
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.cuda_build import check, load_library, ptr
 
@@ -39,7 +48,8 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     softcap: Optional[float] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Plain PyTorch version of K4 (``attention_ref`` in float32, rows with
-    no live key set to 0); the output has ``q``'s dtype."""
+    no live key set to 0); the output has ``q``'s dtype and ``v``'s head
+    dim."""
     b, hq, s, dh = q.shape
     hkv, t = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -59,6 +69,31 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(logits.masked_fill(~mask, NEG), dim=-1)
     p = p * mask.any(dim=-1, keepdim=True)
     return (p @ vf).to(q.dtype)
+
+
+def padded_head_dim(dqk: int, dv: int) -> int:
+    """The head dim K4 runs a ``(dqk, dv)`` call at: the smallest of
+    ``HEAD_DIMS`` that holds both."""
+    for dp in HEAD_DIMS:
+        if dp >= max(dqk, dv):
+            return dp
+    raise ValueError(f"flash_attention kernel takes head dims up to {HEAD_DIMS[-1]}, "
+                     f"got q/k {dqk} and v {dv}")
+
+
+def pad_head_dims(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """``(qp, kp, vp, scale, dv)``: q, k and v zero-padded to
+    ``padded_head_dim`` columns (copies; one already that wide is taken as
+    it is), the scale of the unpadded call (``Dqk ** -0.5``, not ``Dp **
+    -0.5``) and v's own head dim, to slice the padded output to.  Attention
+    over the padded operands at that scale equals attention over the
+    unpadded ones: the zero columns add exact zeros to every q·k product
+    and give output columns that are dropped."""
+    dqk, dv = q.shape[-1], v.shape[-1]
+    dp = padded_head_dim(dqk, dv)
+    qp, kp, vp = (t if t.shape[-1] == dp else F.pad(t, (0, dp - t.shape[-1]))
+                  for t in (q, k, v))
+    return qp, kp, vp, dqk ** -0.5, dv
 
 
 def _check_cuda_operands(q, k, v, window, softcap) -> None:
@@ -81,13 +116,13 @@ def _check_cuda_operands(q, k, v, window, softcap) -> None:
     b, hq, _, dh = q.shape
     kb, hkv, t, kd = k.shape
     vb, vh, vt, vd = v.shape  # ints: a torch.Size comparison costs more
-    if (kb, hkv, t, kd) != (vb, vh, vt, vd) or kb != b or kd != dh:
-        raise ValueError(f"k and v must be (B, Hkv, T, Dh) with q's B and Dh, got "
-                         f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if (kb, hkv, t) != (vb, vh, vt) or kb != b or kd != dh:
+        raise ValueError(f"k must be (B, Hkv, T, Dh) with q's B and Dh, and v (B, Hkv, T, "
+                         f"Dv) with k's B, Hkv and T, got q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if hkv == 0 or hq % hkv:
         raise ValueError(f"q heads ({hq}) must be a multiple of kv heads ({hkv})")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes head dims {HEAD_DIMS}, got {dh}")
+    padded_head_dim(dh, vd)  # raises above the largest head dim the kernel takes
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
     if softcap is not None and softcap <= 0:
@@ -115,8 +150,15 @@ def _kernel_strides(*tensors: torch.Tensor) -> list:
 
 def flash_attention_cuda(q, k, v, causal=True, window=None, softcap=None,
                          scale=None) -> torch.Tensor:
-    """Launch K4 (``fa_forward``) on ``q``'s CUDA device."""
+    """Launch K4 (``fa_forward``) on ``q``'s CUDA device; a head dim the
+    kernel does not take runs through ``pad_head_dims``."""
     _check_cuda_operands(q, k, v, window, softcap)
+    dh, dv = q.shape[3], v.shape[3]
+    if dh != dv or dh not in HEAD_DIMS:
+        qp, kp, vp, true_scale, dv = pad_head_dims(q, k, v)
+        out = flash_attention_cuda(qp, kp, vp, causal, window, softcap,
+                                   true_scale if scale is None else scale)
+        return out[..., :dv]
     b, hq, s, dh = q.shape
     hkv, t = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -156,11 +198,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """Attention ``(B, Hq, S, Dh) x (B, Hkv, T, Dh) -> (B, Hq, S, Dh)``.
+    """Attention ``(B, Hq, S, Dh) x (B, Hkv, T, Dh) x (B, Hkv, T, Dv) ->
+    (B, Hq, S, Dv)``.
 
-    A CUDA ``q`` launches kernel K4 (counted in ``flash_attention.launches``);
-    a CPU ``q`` runs ``attention_plain``.  ``scale`` defaults to
-    ``Dh ** -0.5``.
+    A CUDA ``q`` launches kernel K4 once (counted in
+    ``flash_attention.launches``), padded to a head dim it takes where
+    ``Dh`` is not one or ``Dv != Dh``; a CPU ``q`` runs ``attention_plain``.
+    ``scale`` defaults to ``Dh ** -0.5`` (q's true head dim, also on the
+    padded route).
     """
     if q.device.type == "cuda":
         return flash_attention_cuda(q, k, v, causal, window, softcap, scale)

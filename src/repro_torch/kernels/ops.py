@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.edge_softmax import NEG, edge_softmax_stats
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import flash_attention, padded_head_dim
 from repro_torch.kernels.seg_sum import (PackedEdges, edge_dots, needs_grad,
                                          pack_edge_blocks, seg_sum_forward,
                                          seg_sum_na, seg_sum_transposed)
@@ -32,12 +32,26 @@ from repro_torch.kernels.ssd_scan import ssd_scan
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, window: Optional[int] = None,
-              softcap: Optional[float] = None) -> torch.Tensor:
-    """Multi-head attention ``(B, Hq, S, Dh) x (B, Hkv, T, Dh) -> (B, Hq, S,
-    Dh)``, scaled by ``Dh ** -0.5``, through K4.  The kernel reads strided
-    views as they are (the last dimension contiguous), so nothing is copied
-    here; the output has ``q``'s layout."""
-    return flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
+              softcap: Optional[float] = None,
+              scale: Optional[float] = None) -> torch.Tensor:
+    """Multi-head attention ``(B, Hq, S, Dh) x (B, Hkv, T, Dh) x (B, Hkv, T,
+    Dv) -> (B, Hq, S, Dv)``, scaled by ``scale`` (default ``Dh ** -0.5``),
+    through K4.  The kernel reads strided views as they are (the last
+    dimension contiguous), so nothing is copied here at head dims 64, 128
+    and 256 with ``Dv == Dh``; other head dims (hubert's 80, MLA's 96 / 64)
+    are padded to the next one K4 takes (``flash_attention.pad_head_dims``).
+    The output has ``q``'s layout."""
+    return flash_attention(q, k, v, causal=causal, window=window, softcap=softcap,
+                           scale=scale)
+
+
+def attention_width(dqk: int, dv: int, device) -> int:
+    """The head dim a caller building q and k itself should give them
+    (zero-filled past ``dqk``) so that ``attention`` copies neither: the
+    head dim K4 runs a ``(dqk, dv)`` call at on a CUDA device, ``dqk`` on
+    the CPU (whose plain version takes any).  The call then passes
+    ``scale=dqk ** -0.5``."""
+    return padded_head_dim(dqk, dv) if torch.device(device).type == "cuda" else dqk
 
 
 def ssd(x: torch.Tensor, a_log: torch.Tensor, b_coef: torch.Tensor,

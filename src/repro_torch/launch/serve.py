@@ -1,9 +1,12 @@
 """LM serving command line: continuous-batching decode over random-weight
-models.
+models, any architecture but the encoder (hubert-xlarge has no decode
+path); qwen2-vl-7b serves from tokens, its M-RoPE positions the same on
+all three components.
 
 Runs on the card by default, at the configuration's full width::
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b
 
 and on the CPU at reduced width (the plain versions of the kernels)::
 

@@ -7,9 +7,11 @@ dicts whose leaves lead with ``num_groups`` (one slice per layer group).
 The forward walks the groups in a Python loop (the reference's
 ``lax.scan``).  The cache is stacked the same way and updated in place.
 
-Mixers ``attn``, ``local`` and ``ssm`` and FFNs ``mlp`` and ``none`` run;
-the others (MLA, MoE, the encoder MLP), ``embeds``/``pos3`` inputs and the
-loss wait for ROADMAP M12.
+Every mixer (``attn``, ``local``, ``mla``, ``ssm``) and FFN (``mlp``,
+``gelu_mlp``, ``moe``, ``none``) of the shipped configs runs, from token ids
+or from ``embeds`` (the audio and vision frontends' stubs), with M-RoPE
+positions ``pos3`` where the config has sections.  The loss and the rest of
+the LM training stack are the next slice (ROADMAP M12b-train).
 """
 from __future__ import annotations
 
@@ -21,12 +23,13 @@ import torch
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 
-MIXERS = ("attn", "local", "ssm")
-FFNS = ("mlp", "none")
+MIXERS = ("attn", "local", "mla", "ssm")
+FFNS = ("mlp", "gelu_mlp", "moe", "none")
 
 
 def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP M12)")
+    return NotImplementedError(
+        f"{what} is not ported yet: it comes with the LM training slice (ROADMAP M12b-train)")
 
 
 def padded_vocab(cfg: ArchConfig, multiple: int = 128) -> int:
@@ -38,11 +41,9 @@ def padded_vocab(cfg: ArchConfig, multiple: int = 128) -> int:
 def _check_supported(cfg: ArchConfig) -> None:
     for mixer, ffn in cfg.block_pattern:
         if mixer not in MIXERS:
-            raise _unported(f"mixer {mixer!r} ({cfg.name})")
+            raise ValueError(f"unknown mixer {mixer!r} ({cfg.name})")
         if ffn not in FFNS:
-            raise _unported(f"ffn {ffn!r} ({cfg.name})")
-    if cfg.mrope_sections is not None:
-        raise _unported(f"M-RoPE ({cfg.name})")
+            raise ValueError(f"unknown ffn {ffn!r} ({cfg.name})")
 
 
 def _init_block(gen: torch.Generator, cfg: ArchConfig, mixer: str, ffn: str,
@@ -69,6 +70,16 @@ def _init_block(gen: torch.Generator, cfg: ArchConfig, mixer: str, ffn: str,
             "wv": dense((d, cfg.num_kv_heads * cfg.head_dim)),
             "wo": dense((cfg.num_heads * cfg.head_dim, d), depth_scale),
         }
+    elif mixer == "mla":
+        nope = cfg.head_dim - cfg.mla_rope_dim
+        p["mixer"] = {
+            "wq": dense((d, cfg.num_heads * cfg.head_dim)),
+            "w_dkv": dense((d, cfg.mla_kv_rank)),
+            "kv_norm": const(cfg.mla_kv_rank, 1.0),
+            "w_kr": dense((d, cfg.mla_rope_dim)),
+            "w_ukv": dense((cfg.mla_kv_rank, cfg.num_heads * 2 * nope)),
+            "wo": dense((cfg.num_heads * nope, d), depth_scale),
+        }
     else:  # ssm
         h, di, cd = cfg.ssm_heads, cfg.d_inner, cfg.conv_dim
         p["mixer"] = {
@@ -81,11 +92,21 @@ def _init_block(gen: torch.Generator, cfg: ArchConfig, mixer: str, ffn: str,
             "norm": const(di, 1.0),
             "w_out": dense((di, d), depth_scale),
         }
-    if ffn == "mlp":
+    if ffn in ("mlp", "gelu_mlp"):
         p["ffn"] = {
             "w_gate": dense((d, cfg.d_ff)),
             "w_up": dense((d, cfg.d_ff)),
             "w_down": dense((cfg.d_ff, d), depth_scale),
+        }
+        if ffn == "gelu_mlp":  # the encoder FFN has no gate
+            p["ffn"].pop("w_gate")
+    elif ffn == "moe":
+        e, f = cfg.num_experts, cfg.moe_d_ff
+        p["ffn"] = {
+            "w_router": dense((d, e)).float(),  # bf16 values held in float32
+            "w_gate": dense((e, d, f)),
+            "w_up": dense((e, d, f)),
+            "w_down": dense((e, f, d), depth_scale),
         }
     return p
 
@@ -126,9 +147,22 @@ def lm_params_from_numpy(tree, device) -> Any:
     return torch.from_numpy(arr.copy()).to(device)
 
 
+def _positions_cos_sin(cfg: ArchConfig, positions: torch.Tensor,
+                       pos3: Optional[torch.Tensor] = None):
+    """RoPE tables for ``positions`` (B, S); M-RoPE where the config has
+    sections, from ``pos3`` (3, B, S) or, without it, the positions
+    broadcast over the three components."""
+    if cfg.mrope_sections is not None:
+        if pos3 is None:
+            pos3 = positions[None].expand(3, *positions.shape)
+        return L.mrope_cos_sin(pos3, cfg.mrope_sections, cfg.head_dim, cfg.rope_theta)
+    return L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+
+
 def _block_apply(cfg: ArchConfig, mixer: str, ffn: str, p: Dict, x: torch.Tensor,
                  cos, sin, cache: Optional[Dict], cache_pos, ssd_chunk: int
-                 ) -> torch.Tensor:
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One layer; ``(x, aux)`` with the MoE aux loss (``None`` without MoE)."""
     gn = cfg.gemma_norms
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps, plus_one=gn)
     if mixer in ("attn", "local"):
@@ -138,6 +172,12 @@ def _block_apply(cfg: ArchConfig, mixer: str, ffn: str, p: Dict, x: torch.Tensor
             head_dim=cfg.head_dim, causal=cfg.causal,
             window=cfg.sliding_window if mixer == "local" else None,
             softcap=cfg.attn_softcap, q_scale=cfg.q_scale,
+            cache=cache, cache_pos=cache_pos)
+    elif mixer == "mla":
+        o, _ = L.mla_attention(
+            p["mixer"], h, cos, sin,
+            num_heads=cfg.num_heads, head_dim=cfg.head_dim,
+            rope_dim=cfg.mla_rope_dim, causal=cfg.causal,
             cache=cache, cache_pos=cache_pos)
     else:  # ssm
         o, _ = L.mamba2_mixer(
@@ -149,12 +189,21 @@ def _block_apply(cfg: ArchConfig, mixer: str, ffn: str, p: Dict, x: torch.Tensor
         o = L.rms_norm(o, p["ln1_post"], cfg.norm_eps, plus_one=True)
     x = x + o.to(x.dtype)
 
-    if ffn == "mlp":  # else "none"
-        f = L.swiglu_mlp(p["ffn"], L.rms_norm(x, p["ln2"], cfg.norm_eps, plus_one=gn))
+    aux = None
+    if ffn != "none":
+        h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps, plus_one=gn)
+        if ffn == "mlp":
+            f = L.swiglu_mlp(p["ffn"], h2)
+        elif ffn == "gelu_mlp":
+            f = L.gelu_mlp(p["ffn"], h2)
+        else:
+            f, aux = L.moe_ffn(
+                p["ffn"], h2, num_experts=cfg.num_experts, top_k=cfg.experts_per_token,
+                group_size=min(cfg.moe_group_size, h2.shape[0] * h2.shape[1]))
         if gn:
             f = L.rms_norm(f, p["ln2_post"], cfg.norm_eps, plus_one=True)
         x = x + f.to(x.dtype)
-    return x
+    return x, aux
 
 
 def _group(tree, g: int):
@@ -208,23 +257,30 @@ class LM:
     ) -> Tuple[torch.Tensor, Optional[List[Dict]], torch.Tensor]:
         """Returns ``(logits, cache, aux)``: float32 logits ``(B, S or 1,
         padded vocab)``, the cache (updated in place; ``None`` without
-        one) and a zero MoE aux loss."""
-        if embeds is not None or pos3 is not None:
-            raise _unported("embeds / pos3 inputs")
+        one) and the float32 MoE aux loss summed over the layers (0 without
+        MoE).  The input is ``tokens`` (B, S) or ``embeds`` (B, S, D), cast
+        to bf16 with no gemma scaling; ``pos3`` (3, B, S) gives M-RoPE's
+        position components (default: the positions on all three)."""
         cfg = self.cfg
         with torch.inference_mode():
-            x = params["embed"][tokens.long()].to(torch.bfloat16)
-            if cfg.gemma_norms:
-                x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+            if embeds is None:
+                x = params["embed"][tokens.long()].to(torch.bfloat16)
+                if cfg.gemma_norms:
+                    x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+            else:
+                x = embeds.to(torch.bfloat16)
             b, s = x.shape[0], x.shape[1]
             start = int(cache_pos) if cache_pos is not None else 0
             positions = (start + torch.arange(s, device=x.device))[None, :].expand(b, s)
-            cos, sin = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+            cos, sin = _positions_cos_sin(cfg, positions, pos3)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
             for g in range(cfg.num_groups):
                 for pos, (mixer, ffn) in enumerate(cfg.block_pattern):
                     c_in = _group(cache[pos], g) if cache is not None else None
-                    x = _block_apply(cfg, mixer, ffn, _group(params["blocks"][pos], g),
-                                     x, cos, sin, c_in, cache_pos, self.ssd_chunk)
+                    x, a = _block_apply(cfg, mixer, ffn, _group(params["blocks"][pos], g),
+                                        x, cos, sin, c_in, cache_pos, self.ssd_chunk)
+                    if a is not None:
+                        aux = aux + a
             x = L.rms_norm(x, params["final_norm"], cfg.norm_eps,
                            plus_one=cfg.gemma_norms)
             if last_only:
@@ -236,13 +292,20 @@ class LM:
             if logits.shape[-1] != cfg.vocab_size:  # mask vocab padding
                 pad = torch.arange(logits.shape[-1], device=x.device) >= cfg.vocab_size
                 logits = logits.masked_fill(pad, -1e30)
-            aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return logits, cache, aux
+
+    def loss(self, params, tokens, targets, embeds=None, pos3=None,
+             aux_weight: float = 0.01):
+        """The training loss: not ported yet (ROADMAP M12b-train)."""
+        raise _unported("LM.loss")
 
     # ------------------------------------------------------------ cache ----
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16) -> List[Dict]:
         """Stacked cache: one entry per pattern position, leaves with a
-        leading ``num_groups`` dim (as the parameters)."""
+        leading ``num_groups`` dim (as the parameters): ``{"k", "v"}`` of
+        (B, Hkv, T, Dh) for attention, MLA's latent ``{"c_kv": (B, T, r),
+        "k_r": (B, 1, T, rope)}``, and ``{"conv", "ssm"}`` for Mamba2 (its
+        SSM state in float32)."""
         cfg = self.cfg
         g = cfg.num_groups
         dev = self.device
@@ -252,6 +315,13 @@ class LM:
                 kv = (g, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
                 cache.append({"k": torch.zeros(kv, dtype=dtype, device=dev),
                               "v": torch.zeros(kv, dtype=dtype, device=dev)})
+            elif mixer == "mla":
+                cache.append({
+                    "c_kv": torch.zeros((g, batch, max_len, cfg.mla_kv_rank),
+                                        dtype=dtype, device=dev),
+                    "k_r": torch.zeros((g, batch, 1, max_len, cfg.mla_rope_dim),
+                                       dtype=dtype, device=dev),
+                })
             else:  # ssm
                 cache.append({
                     "conv": torch.zeros((g, batch, cfg.conv_width - 1, cfg.conv_dim),

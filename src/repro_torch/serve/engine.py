@@ -1,4 +1,5 @@
-"""Batched serving engine: prefill + decode over a shared KV/SSM cache.
+"""Batched serving engine: prefill + decode over a shared cache (KV rows,
+MLA's latent rows or SSM state, whatever the model's ``init_cache`` holds).
 
 The engine keeps a fixed-capacity batch of request slots (continuous
 batching: finished requests free their slot for the next queued request).
@@ -11,7 +12,9 @@ two faults of the reference included (ROADMAP queue 3): ``_prefill`` feeds
 the prompt one token at a time through a decode call over the whole slot
 batch, so it writes the prefilling token's k/v (and, for Mamba2, advances
 the SSM and conv state) in every slot, live ones included; and ``step``
-decodes every slot at ``max(pos)``.
+decodes every slot at ``max(pos)``.  With MoE every slot of a step routes
+in one group, so the slots share the experts' capacity, as in the
+reference.
 """
 from __future__ import annotations
 

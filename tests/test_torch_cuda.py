@@ -419,9 +419,11 @@ def test_flash_attention_wrapper_checks_operands(cuda_device):
         flash_attention(q.double(), k.double(), k.double())
     with pytest.raises(ValueError, match="one device"):
         flash_attention(q, k.cpu(), k)
-    with pytest.raises(ValueError, match="head dims"):
-        flash_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
-                        k[..., :32].contiguous())
+    with pytest.raises(ValueError, match="head dims"):  # above the padded route's 256
+        wide = torch.zeros((1, 2, 8, 288), device=cuda_device)
+        flash_attention(torch.zeros((1, 4, 8, 288), device=cuda_device), wide, wide)
+    with pytest.raises(ValueError, match="k's B, Hkv and T"):
+        flash_attention(q, k, torch.zeros((1, 2, 9, 64), device=cuda_device))
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3), k)
     with pytest.raises(ValueError, match="multiple"):
@@ -567,6 +569,71 @@ def test_flash_attention_wrapper_checks_layout_and_scale(cuda_device):
     assert out.shape == (1, 2, 16, 64)
 
 
+# K4's padded route: hubert-xlarge's head dim 80 (non-causal) and MLA's q/k
+# at 96 with v at 64 (minicpm3-4b), each run by the kernel at head dim 128
+FA_PADDED_CASES = [
+    (2, 4, 4, 200, 200, 80, 80, False),
+    (1, 3, 3, 129, 129, 80, 80, True),
+    (2, 4, 4, 200, 200, 96, 64, True),
+    (1, 5, 5, 70, 333, 96, 64, True),
+    (1, 2, 1, 100, 100, 48, 32, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,s,t,dqk,dv,causal", FA_PADDED_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_padded_head_dims(cuda_device, b, hq, hkv, s, t, dqk, dv,
+                                                 causal, dtype):
+    """One K4 launch a call at the padded head dim, at the true scale, the
+    output cut to v's head dim; against the unpadded float32 plain version."""
+    rng = np.random.default_rng(s * 7 + dqk)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+            cuda_device, dtype)
+
+    q, k, v = rand(b, hq, s, dqk), rand(b, hkv, t, dqk), rand(b, hkv, t, dv)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    again = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    assert got.shape == (b, hq, s, dv) and got.dtype == dtype
+    want = attention_plain(q.float(), k.float(), v.float(), causal=causal)
+    tol = 3e-2 if dtype == torch.bfloat16 else 2e-5
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.cpu().numpy(), atol=tol)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_moe_layer_on_the_card_matches_its_plain_version(cuda_device):
+    """olmoe-1b-7b's routing (64 experts, top 8, groups of 512) at a narrow
+    width: the bf16 einsum dispatch on the card against the float32
+    per-token plain version, and the routing equal to the CPU's."""
+    from repro_torch.models import layers
+
+    rng = np.random.default_rng(40)
+    d, e, k, f, t = 128, 64, 8, 64, 2048
+
+    def rand(shape, scale, dtype=torch.bfloat16):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(
+            cuda_device, dtype)
+
+    p = {"w_router": rand((d, e), 0.5, torch.float32), "w_gate": rand((e, d, f), 0.1),
+         "w_up": rand((e, d, f), 0.1), "w_down": rand((e, f, d), 0.1)}
+    x = rand((2, t // 2, d), 1.0)
+    got, aux = layers.moe_ffn(p, x, num_experts=e, top_k=k, group_size=512)
+    route = layers.moe_route(p, x.reshape(-1, 512, d), num_experts=e, top_k=k)
+    plain = layers.moe_plain(p, x, route)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(), plain.cpu().numpy(), atol=3e-2)
+    assert float(aux) > 0
+    cpu = layers.moe_route({kk: vv.cpu() for kk, vv in p.items()}, x.cpu().reshape(-1, 512, d),
+                           num_experts=e, top_k=k)
+    assert (route["idx"].cpu() == cpu["idx"]).float().mean() > 0.99
+
+
 # ----------------------------------------------------------------- K5 -----
 SSD_CASES = [  # b, s, h, g, p, n, chunk
     (2, 128, 4, 2, 32, 16, 32),
@@ -685,6 +752,34 @@ def test_reduced_lm_prefill_on_the_card(cuda_device, arch, s):
     want, _, _ = cpu.forward(params, toks)
     v = cfg.vocab_size
     np.testing.assert_allclose(got.cpu().numpy()[..., :v], want.numpy()[..., :v], atol=5e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "minicpm3-4b"])
+def test_reduced_moe_and_mla_prefill_on_the_card(cuda_device, arch):
+    """Reduced olmoe-1b-7b (MoE; head dim 16, K4's padded route) and
+    minicpm3-4b at its own MLA head dims (q/k 96, v 64): the card forward
+    launches K4 once a layer and matches the CPU forward within 5e-2, its
+    aux within 2e-3 relative."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import LM
+
+    cfg = reduced(get_config(arch))
+    if cfg.mla_kv_rank:
+        cfg = dataclasses.replace(cfg, head_dim=96, mla_rope_dim=32)
+    cpu = LM(cfg, device="cpu")
+    params = cpu.init(0)
+    card = LM(cfg, device=cuda_device)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 128)))
+    k4 = flash_attention.launches
+    got, _, aux = card.forward(_to_card(params, cuda_device), toks.to(cuda_device))
+    torch.cuda.synchronize()
+    assert flash_attention.launches - k4 == cfg.num_layers
+    want, _, aux_cpu = cpu.forward(params, toks)
+    v = cfg.vocab_size
+    np.testing.assert_allclose(got.cpu().numpy()[..., :v], want.numpy()[..., :v], atol=5e-2)
+    if cfg.num_experts:
+        assert abs(float(aux) - float(aux_cpu)) <= 2e-3 * float(aux_cpu)
 
 
 # ------------------------------------------- NA backward (K1 transposed) --

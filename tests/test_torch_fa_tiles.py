@@ -193,26 +193,28 @@ def test_tile_plan_at_head_dim_256_masks_three_tiles_a_causal_query_tile():
 
 
 def test_every_config_the_port_runs_has_a_head_dim_k4_takes():
-    """Each LM config whose mixers the port runs (``LM`` does not raise
-    NotImplementedError) and that has attention has a head dim that K4's
-    wrapper and its CUDA dispatch both take: gemma2-2b's 256 was once
-    refused on the card though the config ran on the CPU."""
+    """Each LM config the port runs (``LM`` constructs) and that has
+    attention has head dims K4's wrapper takes, natively or through its
+    padded route, at a head dim its CUDA dispatch takes: gemma2-2b's 256
+    was once refused on the card though the config ran on the CPU.  MLA
+    calls K4 with q and k at the head dim and v at the nope dim."""
     pytest.importorskip("torch")
     from repro_torch.configs import ARCHS
-    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    from repro_torch.kernels.flash_attention import HEAD_DIMS, padded_head_dim
     from repro_torch.models import LM
 
     assert tuple(sorted(HEAD_DIMS)) == tuple(sorted(HEAD_DIMS_CU))
-    runs = []
+    runs = {}
     for name, cfg in sorted(ARCHS.items()):
-        try:
-            LM(cfg, device="cpu")
-        except NotImplementedError:
-            continue
-        if any(mixer in ("attn", "local") for mixer, _ in cfg.block_pattern):
-            assert cfg.head_dim in HEAD_DIMS, (name, cfg.head_dim)
-            runs.append(name)
-    assert {"smollm-135m", "gemma2-2b", "minitron-4b"} <= set(runs)
+        LM(cfg, device="cpu")
+        mixers = {mixer for mixer, _ in cfg.block_pattern}
+        if mixers & {"attn", "local", "mla"}:
+            dv = cfg.head_dim - cfg.mla_rope_dim if "mla" in mixers else cfg.head_dim
+            runs[name] = padded_head_dim(cfg.head_dim, dv)
+            assert runs[name] in HEAD_DIMS_CU, (name, cfg.head_dim, dv)
+    assert {"smollm-135m", "gemma2-2b", "minitron-4b", "hubert-xlarge",
+            "minicpm3-4b"} <= set(runs)
+    assert runs["hubert-xlarge"] == runs["minicpm3-4b"] == 128  # Dh 80; q/k 96, v 64
 
 
 def test_tile_plan_runs_most_causal_tiles_unmasked():
