@@ -257,7 +257,52 @@ Phases, in order; any failure raises and the script exits non-zero:
    from ``embeds = embed[tokens]`` with the positions on all three M-RoPE
    components against its token forward within 5e-2.  Each phase prints
    its wall time.
-9. Report: one JSON line ``{"kernels": [...]}`` (K1 and K2 with their
+9. LM training, at full width and the reference's ``train_4k`` sequence
+   (S = 4096) on ``SyntheticTokens`` seed 0.  First the autograd
+   Functions alone: K4's (``FlashAttention``: the kernel forward, float32
+   autograd of the plain version recomputed backward) at smollm-135m's
+   layer (B = 4, 9 / 3 heads of 64, causal) and at gemma2-2b's local layer
+   (B = 1, 8 / 4 heads of 256, S = 8192, window 4096, softcap 50, queries
+   scaled so the logits reach the cap; its backward runs query tile by
+   query tile), dq, dk and dv against float32 autograd of
+   ``attention_plain`` per element and relative to each tensor's largest
+   entry, with two planted faults (a dk without the GQA group sum; a
+   backward without the softcap's derivative) that must read above the
+   gate; K5's (``SSDScan``) at mamba2-370m's layer, dx, da_log, db and dc
+   against float32 autograd of ``ssd_plain``, with a planted fault (the
+   inter-chunk state's gradient dropped).  Then card against CPU:
+   smollm-135m, mamba2-370m and granite-moe-1b-a400m cut to 2 layers at
+   full width, one step (B = 2, S = 256) from the same parameters and
+   batch on both: the loss within 2e-3, every gradient leaf within 5e-2 of
+   the leaf's largest entry (of the model's largest gradient entry where
+   the card routes some token to other experts than the CPU: near-tied
+   gates at random init; the count is printed), every new parameter
+   within 2 lr + 2^-7 |p| (an entry whose gradient is near 0 may take
+   AdamW's first step the other way); the aux term zeroed on the card
+   (granite) must read above the loss gate.  Then each model trains
+   through ``build_train_step`` at a constant lr (``TRAIN_RUNS``):
+   smollm-135m (30 layers, batch 8 as 2 microbatches of 4,
+   ``remat="full"``, 6 steps on batches ``step % 2``), mamba2-370m (48
+   layers, batch 4, 6 steps) and granite-moe-1b-a400m (24 layers, batch 2,
+   4 steps).  Gates: finite losses that decrease (each step's loss below
+   that of the step two before it on the same batch); K4 and K5 launches
+   in every step equal to microbatches x 2 x the model's attention or SSM
+   layers (counters set to 0 just before each step and read just after:
+   120, 96 and 48); two steps from one state and batch bitwise equal under
+   ``torch.use_deterministic_algorithms(True)``.  On smollm-135m also:
+   ``FaultTolerantRunner`` with checkpoints every 2 steps and a fault
+   injected at step 3 restores once and ends its 4 steps bitwise on the
+   uninterrupted run's state; 2 microbatches against one batch of 8 (loss
+   within 1e-4, the first moments, 0.1 x the clipped gradients, within
+   2e-2 of each leaf's largest entry); a step with
+   ``use_compression=True`` finite with non-zero residuals; and
+   ``launch/train.py``'s ``main`` (2 steps, ``remat="none"``: K4 once a
+   layer a microbatch).  Readings per model, with the card's name and
+   power limit: step ms (CUDA-event median of the run's steps after the
+   first) and tokens/s, the forward / backward / optimizer split, a
+   profiled step's device busy share and the shares of K4, K5 and the
+   float32 attention and SSD backward, and peak memory.
+10. Report: one JSON line ``{"kernels": [...]}`` (K1 and K2 with their
    launches per train step by model, K1 with its launches in one
    dependency forward, rows for K1 and K2 over phase 3c's sliced packings,
    rows for K1 and K2 over phase 3d's spliced packing, rows for K1 and
@@ -275,6 +320,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -3060,11 +3106,12 @@ def lm_inputs(model, params, gen, b, s) -> dict:
     return {"embeds": params["embed"][tokens], "pos3": grid[:, None].expand(3, b, s)}
 
 
-def spanned_profile(label: str, fn, spans) -> dict:
+def spanned_profile(label: str, fn, spans, warm: bool = True) -> dict:
     """Device time of one warm call of ``fn`` (torch.profiler), in total,
     in K4 (``fa_forward``) and in each of ``spans`` ((label, module,
     attribute) wrapped in a ``record_function`` range for the run; a
-    range's device time is that of the kernels launched inside it).  With
+    range's device time is that of the kernels launched inside it; ``warm``
+    runs ``fn`` once first, for a call already warm).  With
     an ``ffn`` span (``moe_ffn``), ``build`` is its time outside the other
     spans: building the dispatch and combine tensors."""
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -3079,7 +3126,8 @@ def spanned_profile(label: str, fn, spans) -> dict:
     for (name, mod, attr), (_, _, f) in zip(spans, saved):
         setattr(mod, attr, labelled(name, f))
     try:
-        fn()
+        if warm:
+            fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -3092,7 +3140,9 @@ def spanned_profile(label: str, fn, spans) -> dict:
     rows = [r for r in _device_events(prof) if not r[2].startswith("span::")]
     busy = sum(r[0] for r in rows) / 1e3
     k4 = [r for r in rows if "fa_forward" in r[2]]
+    k5 = [r for r in rows if kernel_name(r[2]).split("<")[0] in K5_PASSES]
     out = {"wall_ms": wall, "busy_ms": busy, "k4_ms": sum(r[0] for r in k4) / 1e3,
+           "k5_ms": sum(r[0] for r in k5) / 1e3,
            "k4_launches_traced": sum(r[1] for r in k4), "launches": sum(r[1] for r in rows)}
     for name, _, _ in spans:
         evs = [e for e in prof.events() if e.name == f"span::{name}"
@@ -3452,6 +3502,585 @@ def lm_new_phases(dev, card: str) -> dict:
     return results
 
 
+# ---------------------------------------------------------- phase 9 ----
+TRAIN_SEQ = 4096  # the reference's train_4k sequence (models/config.py:132)
+# arch -> (global batch, microbatches, remat, steps, lr): full width,
+# SyntheticTokens seed 0, a constant lr.  AdamW's first steps move every
+# entry by about lr, which at full width overshoots on the larger models
+# (on the H100 smollm's loss rose at lr 1e-3 and granite's at 3e-4; PERF.md
+# section 6), so the rate falls with the parameter count.
+TRAIN_RUNS = {
+    "smollm-135m": (8, 2, "full", 6, 3e-4),
+    "mamba2-370m": (4, 1, "full", 6, 1e-4),
+    "granite-moe-1b-a400m": (2, 1, "full", 4, 3e-5),
+}
+CARD_CPU_LR = 3e-4  # the card-against-CPU step's rate
+LAUNCH_TRAIN_STEPS = 2  # launch/train.py's main, once
+RESUME_FAULT_STEP, RESUME_CKPT_EVERY = 3, 2
+# The Functions' backward is float32 autograd of the plain versions, cast
+# to the inputs' dtypes: K4's bf16 dq, dk and dv round once (2^-9 of an
+# entry), so each is held per element to 2^-8 |ref| + 1e-3 max|ref| and in
+# all to 4e-3 of its largest entry.  A dk without the GQA group sum misses
+# by about 2/3 of it.  K5's are float32 of the same function: 1e-4.
+FN_BF16_RTOL, FN_BF16_ATOL, FN_BF16_MAXREL = 2 ** -8, 1e-3, 4e-3
+FN_F32_MAXREL = 1e-4
+# gemma2-2b's local layer: queries scaled so the logits reach the softcap
+# (std about 25 against a cap of 50), where its derivative is 0.79, not 1
+K4_FN_SOFTCAP_Q_SCALE = 25.0
+# card against CPU, 2 layers at full width: bf16 parameters and gradients
+# round at other places on the two devices (tests/test_torch_lm_train.py
+# holds the CPU port to the reference within the same 5e-2)
+CARD_CPU_LEAF_RTOL = 5e-2
+CARD_CPU_LOSS_TOL = 2e-3  # 0.01 x aux (about 1) dropped moves the loss by 1e-2
+CARD_CPU_BATCH, CARD_CPU_SEQ = 2, 256
+MB_LEAF_RTOL = 2e-2  # 2 microbatches of 4 against one of 8: bf16 gradients round per batch
+
+
+def _max_rel(got, want) -> float:
+    """max |got - want| over max |want| (float32)."""
+    want = want.float()
+    return ((got.float() - want).abs().max() / want.abs().max().clamp(min=1e-30)).item()
+
+
+def _bf16_gate(got, want) -> tuple:
+    """(per-element worst ratio to its bound, max-relative error) of a bf16
+    gradient against its float32 reference."""
+    want = want.float()
+    err = (got.float() - want).abs()
+    bound = FN_BF16_RTOL * want.abs() + FN_BF16_ATOL * want.abs().max()
+    return (err / bound).max().item(), _max_rel(got, want)
+
+
+def _attention_grads_f32(q, k, v, g, causal, window, softcap, straight_through_cap=False,
+                         no_group_sum=False):
+    """float32 autograd of the plain attention at (q, k, v): the gate's
+    reference, and its planted faults (the softcap's derivative dropped;
+    dk and dv of each group's first head alone, no GQA group sum)."""
+    from repro_torch.kernels.flash_attention import attention_plain
+
+    qf, kf, vf = (t.detach().float().requires_grad_(True) for t in (q, k, v))
+    grp = q.shape[1] // k.shape[1]
+    with torch.enable_grad():
+        if not (straight_through_cap or no_group_sum):
+            out = attention_plain(qf, kf, vf, causal=causal, window=window, softcap=softcap)
+            return torch.autograd.grad(out, (qf, kf, vf), g.float())
+        kr = kf.repeat_interleave(grp, dim=1)
+        vr = vf.repeat_interleave(grp, dim=1)
+        logits = (qf @ kr.transpose(-1, -2)) * q.shape[-1] ** -0.5
+        if softcap is not None:
+            capped = softcap * torch.tanh(logits / softcap)
+            logits = logits + (capped - logits).detach() if straight_through_cap else capped
+        s, t = q.shape[2], k.shape[2]
+        qpos = torch.arange(s, device=q.device)[:, None] + (t - s)
+        kpos = torch.arange(t, device=q.device)[None, :]
+        mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos <= qpos
+        if window is not None:
+            mask &= kpos > qpos - window
+        p = torch.softmax(logits.masked_fill(~mask, -1e30), dim=-1)
+        out = p @ vr
+        dq, dkr, dvr = torch.autograd.grad(out, (qf, kr, vr), g.float())
+    if no_group_sum:
+        return dq, dkr[:, ::grp], dvr[:, ::grp]
+    return dq, dkr.reshape(k.shape[0], k.shape[1], grp, *k.shape[2:]).sum(2), \
+        dvr.reshape(v.shape[0], v.shape[1], grp, *v.shape[2:]).sum(2)
+
+
+def k4_function_gate(dev, gen, label, b, hq, hkv, s, dh, causal=True, window=None,
+                     softcap=None, q_scale=1.0) -> dict:
+    """K4's autograd Function at one layer: forward through the kernel,
+    dq / dk / dv against float32 autograd of the plain version, planted
+    faults read in the same run, and its backward's time."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q = _randn(gen, (b, hq, s, dh), dev, torch.bfloat16, scale=q_scale).requires_grad_(True)
+    k = _randn(gen, (b, hkv, s, dh), dev, torch.bfloat16).requires_grad_(True)
+    v = _randn(gen, (b, hkv, s, dh), dev, torch.bfloat16).requires_grad_(True)
+    g = _randn(gen, (b, hq, s, dh), dev, torch.bfloat16)
+    before = fa.flash_attention.launches
+    out = fa.FlashAttention.apply(q, k, v, causal, window, softcap, None)
+    require(fa.flash_attention.launches == before + 1, f"K4 Function {label}: no K4 launch")
+    got = torch.autograd.grad(out, (q, k, v), g)
+    want = _attention_grads_f32(q, k, v, g, causal, window, softcap)
+    reads = {n: _bf16_gate(a, w) for n, a, w in zip(("dq", "dk", "dv"), got, want)}
+    faults = {"dk without the GQA group sum": _max_rel(
+        _attention_grads_f32(q, k, v, g, causal, window, softcap, no_group_sum=True)[1],
+        want[1])}
+    if softcap is not None:
+        faults["softcap derivative dropped"] = max(_max_rel(a, w) for a, w in zip(
+            _attention_grads_f32(q, k, v, g, causal, window, softcap,
+                                 straight_through_cap=True), want))
+    for n, (ratio, rel) in reads.items():
+        print(f"K4 Function {label}: {n} per-element error at {ratio:.3f}x its bound "
+              f"(2^-8 |ref| + 1e-3 max|ref|), max-relative {rel:.3e} (gate {FN_BF16_MAXREL})")
+        require(ratio <= 1.0 and rel <= FN_BF16_MAXREL, f"K4 Function {label}: {n} disagrees")
+    for n, rel in faults.items():
+        print(f"K4 Function {label}: planted fault ({n}) reads {rel:.3e}, "
+              f"{rel / FN_BF16_MAXREL:.1f}x the gate")
+        require(rel > FN_BF16_MAXREL, f"K4 Function gate {label} would pass: {n}")
+    bwd_ms = median_ms(lambda: fa.attention_vjp(q.detach(), k.detach(), v.detach(), g,
+                                                causal, window, softcap), reps=3, warmup=1)
+    fwd_ms = median_ms(lambda: fa.flash_attention(q.detach(), k.detach(), v.detach(),
+                                                  causal, window, softcap), reps=10)
+    print(f"K4 Function {label}: forward (K4) {fwd_ms:.4f} ms, backward (float32 plain "
+          f"recomputed) {bwd_ms:.4f} ms, on {card_line()}")
+    return {"label": label, "max_rel": {n: r[1] for n, r in reads.items()},
+            "faults": faults, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms}
+
+
+def _ssd_grads_f32(x, a, b, c, gy, chunk, drop_state_grad=False):
+    """float32 autograd of the plain SSD scan; the planted fault detaches
+    the state carried from chunk to chunk (its gradient dropped)."""
+    from repro_torch.kernels import ssd_scan as ks
+
+    live = [t.detach().float().requires_grad_(True) for t in (x, a, b, c)]
+    with torch.enable_grad():
+        if drop_state_grad:
+            y = torch.cat([ks.ssd_plain(*(t[:, c0:c0 + chunk] for t in live), chunk=chunk)
+                           for c0 in range(0, x.shape[1], chunk)], dim=1)
+            # each chunk alone plus the carried state's output, held constant
+            full = ks.ssd_plain(*[t.detach() for t in live], chunk=chunk)
+            y = y + (full - y).detach()
+        else:
+            y = ks.ssd_plain(*live, chunk=chunk)
+        return torch.autograd.grad(y, live, gy)
+
+
+def k5_function_gate(dev, gen, b, s, h, g, p, n, chunk) -> dict:
+    """K5's autograd Function at mamba2-370m's layer: forward through the
+    kernel, gradients against float32 autograd of the plain version, a
+    planted fault (no gradient through the inter-chunk state)."""
+    from repro_torch.kernels import ssd_scan as ks
+
+    x = _randn(gen, (b, s, h, p), dev).requires_grad_(True)
+    a = (-_randn(gen, (b, s, h), dev).abs() * 0.1).requires_grad_(True)
+    bc = _randn(gen, (b, s, g, n), dev, scale=0.3).requires_grad_(True)
+    cc = _randn(gen, (b, s, g, n), dev, scale=0.3).requires_grad_(True)
+    gy = _randn(gen, (b, s, h, p), dev)
+    before = ks.ssd_scan.launches
+    y = ks.SSDScan.apply(x, a, bc, cc, chunk)
+    require(ks.ssd_scan.launches == before + 1, "K5 Function: no K5 launch")
+    got = torch.autograd.grad(y, (x, a, bc, cc), gy)
+    want = _ssd_grads_f32(x, a, bc, cc, gy, chunk)
+    fault = _ssd_grads_f32(x, a, bc, cc, gy, chunk, drop_state_grad=True)
+    names = ("dx", "da_log", "db", "dc")
+    rels = {nm: _max_rel(u, w) for nm, u, w in zip(names, got, want)}
+    frel = max(_max_rel(u, w) for u, w in zip(fault, want))
+    print(f"K5 Function B={b} S={s} H={h} P={p} N={n}: max-relative errors "
+          f"{ {k: f'{v:.2e}' for k, v in rels.items()} } (gate {FN_F32_MAXREL}); planted "
+          f"fault (inter-chunk state's gradient dropped) reads {frel:.3e}, "
+          f"{frel / FN_F32_MAXREL:.1f}x the gate")
+    require(max(rels.values()) <= FN_F32_MAXREL, f"K5 Function disagrees: {rels}")
+    require(frel > FN_F32_MAXREL, "K5 Function gate would pass a dropped state gradient")
+    bwd_ms = median_ms(lambda: ks.SSDScan.backward(
+        type("Ctx", (), {"saved_tensors": (x.detach(), a.detach(), bc.detach(), cc.detach()),
+                         "chunk": chunk})(), gy), reps=3, warmup=1)
+    print(f"K5 Function: backward (float32 plain recomputed) {bwd_ms:.4f} ms")
+    return {"max_rel": rels, "fault": frel, "bwd_ms": bwd_ms}
+
+
+def _train_cfg(arch, layers=None):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
+
+
+def card_against_cpu(dev, arch) -> dict:
+    """One train step of ``arch`` cut to 2 layers at full width on the card
+    and on the CPU from the same parameters and batch: the loss, every
+    gradient leaf and every new parameter; the aux term zeroed on the card
+    is the planted fault (granite-moe)."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import LM
+    from repro_torch.train import SyntheticTokens, tree_map, value_and_grad
+    from repro_torch.train.train_step import build_train_step, init_train_state
+
+    cfg = _train_cfg(arch, 2)
+    out = {}
+    data = SyntheticTokens(cfg.vocab_size, CARD_CPU_SEQ, CARD_CPU_BATCH, seed=SEED)
+    tok_np, tgt_np = data.host_batch(0)
+    state_cpu = init_train_state(LM(cfg, device="cpu", remat="full"), SEED)
+    routes = {}
+    for device in ("cpu", dev):
+        model = LM(cfg, device=device, remat="full")
+        state = tree_map(lambda t: t.to(device), state_cpu)
+        tok = torch.from_numpy(tok_np).to(device)
+        tgt = torch.from_numpy(tgt_np).to(device)
+        with _RouteLog() as log:
+            loss, (grads,) = value_and_grad(lambda p: model.loss(p, tok, tgt), state.params)
+        routes[str(device)] = log.idx
+        step, _ = build_train_step(model, make_debug_mesh(1, 1, device=device),
+                                   CARD_CPU_BATCH, lr=CARD_CPU_LR)
+        new, metrics = step(state, tok, tgt)
+        out[str(device)] = (loss, grads, new.params, metrics)
+        if device == dev and cfg.num_experts:
+            out["fault"] = value_and_grad(
+                lambda p: model.loss(p, tok, tgt, aux_weight=0.0), state.params)
+    (l_c, g_c, p_c, m_c), (l_d, g_d, p_d, m_d) = out["cpu"], out[str(dev)]
+    loss_err = abs(float(l_c) - float(l_d))
+    flips = sum(int((a != b).any(-1).sum()) for a, b in zip(routes["cpu"], routes[str(dev)]))
+    g_rel = _grad_rel(g_d, g_c, model_scale=flips > 0)
+    g_worst = max(g_rel.values())
+    print(f"card vs CPU {arch}: {flips} token-layer routes of {sum(r[..., 0].numel() for r in routes['cpu'])} "
+          "pick other experts on the card; worst gradient leaves "
+          + ", ".join(f"{k} {v:.3e}" for k, v in sorted(g_rel.items(), key=lambda kv: -kv[1])[:3])
+          + (" (of the model's largest gradient entry)" if flips else ""))
+    p_worst = _param_ratio(p_d, p_c)
+    print(f"card vs CPU {arch} (2 layers, full width, B={CARD_CPU_BATCH}, "
+          f"S={CARD_CPU_SEQ}): loss {float(l_d):.6f} vs {float(l_c):.6f} (|diff| "
+          f"{loss_err:.2e}, gate {CARD_CPU_LOSS_TOL}); worst gradient leaf {g_worst:.3e} "
+          f"of the leaf's largest entry (gate {CARD_CPU_LEAF_RTOL}); new parameters at "
+          f"{p_worst:.3f}x their bound (2 lr + 2^-7 max |p|); grad_norm "
+          f"{float(m_d['grad_norm']):.5f} vs {float(m_c['grad_norm']):.5f}")
+    require(loss_err <= CARD_CPU_LOSS_TOL, f"card and CPU losses differ for {arch}")
+    require(g_worst <= CARD_CPU_LEAF_RTOL, f"card and CPU gradients differ for {arch}")
+    require(p_worst <= 1.0, f"card and CPU new parameters differ for {arch}")
+    row = {"loss_err": loss_err, "grad_max_rel": g_worst, "param_bound_ratio": p_worst,
+           "route_flips": flips}
+    if "fault" in out:
+        fl, (fg,) = out["fault"]
+        f_loss = abs(float(fl) - float(l_c))
+        f_grad = max(_grad_rel(fg, g_c).values())
+        print(f"card vs CPU {arch}: planted fault (aux term zeroed on the card) reads loss "
+              f"{f_loss:.3e} ({f_loss / CARD_CPU_LOSS_TOL:.1f}x its gate), worst gradient "
+              f"leaf {f_grad:.3e} ({f_grad / CARD_CPU_LEAF_RTOL:.1f}x its gate)")
+        require(f_loss > CARD_CPU_LOSS_TOL,
+                f"card-vs-CPU gate would pass a dropped aux term ({arch})")
+        row["fault"] = {"loss": f_loss, "grad_max_rel": f_grad}
+    return row
+
+
+def _grad_rel(g_d, g_c, model_scale: bool = False) -> dict:
+    """Leaf path -> max |card - CPU| over the leaf's largest entry, or with
+    ``model_scale`` over the model's largest gradient entry (for a MoE
+    model whose routing differs between the devices: a token routed to
+    another expert moves the gradient of every leaf upstream of it)."""
+    from repro_torch.train import tree_leaves
+
+    model_max = max(x.float().abs().max().item() for x in tree_leaves(g_c))
+    out = {}
+    for path, a, b in zip(leaf_paths(g_c), tree_leaves(g_d), tree_leaves(g_c)):
+        err = (a.cpu().float() - b.float()).abs().max().item()
+        scale = model_max if model_scale else b.float().abs().max().item()
+        out[path] = err / max(scale, 1e-30)
+    return out
+
+
+class _RouteLog:
+    """Records the experts ``moe_route`` picks (its ``idx``) while active."""
+
+    def __init__(self):
+        self.idx = []
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+
+        self._orig = L.moe_route
+
+        def logged(*args, **kwargs):
+            r = self._orig(*args, **kwargs)
+            self.idx.append(r["idx"].detach().sort(dim=-1).values.cpu())
+            return r
+
+        L.moe_route = logged
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers as L
+
+        L.moe_route = self._orig
+
+
+def _param_ratio(new_d, new_c) -> float:
+    """The worst ratio, over every parameter entry, of |card - CPU| to
+    ``2 lr + 2^-7 max(|card|, |CPU|)``.  AdamW's first step moves an entry
+    by ``lr`` times the sign of its gradient, so an entry whose gradient is
+    near 0 may step the other way on the other device (2 lr apart); each
+    side then rounds to bf16, by up to half a step, at most 2^-8 of its
+    magnitude."""
+    from repro_torch.train import tree_leaves
+
+    worst = 0.0
+    for a, b in zip(tree_leaves(new_d), tree_leaves(new_c)):
+        a32, b32 = a.cpu().float(), b.float()
+        bound = 2 * CARD_CPU_LR + 2 ** -7 * torch.maximum(a32.abs(), b32.abs())
+        worst = max(worst, ((a32 - b32).abs() / bound).max().item())
+    return worst
+
+
+def _state_equal(a, b) -> bool:
+    from repro_torch.train import tree_leaves
+
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def train_readings(arch, model, state, step_fn, tok, tgt, microbatches, lr,
+                   step_ms) -> dict:
+    """Readings around the training run's step times (``step_ms``,
+    CUDA-event medians): tokens/s, the forward / backward / optimizer
+    split, a profiled step (device busy share, K4, K5 and the float32
+    attention / SSD backward's shares) and peak memory."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ks
+    from repro_torch.train import (adamw_update, clip_by_global_norm, tree_map,
+                                   value_and_grad)
+
+    rows = tok.shape[0] // microbatches
+    mtok, mtgt = tok[:rows], tgt[:rows]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    def forward():
+        with torch.enable_grad():
+            return model.loss(tree_map(lambda p: p.detach().requires_grad_(True),
+                                       state.params), mtok, mtgt)
+
+    fwd_ms = median_ms(forward, reps=1, warmup=0)
+    fb_ms = median_ms(lambda: value_and_grad(lambda p: model.loss(p, mtok, mtgt),
+                                             state.params), reps=1, warmup=1)
+    _, (grads,) = value_and_grad(lambda p: model.loss(p, mtok, mtgt), state.params)
+
+    def optimizer():
+        gr, _ = clip_by_global_norm(grads, 1.0)
+        return adamw_update(gr, state.opt, state.params, lr)
+
+    opt_ms = median_ms(optimizer, reps=3, warmup=1)
+    del grads
+    spans = [("attn_bwd", fa, "attention_vjp"), ("ssd_bwd", ks.SSDScan, "backward")]
+    prof = spanned_profile(f"train step {arch}", lambda: step_fn(state, tok, tgt), spans,
+                           warm=False)
+    busy = prof["busy_ms"]
+    toks = tok.shape[0] * tok.shape[1]
+    row = {"step_ms": step_ms, "tokens_per_s": toks / step_ms * 1e3,
+           "forward_ms_per_microbatch": fwd_ms,
+           "backward_ms_per_microbatch": fb_ms - fwd_ms, "optimizer_ms": opt_ms,
+           "microbatches": microbatches, "peak_gib": peak, "profile_wall_ms": prof["wall_ms"],
+           "busy_ms": busy, "busy_share": busy / prof["wall_ms"],
+           "k4_share": prof["k4_ms"] / busy if busy else None,
+           "k5_share": prof["k5_ms"] / busy if busy else None,
+           "attn_bwd_share": prof["attn_bwd_ms"] / busy if busy else None,
+           "ssd_bwd_share": prof["ssd_bwd_ms"] / busy if busy else None}
+    print(f"train {arch}: step {step_ms:.1f} ms (CUDA-event median of the training run's "
+          f"steps after the first), {row['tokens_per_s']:.0f} tokens/s; per microbatch of "
+          f"{rows}: forward {fwd_ms:.1f} ms, backward {fb_ms - fwd_ms:.1f} ms; optimizer "
+          f"(clip + AdamW) {opt_ms:.1f} ms; peak memory {peak:.2f} GiB; device busy "
+          f"{100 * row['busy_share']:.1f}% of a profiled step; shares of the device time: "
+          + ", ".join(f"{k} {100 * row[k + '_share']:.1f}%" for k in
+                      ("k4", "k5", "attn_bwd", "ssd_bwd") if row[k + "_share"] is not None)
+          + f"; on {card_line()}")
+    return row
+
+
+def train_model(dev, arch, ckpt_root) -> dict:
+    """Full-width training of ``arch`` through ``build_train_step``:
+    losses, launch counts and CUDA-event time of every step, a bitwise
+    repeat under deterministic algorithms, readings; for smollm-135m also
+    the resume (through ``FaultTolerantRunner``), microbatch, compression
+    and ``launch/train.py`` gates."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import LM
+    from repro_torch.train import SyntheticTokens
+    from repro_torch.train.train_step import build_train_step, init_train_state
+
+    t_phase = time.perf_counter()
+    batch, mb, remat, steps, lr = TRAIN_RUNS[arch]
+    cfg = _train_cfg(arch)
+    model = LM(cfg, device=dev, remat=remat)
+    mesh = make_debug_mesh(1, 1, device=dev)
+    state0 = init_train_state(model, SEED)
+    step_fn, specs = build_train_step(model, mesh, batch, lr=lr, microbatches=mb)
+    data = SyntheticTokens(cfg.vocab_size, TRAIN_SEQ, batch, seed=SEED)
+    batches = [tuple(torch.from_numpy(a).to(dev) for a in data.host_batch(i)) for i in (0, 1)]
+    per_fwd = launches_per_forward(cfg)
+    want = {k: mb * (2 if remat != "none" else 1) * n for k, n in per_fwd.items()}
+
+    # the training run: each step's launches (counters set to 0 just
+    # before it, read just after), loss and CUDA-event time
+    losses, counts, times = [], [], []
+
+    def counted(state, tok, tgt):
+        flash_attention.launches = ssd_scan.launches = 0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step_fn(state, tok, tgt)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        counts.append({"flash_attention": flash_attention.launches,
+                       "ssd_scan": ssd_scan.launches})
+        losses.append(float(m["loss"]))
+        return state, m
+
+    torch.cuda.reset_peak_memory_stats()
+    state, at_resume = state0, None
+    for i in range(steps):
+        state, _ = counted(state, *batches[i % 2])
+        if i == RESUME_FAULT_STEP:  # the state the resume gate's run ends on
+            at_resume = state
+    del state
+    print(f"train {arch} (full width, {cfg.num_layers} layers, B={batch} as {mb} "
+          f"microbatch(es), S={TRAIN_SEQ}, remat={remat}, lr {lr}): losses "
+          f"{[round(x, 4) for x in losses]}; step ms {[round(t, 1) for t in times]}; "
+          f"K4 / K5 launches a step {counts[0]} (expected {want})")
+    require(all(math.isfinite(x) for x in losses), f"{arch}: non-finite loss {losses}")
+    require(losses[-2] < losses[0] and losses[-1] < losses[1],
+            f"{arch}: the loss did not decrease over the steps {losses}")
+    require(all(c == want for c in counts), f"{arch}: launches a step {counts}, expected {want}")
+
+    # bitwise repeat of one step under deterministic algorithms
+    torch.use_deterministic_algorithms(True)
+    try:
+        s1, m1 = step_fn(state0, *batches[0])
+        s2, m2 = step_fn(state0, *batches[0])
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = _state_equal(s1, s2) and torch.equal(m1["loss"], m2["loss"])
+    print(f"train {arch}: two steps from one state and batch under "
+          f"torch.use_deterministic_algorithms(True) bitwise equal: {same}")
+    require(same, f"{arch}: two steps from one state differ")
+    del s2
+    row = {"losses": losses, "step_ms_each": times, "launches_per_step": counts[0],
+           "expected": want}
+    if arch == "smollm-135m":
+        row.update(smollm_gates(dev, model, mesh, state0, at_resume, step_fn, batches,
+                                ckpt_root, (s1, m1)))
+    del s1, at_resume
+    row.update(train_readings(arch, model, state0, step_fn, *batches[0], mb, lr,
+                              statistics.median(times[1:])))
+    print(f"phase 9 {arch}: {time.perf_counter() - t_phase:.1f} s of wall time")
+    return row
+
+
+def smollm_gates(dev, model, mesh, state0, clean, step_fn, batches, ckpt_root,
+                 first) -> dict:
+    """smollm-135m: the runner resumed after an injected fault, bitwise the
+    uninterrupted run's state after as many steps (``clean``); 2
+    microbatches against one batch of 8; a compressed step; and
+    ``launch/train.py``'s ``main`` once (remat none)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import CheckpointManager, tree_leaves
+    from repro_torch.train.fault_tolerance import FaultTolerantRunner
+    from repro_torch.train.train_step import build_train_step
+
+    batch, mb, _, _, lr = TRAIN_RUNS["smollm-135m"]
+    resume_steps = RESUME_FAULT_STEP + 1
+    out = {}
+    # resume: fault at step 3, checkpoints every 2 steps
+    fired = []
+
+    def hook(step):
+        if step == RESUME_FAULT_STEP and not fired:
+            fired.append(step)
+            raise RuntimeError("injected device failure")
+
+    ckpt = CheckpointManager(str(Path(ckpt_root) / "smollm-resume"), keep=2)
+    runner = FaultTolerantRunner(step_fn, lambda i: batches[i % 2], ckpt,
+                                 ckpt_every=RESUME_CKPT_EVERY, fault_hook=hook)
+    resumed, stats = runner.run(state0, 0, resume_steps)
+    bitwise = _state_equal(resumed, clean)
+    print(f"resume smollm-135m: fault at step {RESUME_FAULT_STEP}, checkpoints every "
+          f"{RESUME_CKPT_EVERY}: failures {stats.failures}, restores {stats.restores}, "
+          f"steps done {stats.steps_done}; its state after {resume_steps} steps bitwise "
+          f"the uninterrupted run's: {bitwise}")
+    require(stats.failures == 1 and stats.restores == 1, f"resume: {stats}")
+    require(bitwise, "the resumed state differs from the uninterrupted run's")
+    out["resume"] = {"failures": stats.failures, "restores": stats.restores,
+                     "bitwise": bitwise}
+    del resumed
+
+    # 2 microbatches of 4 against one batch of 8, compared through the
+    # step's first moments (0.1 x the clipped gradient)
+    one_fn, _ = build_train_step(model, mesh, batch, lr=lr, microbatches=1)
+    one, m_one = one_fn(state0, *batches[0])
+    two, m_two = first
+    loss_err = abs(float(m_one["loss"]) - float(m_two["loss"]))
+    rel = max(_max_rel(a, b) for a, b in zip(tree_leaves(two.opt.mu), tree_leaves(one.opt.mu)))
+    print(f"microbatches smollm-135m: 2 x 4 against 1 x 8: loss {float(m_two['loss']):.6f} "
+          f"vs {float(m_one['loss']):.6f} (|diff| {loss_err:.2e}, gate 1e-4); worst "
+          f"gradient leaf (first moment) {rel:.3e} of its largest entry (gate "
+          f"{MB_LEAF_RTOL})")
+    require(loss_err <= 1e-4 and rel <= MB_LEAF_RTOL, "microbatched gradients disagree")
+    out["microbatch_gate"] = {"loss_err": loss_err, "grad_max_rel": rel}
+    del one
+
+    # a compressed step
+    from repro_torch.train.train_step import init_train_state
+
+    comp_fn, _ = build_train_step(model, mesh, batch, lr=lr, microbatches=mb,
+                                  use_compression=True)
+    cstate = init_train_state(model, SEED, use_compression=True)
+    cstate, m_c = comp_fn(cstate, *batches[0])
+    res_nonzero = sum(bool(r.abs().max() > 0) for r in tree_leaves(cstate.residuals))
+    print(f"compression smollm-135m: loss {float(m_c['loss']):.6f}, finite "
+          f"{math.isfinite(float(m_c['loss']))}; {res_nonzero} of "
+          f"{len(tree_leaves(cstate.residuals))} residual leaves non-zero")
+    require(math.isfinite(float(m_c["loss"])) and all(
+        bool(torch.isfinite(p).all()) for p in tree_leaves(cstate.params)),
+        "compressed step not finite")
+    require(res_nonzero > 0, "compressed step left every residual zero")
+    out["compression"] = {"loss": float(m_c["loss"]), "residuals_nonzero": res_nonzero}
+    del cstate
+
+    # launch/train.py's main: remat none, so K4 launches once a layer a microbatch
+    before = flash_attention.launches
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    steps = LAUNCH_TRAIN_STEPS
+    state, stats = launch_train.main([
+        "--arch", "smollm-135m", "--steps", str(steps), "--batch", str(batch),
+        "--seq", str(TRAIN_SEQ), "--microbatches", str(mb), "--ckpt-every", "100",
+        "--ckpt-dir", str(Path(ckpt_root) / "launch"), "--device", torch.device(dev).type])
+    k4 = flash_attention.launches
+    flash_attention.launches = before
+    from repro_torch.configs import get_config
+
+    want = steps * mb * launches_per_forward(get_config("smollm-135m"))["flash_attention"]
+    print(f"launch/train.py smollm-135m: {stats.steps_done} steps, final loss "
+          f"{stats.last_loss:.4f}, {time.perf_counter() - t0:.1f} s; K4 launches {k4} "
+          f"(remat none: {want} expected)")
+    require(stats.steps_done == steps and math.isfinite(stats.last_loss),
+            "launch/train.py did not train")
+    require(k4 == want, f"launch/train.py launched K4 {k4} times, expected {want}")
+    out["launch_train"] = {"steps": stats.steps_done, "final_loss": stats.last_loss,
+                           "k4_launches": k4, "k4_launches_per_step_remat_none": k4 // steps}
+    return out
+
+
+def phase_lm_train(dev, card: str) -> dict:
+    """Phase 9: LM training on the card (K4 and K5 Functions, card against
+    CPU, full-width training of three models with its gates, readings)."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    fn_rows = {
+        "smollm-135m": k4_function_gate(dev, gen, "smollm-135m layer", 4, 9, 3, TRAIN_SEQ, 64),
+        "gemma2-2b local": k4_function_gate(
+            dev, gen, "gemma2-2b local layer", *K4_GEMMA_LOCAL[:5], window=K4_GEMMA_LOCAL[5],
+            softcap=K4_GEMMA_LOCAL[6], q_scale=K4_FN_SOFTCAP_Q_SCALE),
+        "mamba2-370m": k5_function_gate(dev, gen, 4, TRAIN_SEQ, 32, 1, 64, 128, 128),
+    }
+    torch.cuda.empty_cache()
+    print(f"phase 9, the Functions: {time.perf_counter() - t0:.1f} s of wall time")
+    t0 = time.perf_counter()
+    card_cpu = {arch: card_against_cpu(dev, arch) for arch in TRAIN_RUNS}
+    torch.cuda.empty_cache()
+    print(f"phase 9, card against CPU: {time.perf_counter() - t0:.1f} s of wall time")
+    out = {"functions": fn_rows, "card_vs_cpu": card_cpu, "models": {}}
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=str(build)) as d:
+        for arch in TRAIN_RUNS:
+            out["models"][arch] = train_model(dev, arch, d)
+            torch.cuda.empty_cache()
+    print(f"phase 9: {time.perf_counter() - t_phase:.1f} s of wall time, on {card}")
+    return out
+
+
 def _leaves(tree) -> list:
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -3462,6 +4091,9 @@ def _leaves(tree) -> list:
 
 def main() -> int:
     """Run every phase; the last line of stdout is the contract line."""
+    # cuBLAS repeats bit for bit under torch.use_deterministic_algorithms
+    # only with a fixed workspace, set before the first CUDA call (phase 9)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run",
               file=sys.stderr)
@@ -3589,6 +4221,21 @@ def main() -> int:
             "prefill_activations": padded[arch]["k4_activations"],
         })
         require(kernels[-1]["launches"] > 0, f"K4's padded route never launched on {arch}")
+    t0 = time.perf_counter()
+    train = phase_lm_train(dev, card)
+    for k in kernels:
+        if k["name"] in ("flash_attention", "ssd_scan"):
+            k["launches_per_train_step"] = {
+                arch: {"remat": TRAIN_RUNS[arch][2], "microbatches": TRAIN_RUNS[arch][1],
+                       "launches": r["launches_per_step"][k["name"]]}
+                for arch, r in train["models"].items() if r["launches_per_step"][k["name"]]}
+            require(k["launches_per_train_step"], f"{k['name']} never launched in a train step")
+    k4_row = next(k for k in kernels if k["name"] == "flash_attention")
+    launch_row = train["models"]["smollm-135m"]["launch_train"]
+    k4_row["launches_per_train_step"]["smollm-135m (launch/train.py)"] = {
+        "remat": "none", "microbatches": TRAIN_RUNS["smollm-135m"][1],
+        "launches": launch_row["k4_launches_per_step_remat_none"]}
+    print(f"phase 9 (LM training): {time.perf_counter() - t0:.1f} s of wall time")
     for k in kernels:
         k["kernel_ms"] = k["ms"]
     print(json.dumps({"kernels": kernels}))

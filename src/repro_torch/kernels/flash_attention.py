@@ -43,32 +43,110 @@ NEG = -1e30
 HEAD_DIMS = (64, 128, 256)
 
 
-def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, window: Optional[int] = None,
-                    softcap: Optional[float] = None,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """Plain PyTorch version of K4 (``attention_ref`` in float32, rows with
-    no live key set to 0); the output has ``q``'s dtype and ``v``'s head
-    dim."""
-    b, hq, s, dh = q.shape
+def _compute_dtype(t: torch.Tensor) -> torch.dtype:
+    """float32, or float64 for a float64 tensor (``gradcheck``)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
+def _attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, qpos0: int,
+                   kpos0: int, causal: bool, window: Optional[int],
+                   softcap: Optional[float], scale: float) -> torch.Tensor:
+    """``attention_ref`` over float32 (or float64) operands for query rows at
+    positions ``qpos0 + i`` and keys at ``kpos0 + j``; rows with no live key
+    give 0 (and pass no gradient)."""
+    b, hq, s, _ = q.shape
     hkv, t = k.shape[1], k.shape[2]
     g = hq // hkv
-    scale = scale if scale is not None else dh ** -0.5
-    kf = k.float().repeat_interleave(g, dim=1)
-    vf = v.float().repeat_interleave(g, dim=1)
-    logits = (q.float() @ kf.transpose(-1, -2)) * scale
+    # each KV head broadcast to its q heads (head h reads KV head h // g);
+    # the backward sums a group's heads as a reduction, not a scatter
+    kf = k[:, :, None].expand(b, hkv, g, t, k.shape[3]).reshape(b, hq, t, k.shape[3])
+    vf = v[:, :, None].expand(b, hkv, g, t, v.shape[3]).reshape(b, hq, t, v.shape[3])
+    logits = (q @ kf.transpose(-1, -2)) * scale
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
-    qpos = torch.arange(s, device=q.device)[:, None] + (t - s)
-    kpos = torch.arange(t, device=q.device)[None, :]
+    qpos = torch.arange(s, device=q.device)[:, None] + qpos0
+    kpos = torch.arange(t, device=q.device)[None, :] + kpos0
     mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
     if causal:
         mask &= kpos <= qpos
     if window is not None:
         mask &= kpos > qpos - window
     p = torch.softmax(logits.masked_fill(~mask, NEG), dim=-1)
-    p = p * mask.any(dim=-1, keepdim=True)
-    return (p @ vf).to(q.dtype)
+    if not _all_rows_live(s, t, qpos0, kpos0, causal, window):
+        p = p * mask.any(dim=-1, keepdim=True)
+    return p @ vf
+
+
+def _all_rows_live(s: int, t: int, qpos0: int, kpos0: int, causal: bool,
+                   window: Optional[int]) -> bool:
+    """Whether every query row sees a key: causal rows need the first key
+    at or before them, windowed rows the last key inside their window."""
+    live = qpos0 >= kpos0 if causal else True
+    if window is not None:
+        live = live and kpos0 + t - 1 > qpos0 + s - 1 - window
+    return live
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Plain PyTorch version of K4 (``attention_ref`` in float32, or
+    float64 for float64 inputs; rows with no live key set to 0); the output
+    has ``q``'s dtype and ``v``'s head dim."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    ct = _compute_dtype(q)
+    out = _attention_f32(q.to(ct), k.to(ct), v.to(ct), k.shape[2] - q.shape[2], 0,
+                         causal, window, softcap, scale)
+    return out.to(q.dtype)
+
+
+# The reference differentiates attention_ref up to S·T = 2048² and the
+# key-chunked attention_chunked beyond (ops.py); the backward here
+# recomputes in query tiles of at most VJP_TILE_ELEMS // T rows there, so no
+# (B, H, S, T) float32 tensor outlives one tile.
+VJP_TILE_ELEMS = 2048 * 2048
+
+
+def attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+                  causal: bool = True, window: Optional[int] = None,
+                  softcap: Optional[float] = None, scale: Optional[float] = None):
+    """``(dq, dk, dv)`` of ``attention_plain`` at ``(q, k, v)`` for the
+    output cotangent ``g``: float32 autograd of the plain version,
+    recomputed from ``q``, ``k`` and ``v`` (query tile by query tile beyond
+    ``S·T = VJP_TILE_ELEMS``; float64 inputs in float64), cast to the
+    inputs' dtypes.  Each tile reads
+    only the keys some row of it can see (causal and window bounds), which
+    changes no value: a masked key's weight is exactly 0.  GQA's group sum
+    lands in ``dk`` and ``dv`` through the broadcast's gradient, and the
+    tiles' ``dk`` and ``dv`` add up in tile order."""
+    s, t = q.shape[2], k.shape[2]
+    off = t - s
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    rows = s if s * t <= VJP_TILE_ELEMS else max(1, VJP_TILE_ELEMS // t)
+    ct = _compute_dtype(q)
+    kf = k.detach().to(ct)
+    vf = v.detach().to(ct)
+    gf = g.to(ct)
+    dq = torch.zeros(q.shape, dtype=ct, device=q.device)
+    dk = torch.zeros(kf.shape, dtype=ct, device=k.device)
+    dv = torch.zeros(vf.shape, dtype=ct, device=v.device)
+    for q0 in range(0, s, rows):
+        q1 = min(s, q0 + rows)
+        hi = min(t, off + q1) if causal else t
+        lo = max(0, off + q0 + 1 - window) if window is not None else 0
+        if hi <= lo:  # no row of the tile sees a key: output and gradients 0
+            continue
+        with torch.enable_grad():
+            qt = q[:, :, q0:q1].detach().to(ct).requires_grad_(True)
+            kt = kf[:, :, lo:hi].requires_grad_(True)
+            vt = vf[:, :, lo:hi].requires_grad_(True)
+            out = _attention_f32(qt, kt, vt, off + q0, lo, causal, window, softcap, scale)
+            gq, gk, gv = torch.autograd.grad(out, (qt, kt, vt), gf[:, :, q0:q1])
+        dq[:, :, q0:q1] = gq
+        dk[:, :, lo:hi] += gk
+        dv[:, :, lo:hi] += gv
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def padded_head_dim(dqk: int, dv: int) -> int:
@@ -205,7 +283,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``flash_attention.launches``), padded to a head dim it takes where
     ``Dh`` is not one or ``Dv != Dh``; a CPU ``q`` runs ``attention_plain``.
     ``scale`` defaults to ``Dh ** -0.5`` (q's true head dim, also on the
-    padded route).
+    padded route).  Records no gradient: ``FlashAttention`` does.
     """
     if q.device.type == "cuda":
         return flash_attention_cuda(q, k, v, causal, window, softcap, scale)
@@ -215,3 +293,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with the reference's VJP.
+
+    The JAX package trains attention on its jnp path, so its gradient is
+    autodiff of ``attention_ref`` (``attention_chunked`` beyond S·T =
+    2048²; the same function), and its Pallas K4 has no VJP.  Forward: K4
+    on a CUDA tensor (its padded route included), ``attention_plain`` on
+    the CPU; q, k and v are saved.  Backward: ``attention_vjp``, float32
+    autograd of the plain version recomputed from them at their own head
+    dims (no padding to slice off)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal=True, window=None, softcap=None, scale=None):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, window, softcap, scale)
+        return flash_attention(q, k, v, causal, window, softcap, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = attention_vjp(q, k, v, g, *ctx.args)
+        return dq, dk, dv, None, None, None, None

@@ -1,6 +1,5 @@
 """NA operations over packed edge blocks, the SGB composition, and the LM
-zoo's attention and SSD scan: the forward half of the JAX package's
-``repro.kernels.ops``.
+zoo's attention and SSD scan: the JAX package's ``repro.kernels.ops``.
 
 The device of the input tensors picks the implementation: CUDA tensors go
 through the hand-written kernels K1 (``seg_sum_na``), K2
@@ -10,8 +9,11 @@ computation between K2 and K1 stays in PyTorch, as in the reference
 (``ops.py:200-204``).  The NA operations carry the reference's VJPs as
 ``torch.autograd.Function``s (``seg_sum.BandedMatvec``,
 ``AttentionPacked``) whose backward runs K1 again over the packing's
-source-major view; attention, SSD and the SGB compositions are forward
-only, as in the reference's kernels.
+source-major view.  Attention and the SSD scan carry the gradient of
+the reference's jnp path (``FlashAttention``, ``SSDScan``): K4 and K5
+forward, float32 autograd of their plain versions backward; a call that
+needs no gradient launches the kernel alone.  The SGB compositions are
+forward only.
 """
 from __future__ import annotations
 
@@ -21,13 +23,14 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.edge_softmax import NEG, edge_softmax_stats
-from repro_torch.kernels.flash_attention import flash_attention, padded_head_dim
+from repro_torch.kernels.flash_attention import (FlashAttention, flash_attention,
+                                                 padded_head_dim)
 from repro_torch.kernels.seg_sum import (PackedEdges, edge_dots, needs_grad,
                                          pack_edge_blocks, seg_sum_forward,
                                          seg_sum_na, seg_sum_transposed)
 from repro_torch.kernels.spgemm_bsr import (compose_dense_blocked,
                                             compose_padded_blocked)
-from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.kernels.ssd_scan import SSDScan, ssd_scan
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -40,7 +43,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dimension contiguous), so nothing is copied here at head dims 64, 128
     and 256 with ``Dv == Dh``; other head dims (hubert's 80, MLA's 96 / 64)
     are padded to the next one K4 takes (``flash_attention.pad_head_dims``).
-    The output has ``q``'s layout."""
+    The output has ``q``'s layout.  Differentiable (``FlashAttention``)
+    when autograd records on q, k or v."""
+    if needs_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, causal, window, softcap, scale)
     return flash_attention(q, k, v, causal=causal, window=window, softcap=softcap,
                            scale=scale)
 
@@ -57,9 +63,12 @@ def attention_width(dqk: int, dv: int, device) -> int:
 def ssd(x: torch.Tensor, a_log: torch.Tensor, b_coef: torch.Tensor,
         c_coef: torch.Tensor, chunk: int = 64) -> torch.Tensor:
     """Mamba2 SSD scan ``(B, S, H, P)`` through K5 (any layout; made
-    contiguous here)."""
-    return ssd_scan(x.contiguous(), a_log.contiguous(), b_coef.contiguous(),
-                    c_coef.contiguous(), chunk=chunk)
+    contiguous here, which passes gradients); differentiable (``SSDScan``)
+    when autograd records on an operand."""
+    args = (x.contiguous(), a_log.contiguous(), b_coef.contiguous(), c_coef.contiguous())
+    if needs_grad(x, a_log, b_coef, c_coef):
+        return SSDScan.apply(*args, chunk)
+    return ssd_scan(*args, chunk=chunk)
 
 
 def na_aggregate(

@@ -30,31 +30,44 @@ MAX_CHUNK, MAX_P, MAX_N = 128, 64, 128
 
 def ssd_plain(x: torch.Tensor, a_log: torch.Tensor, b_coef: torch.Tensor,
               c_coef: torch.Tensor, chunk: int = 64) -> torch.Tensor:
-    """Plain PyTorch version of K5: the TPU kernel's chunk math in torch
-    ops, looped over the chunks; ``(B, S, H, P)`` in ``x``'s dtype."""
+    """Plain PyTorch version of K5, the reference's chunked SSD
+    (``ref.ssd_chunked``) in torch ops (float32, or float64 for float64
+    inputs); ``(B, S, H, P)`` in ``x``'s dtype.
+
+    Every chunk at once: the intra-chunk ``((C Bᵀ) ∘ gate) x``, each
+    chunk's own end state, then the states entering the chunks in order
+    (the one sequential step, over (P, N) states) and their contribution
+    ``exp(cum) C h``.  Heads share their group's B and C by broadcasting,
+    so the backward sums over a group's heads without atomics."""
     bsz, s, h, p = x.shape
-    g = b_coef.shape[2]
+    g, n = b_coef.shape[2], b_coef.shape[3]
     if s % chunk:
         raise ValueError(f"sequence {s} is not a multiple of the chunk {chunk}")
-    rep = h // g
-    xf = x.float().permute(0, 2, 1, 3)  # (B, H, S, P)
-    af = a_log.float().permute(0, 2, 1)  # (B, H, S)
-    bf = b_coef.float().repeat_interleave(rep, dim=2).permute(0, 2, 1, 3)
-    cf = c_coef.float().repeat_interleave(rep, dim=2).permute(0, 2, 1, 3)
-    state = x.new_zeros((bsz, h, p, b_coef.shape[3]), dtype=torch.float32)
+    nc, rep = s // chunk, h // g
+    ct = torch.promote_types(x.dtype, torch.float32)
+    # (B, G, rep, nc, L, .) for the heads, (B, G, 1, nc, L, N) for B and C
+    xf = x.to(ct).reshape(bsz, nc, chunk, g, rep, p).permute(0, 3, 4, 1, 2, 5)
+    af = a_log.to(ct).reshape(bsz, nc, chunk, g, rep).permute(0, 3, 4, 1, 2)
+    bf = b_coef.to(ct).reshape(bsz, nc, chunk, g, 1, n).permute(0, 3, 4, 1, 2, 5)
+    cf = c_coef.to(ct).reshape(bsz, nc, chunk, g, 1, n).permute(0, 3, 4, 1, 2, 5)
+    cum = torch.cumsum(af, dim=-1)  # (B, G, rep, nc, L)
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
-    ys = []
-    for c0 in range(0, s, chunk):
-        xc, bc, cc = xf[:, :, c0:c0 + chunk], bf[:, :, c0:c0 + chunk], cf[:, :, c0:c0 + chunk]
-        cum = torch.cumsum(af[:, :, c0:c0 + chunk], dim=-1)  # (B, H, L)
-        gate = torch.where(tri, torch.exp(cum[..., :, None] - cum[..., None, :]), 0.0)
-        y = ((cc @ bc.transpose(-1, -2)) * gate) @ xc
-        y = y + torch.exp(cum)[..., None] * (cc @ state.transpose(-1, -2))
-        w = torch.exp(cum[..., -1:] - cum)
-        state = (torch.exp(cum[..., -1])[..., None, None] * state
-                 + (xc * w[..., None]).transpose(-1, -2) @ bc)
-        ys.append(y)
-    return torch.cat(ys, dim=2).permute(0, 2, 1, 3).contiguous().to(x.dtype)
+    # masked before the exp, not after: above the diagonal the difference
+    # grows with the chunk's decay, and exp's overflow there would turn the
+    # masked gradient into 0 * inf = nan (same values)
+    gate = torch.exp(torch.where(tri, cum[..., :, None] - cum[..., None, :], -torch.inf))
+    y = ((cf @ bf.transpose(-1, -2)) * gate) @ xf
+    w = torch.exp(cum[..., -1:] - cum)  # decay from each step to its chunk's end
+    states = (xf * w[..., None]).transpose(-1, -2) @ bf  # (B, G, rep, nc, P, N)
+    decay = torch.exp(cum[..., -1])  # (B, G, rep, nc)
+    state = torch.zeros_like(states[:, :, :, 0])
+    entering = []
+    for st, dc in zip(states.unbind(3), decay.unbind(3)):
+        entering.append(state)
+        state = dc[..., None, None] * state + st
+    h0 = torch.stack(entering, dim=3)  # the state entering each chunk
+    y = y + torch.exp(cum)[..., None] * (cf @ h0.transpose(-1, -2))
+    return y.permute(0, 3, 4, 1, 2, 5).reshape(bsz, s, h, p).to(x.dtype)
 
 
 def _check_cuda_operands(x, a_log, b_coef, c_coef, chunk) -> None:
@@ -125,3 +138,29 @@ def ssd_scan(x: torch.Tensor, a_log: torch.Tensor, b_coef: torch.Tensor,
 
 
 ssd_scan.launches = 0
+
+
+class SSDScan(torch.autograd.Function):
+    """``ssd_scan`` with the reference's VJP.
+
+    The JAX package trains the SSD on its jnp path (``ref.ssd_chunked``,
+    the chunk math ``ssd_plain`` computes), and its Pallas K5 has no VJP.
+    Forward: K5 on a CUDA tensor, ``ssd_plain`` on the CPU; the operands
+    are saved.  Backward: float32 autograd of ``ssd_plain`` recomputed from
+    them, cast to the operands' dtypes."""
+
+    @staticmethod
+    def forward(ctx, x, a_log, b_coef, c_coef, chunk=64):
+        ctx.save_for_backward(x, a_log, b_coef, c_coef)
+        ctx.chunk = chunk
+        return ssd_scan(x, a_log, b_coef, c_coef, chunk)
+
+    @staticmethod
+    def backward(ctx, gy):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            ct = torch.promote_types(saved[0].dtype, torch.float32)
+            live = [t.detach().to(ct).requires_grad_(True) for t in saved]
+            y = ssd_plain(*live, chunk=ctx.chunk)
+            grads = torch.autograd.grad(y, live, gy.to(ct))
+        return (*(g.to(t.dtype) for g, t in zip(grads, saved)), None)

@@ -11,15 +11,16 @@ card or on the CPU (the counterpart of XLA's
 ``--xla_force_host_platform_device_count``).
 
 ``make_mesh_for`` is the one constructor, as in the JAX package
-(``repro/launch/mesh.py``); its LM meshes (``make_production_mesh``,
-``make_debug_mesh``) are not ported yet.
+(``repro/launch/mesh.py``); the LM meshes ``make_production_mesh`` and
+``make_debug_mesh`` build on it with the reference's axis names.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 import os
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +65,11 @@ class Mesh:
     def ranks(self) -> List[torch.device]:
         """The ranks in row-major order (rank ``i`` is ``ranks[i]``)."""
         return list(self.devices.reshape(-1))
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        """Axis name -> size, in axis order (``jax.sharding.Mesh.shape``)."""
+        return collections.OrderedDict(zip(self.axis_names, self.devices.shape))
 
 
 def device_pool(device="cuda") -> List[torch.device]:
@@ -121,3 +127,30 @@ def make_mesh_for(devices: Optional[Sequence] = None,
     arr = np.empty(len(devs), dtype=object)
     arr[:] = devs
     return Mesh(arr.reshape(shape), axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda") -> Mesh:
+    """Production axis names over every rank of ``device``'s pool.
+
+    Axes: 'data' carries FSDP + batch, 'model' carries TP/EP; with
+    ``multi_pod`` a leading 'pod' axis of 2 is pure data parallelism.  A
+    256-rank pool resolves to 16 x 16; smaller pools size down.
+    """
+    if multi_pod:
+        n = len(device_pool(device))
+        if n % 2:
+            raise ValueError(f"multi_pod needs an even device count, got {n}")
+        return make_mesh_for(device_pool(device), shard_axes=("pod", "data", "model"),
+                             shape=(2,) + _balanced_shape(n // 2, 2))
+    return make_mesh_for(device_pool(device), shard_axes=("data", "model"))
+
+
+def make_debug_mesh(data: int = 1, model: int = 1, device="cuda") -> Mesh:
+    """A ``(data, model)`` mesh over the first ``data * model`` ranks of
+    ``device``'s pool."""
+    pool = device_pool(device)
+    if data * model > len(pool):
+        raise ValueError(f"a ({data}, {model}) mesh needs {data * model} ranks, "
+                         f"the pool of {device!r} has {len(pool)}")
+    return make_mesh_for(pool[:data * model], shard_axes=("data", "model"),
+                         shape=(data, model))

@@ -10,26 +10,33 @@ The forward walks the groups in a Python loop (the reference's
 Every mixer (``attn``, ``local``, ``mla``, ``ssm``) and FFN (``mlp``,
 ``gelu_mlp``, ``moe``, ``none``) of the shipped configs runs, from token ids
 or from ``embeds`` (the audio and vision frontends' stubs), with M-RoPE
-positions ``pos3`` where the config has sections.  The loss and the rest of
-the LM training stack are the next slice (ROADMAP M12b-train).
+positions ``pos3`` where the config has sections.
+
+The forward records autograd when grad is enabled and a parameter (or
+``embeds``) requires it, and runs in inference mode otherwise (serving,
+decode).  Training follows the reference's gradient: K4 and K5 forward in
+their autograd Functions (float32 autograd of the plain versions
+backward), the embedding's gradient as a one-hot contraction
+(``EmbedLookup``), and ``remat`` as the reference's ``jax.checkpoint`` of
+each layer group.  ``LM.loss`` is the reference's next-token loss.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 
 MIXERS = ("attn", "local", "mla", "ssm")
 FFNS = ("mlp", "gelu_mlp", "moe", "none")
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with the LM training slice (ROADMAP M12b-train)")
+REMATS = ("none", "full", "dots")
 
 
 def padded_vocab(cfg: ArchConfig, multiple: int = 128) -> int:
@@ -114,9 +121,12 @@ def _init_block(gen: torch.Generator, cfg: ArchConfig, mixer: str, ffn: str,
 def init_params(seed: int, cfg: ArchConfig, device="cuda") -> Dict:
     """The port's own init from ``seed`` (a ``torch.Generator`` on
     ``device``): the reference's keys, shapes, dtypes and scales, its
-    values not (``jax.random`` cannot be reproduced)."""
+    values not (``jax.random`` cannot be reproduced).  On the ``"meta"``
+    device (no generator there) it gives the tree's shapes and dtypes
+    without allocating, for partition specs."""
     _check_supported(cfg)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = (None if torch.device(device).type == "meta"
+           else torch.Generator(device=device).manual_seed(seed))
     vp = padded_vocab(cfg)
     params: Dict[str, Any] = {
         "embed": (torch.randn((vp, cfg.d_model), generator=gen, device=device)
@@ -141,10 +151,10 @@ def lm_params_from_numpy(tree, device) -> Any:
         return {k: lm_params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [lm_params_from_numpy(v, device) for v in tree]
-    arr = np.ascontiguousarray(tree)
+    arr = np.array(tree, order="C")  # a copy; 0-d stays 0-d
     if arr.dtype.name == "bfloat16":
-        return torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16).to(device)
-    return torch.from_numpy(arr.copy()).to(device)
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
 
 
 def _positions_cos_sin(cfg: ArchConfig, positions: torch.Tensor,
@@ -206,20 +216,66 @@ def _block_apply(cfg: ArchConfig, mixer: str, ffn: str, p: Dict, x: torch.Tensor
     return x, aux
 
 
-def _group(tree, g: int):
-    """Layer group ``g``'s slice of a stacked dict (views, no copies)."""
+def _unbind_groups(tree, n: int) -> List:
+    """The ``n`` layer groups' slices of a stacked dict, as views.  One
+    ``unbind`` per leaf, so the backward stacks each leaf's gradient once
+    instead of adding a full-size zero tensor per group."""
     if isinstance(tree, dict):
-        return {k: _group(v, g) for k, v in tree.items()}
-    return tree[g]
+        per_key = {k: _unbind_groups(v, n) for k, v in tree.items()}
+        return [{k: per_key[k][g] for k in tree} for g in range(n)]
+    return list(tree.unbind(0))
+
+
+class EmbedLookup(torch.autograd.Function):
+    """``embed[tokens]`` with the reference's VJP (``repro/models/lm.py::
+    _embed_lookup``): the gradient is the one-hot contraction ``onehot(
+    tokens)ᵀ dy`` in ``dy``'s dtype, cast to the embedding's, a matmul
+    rather than a scatter-add (no float atomics; repeats bit for bit)."""
+
+    @staticmethod
+    def forward(ctx, embed, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.vocab, ctx.dtype = embed.shape[0], embed.dtype
+        return embed[tokens]
+
+    @staticmethod
+    def backward(ctx, dy):
+        (tokens,) = ctx.saved_tensors
+        flat = tokens.reshape(-1)
+        dy = dy.reshape(flat.shape[0], -1)
+        onehot = dy.new_zeros((flat.shape[0], ctx.vocab))
+        onehot[torch.arange(flat.shape[0], device=dy.device), flat] = 1
+        return (onehot.T @ dy).to(ctx.dtype), None
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the outputs of matmuls without batch
+    dimensions (``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims``),
+    recompute the rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _leaves(tree) -> List:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
 
 
 class LM:
     """Bound (config, device) bundle; parameters stay an explicit dict.
 
     ``device`` (default ``"cuda"``) is where ``init`` and ``init_cache``
-    put their tensors; a CUDA device without a card raises.  ``remat`` is
-    accepted for signature parity with the reference and has no effect:
-    the forward runs in eager inference mode and keeps no activations.
+    put their tensors; a CUDA device without a card raises.  ``remat``
+    applies to a forward that records autograd, per layer group as the
+    reference's ``jax.checkpoint(group_body)``: ``"none"`` keeps every
+    activation, ``"full"`` keeps the group's input and recomputes the group
+    in the backward (``torch.utils.checkpoint``; K4 and K5 launch again),
+    ``"dots"`` keeps the outputs of matmuls without batch dimensions and
+    recomputes the rest.
 
     Example::
 
@@ -234,6 +290,8 @@ class LM:
             raise RuntimeError(f"LM device={device!r} but no CUDA device is "
                                "available (pass device='cpu' to run on the CPU)")
         _check_supported(cfg)
+        if remat not in REMATS:
+            raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
         self.cfg = cfg
         self.device = torch.device(device)
         self.remat = remat
@@ -261,43 +319,83 @@ class LM:
         MoE).  The input is ``tokens`` (B, S) or ``embeds`` (B, S, D), cast
         to bf16 with no gemma scaling; ``pos3`` (3, B, S) gives M-RoPE's
         position components (default: the positions on all three)."""
+        train = torch.is_grad_enabled() and any(
+            t.requires_grad for t in _leaves(params) + [embeds] if t is not None)
+        with contextlib.nullcontext() if train else torch.inference_mode():
+            return self._forward(params, tokens, embeds, pos3, cache, cache_pos,
+                                 last_only, train)
+
+    def _group_fn(self, cos, sin, cache_pos):
+        """One layer group ``(x, params of its pattern positions, their
+        caches) -> (x, aux)``."""
         cfg = self.cfg
-        with torch.inference_mode():
-            if embeds is None:
-                x = params["embed"][tokens.long()].to(torch.bfloat16)
-                if cfg.gemma_norms:
-                    x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
-            else:
-                x = embeds.to(torch.bfloat16)
-            b, s = x.shape[0], x.shape[1]
-            start = int(cache_pos) if cache_pos is not None else 0
-            positions = (start + torch.arange(s, device=x.device))[None, :].expand(b, s)
-            cos, sin = _positions_cos_sin(cfg, positions, pos3)
+
+        def body(x, gp, gc):
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
-            for g in range(cfg.num_groups):
-                for pos, (mixer, ffn) in enumerate(cfg.block_pattern):
-                    c_in = _group(cache[pos], g) if cache is not None else None
-                    x, a = _block_apply(cfg, mixer, ffn, _group(params["blocks"][pos], g),
-                                        x, cos, sin, c_in, cache_pos, self.ssd_chunk)
-                    if a is not None:
-                        aux = aux + a
-            x = L.rms_norm(x, params["final_norm"], cfg.norm_eps,
-                           plus_one=cfg.gemma_norms)
-            if last_only:
-                x = x[:, -1:]
-            unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-            logits = (x @ unembed.to(x.dtype)).float()
-            if cfg.final_softcap is not None:
-                logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
-            if logits.shape[-1] != cfg.vocab_size:  # mask vocab padding
-                pad = torch.arange(logits.shape[-1], device=x.device) >= cfg.vocab_size
-                logits = logits.masked_fill(pad, -1e30)
+            for pos, (mixer, ffn) in enumerate(cfg.block_pattern):
+                x, a = _block_apply(cfg, mixer, ffn, gp[pos], x, cos, sin,
+                                    gc[pos] if gc is not None else None, cache_pos,
+                                    self.ssd_chunk)
+                if a is not None:
+                    aux = aux + a
+            return x, aux
+
+        return body
+
+    def _forward(self, params, tokens, embeds, pos3, cache, cache_pos, last_only, train):
+        cfg = self.cfg
+        if embeds is None:
+            x = EmbedLookup.apply(params["embed"], tokens.long()).to(torch.bfloat16)
+            if cfg.gemma_norms:
+                x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+        else:
+            x = embeds.to(torch.bfloat16)
+        b, s = x.shape[0], x.shape[1]
+        start = int(cache_pos) if cache_pos is not None else 0
+        positions = (start + torch.arange(s, device=x.device))[None, :].expand(b, s)
+        cos, sin = _positions_cos_sin(cfg, positions, pos3)
+        n = cfg.num_groups
+        per_pos = [_unbind_groups(blk, n) for blk in params["blocks"]]
+        groups = [[gp[g] for gp in per_pos] for g in range(n)]
+        # the caches' group slices by select (views updated in place)
+        caches = ([[{k: v[g] for k, v in c.items()} for c in cache] for g in range(n)]
+                  if cache is not None else [None] * n)
+        body = self._group_fn(cos, sin, cache_pos)
+        remat = self.remat if train and cache is None else "none"
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for g in range(n):
+            if remat == "none":
+                x, a = body(x, groups[g], caches[g])
+            elif remat == "full":
+                x, a = checkpoint(body, x, groups[g], None, use_reentrant=False)
+            else:
+                x, a = checkpoint(body, x, groups[g], None, use_reentrant=False,
+                                  context_fn=functools.partial(
+                                      create_selective_checkpoint_contexts, _dots_policy))
+            aux = aux + a
+        x = L.rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=cfg.gemma_norms)
+        if last_only:
+            x = x[:, -1:]
+        unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+        logits = (x @ unembed.to(x.dtype)).float()
+        if cfg.final_softcap is not None:
+            logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+        if logits.shape[-1] != cfg.vocab_size:  # mask vocab padding
+            pad = torch.arange(logits.shape[-1], device=x.device) >= cfg.vocab_size
+            logits = logits.masked_fill(pad, -1e30)
         return logits, cache, aux
 
     def loss(self, params, tokens, targets, embeds=None, pos3=None,
-             aux_weight: float = 0.01):
-        """The training loss: not ported yet (ROADMAP M12b-train)."""
-        raise _unported("LM.loss")
+             aux_weight: float = 0.01) -> torch.Tensor:
+        """The reference's training loss (``repro/models/lm.py::LM.loss``):
+        the mean next-token NLL of ``targets`` (B, S) under the float32
+        log-softmax of the padded-vocab logits, plus ``aux_weight`` times
+        the MoE aux loss.  Differentiable in ``params`` when they require
+        grad."""
+        logits, _, aux = self.forward(params, tokens=tokens, embeds=embeds, pos3=pos3)
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+        return nll.mean() + aux_weight * aux
 
     # ------------------------------------------------------------ cache ----
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16) -> List[Dict]:

@@ -12,7 +12,8 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
-from repro_torch.train.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+from repro_torch.train.tree import (flatten_up_to, tree_flatten, tree_leaves, tree_map,
+                                   tree_unflatten)
 
 
 @dataclasses.dataclass
@@ -91,7 +92,7 @@ def adamw_update(
         return newp.to(p.dtype), m, v
 
     flat_p, treedef = tree_flatten(params)
-    flat_g = tree_leaves(grads)
+    flat_g = flatten_up_to(treedef, grads)
     out = [upd(p, g, m, v) for p, g, m, v in zip(
         flat_p, flat_g, tree_leaves(state.mu), tree_leaves(state.nu))]
     return (tree_unflatten(treedef, [o[0] for o in out]),

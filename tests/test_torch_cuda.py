@@ -838,7 +838,7 @@ def test_na_backward_on_the_card_matches_the_cpu_backward(cuda_device, ns, nd, n
 @pytest.mark.parametrize("case", ["skew", "revisit"])
 def test_k1_over_the_src_view_matches_plain_scatter(cuda_device, case):
     """K1 launched over the source-major view against ``index_add_``'s
-    plain scatter, with a hub source of 5,000 out-edges (heavy row
+    plain scatter in float64 on seeded inputs, with a hub source of 5,000 out-edges (heavy row
     slices) and empty source rows."""
     from repro_torch.kernels.seg_sum import (seg_sum_transposed,
                                              seg_sum_transposed_plain)
@@ -853,13 +853,16 @@ def test_k1_over_the_src_view_matches_plain_scatter(cuda_device, case):
     else:
         src, dst, ns, nd = _revisit()
     pk = pack_edge_blocks(src, dst, ns, nd)
-    g = torch.randn(nd, 48, device=cuda_device)
-    w = torch.rand(pk.src_local.shape, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    g = torch.randn(nd, 48, device=cuda_device, generator=gen)
+    w = torch.rand(pk.src_local.shape, device=cuda_device, generator=gen)
     before = seg_sum_na.launches
     got = seg_sum_transposed(pk, g, w)
     again = seg_sum_transposed(pk, g, w)
     assert seg_sum_na.launches == before + 2
-    want = seg_sum_transposed_plain(pk, g, w)
+    # the oracle sums in float64: index_add_ adds with float atomics on the
+    # card, so a float32 oracle's own rounding varies from run to run
+    want = seg_sum_transposed_plain(pk, g.double(), w.double())
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-4, rtol=1e-4)
     assert torch.equal(got, again)
     empty = torch.from_numpy(np.diff(pk.src_edges().row_ptr) == 0).to(cuda_device)
@@ -1247,3 +1250,142 @@ def test_sharded_forward_on_the_card(cuda_device, monkeypatch, mode, model):
     assert sharded.shard_traces == 1
     ref = cpu.forward(cpu.init(0), device_features(g, "cpu"))
     np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), atol=1e-4)
+
+
+# ------------------------------------------------------------ LM training --
+def _attention_grads_f32(q, k, v, g, **kw):
+    qf, kf, vf = (t.detach().float().requires_grad_(True) for t in (q, k, v))
+    out = attention_plain(qf, kf, vf, **kw)
+    return torch.autograd.grad(out, (qf, kf, vf), g.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    dict(b=2, hq=6, hkv=2, s=384, dh=64, dv=64, causal=True),
+    dict(b=1, hq=4, hkv=4, s=300, dh=128, dv=128, causal=True, window=100, softcap=30.0),
+    dict(b=1, hq=4, hkv=2, s=256, dh=256, dv=256, causal=True, window=64),
+    dict(b=2, hq=4, hkv=4, s=256, dh=80, dv=80, causal=False),
+    dict(b=2, hq=4, hkv=4, s=256, dh=96, dv=64, causal=True),
+])
+def test_flash_attention_function_gradients_on_the_card(cuda_device, case, monkeypatch):
+    """K4's autograd Function on the card: one K4 launch forward, and dq,
+    dk, dv (bf16, float32 autograd of the plain version recomputed, query
+    tiled here) within 4e-3 of float32 autograd of ``attention_plain`` at
+    each tensor's largest entry, at head dims 64, 128, 256 and the padded
+    route's 80 and 96 / 64."""
+    from repro_torch.kernels import flash_attention as fa
+
+    monkeypatch.setattr(fa, "VJP_TILE_ELEMS", case["s"] * 64)  # tiles of 64 rows
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    b, hq, hkv, s = case["b"], case["hq"], case["hkv"], case["s"]
+    kw = {k: case[k] for k in ("causal", "window", "softcap") if k in case}
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=cuda_device).to(torch.bfloat16)
+
+    q, k, v = rnd(b, hq, s, case["dh"]), rnd(b, hkv, s, case["dh"]), rnd(b, hkv, s, case["dv"])
+    g = rnd(b, hq, s, case["dv"])
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    before = fa.flash_attention.launches
+    out = fa.FlashAttention.apply(q, k, v, kw.get("causal", True), kw.get("window"),
+                                  kw.get("softcap"), None)
+    assert fa.flash_attention.launches == before + 1
+    got = torch.autograd.grad(out, (q, k, v), g)
+    want = _attention_grads_f32(q, k, v, g, **kw)
+    for a, w in zip(got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == w.shape
+        assert float((a.float() - w).abs().max()) <= 4e-3 * float(w.abs().max())
+
+
+@pytest.mark.cuda
+def test_ssd_function_gradients_on_the_card(cuda_device):
+    """K5's autograd Function: one K5 launch forward, the gradients within
+    1e-4 of float32 autograd of ``ssd_plain`` at each one's largest entry."""
+    from repro_torch.kernels.ssd_scan import SSDScan
+
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    shapes = ((2, 256, 8, 32), (2, 256, 8), (2, 256, 2, 64), (2, 256, 2, 64))
+    x, a, bc, cc = (torch.randn(s, generator=gen, device=cuda_device) for s in shapes)
+    a = -a.abs() * 0.1
+    gy = torch.randn(shapes[0], generator=gen, device=cuda_device)
+    ins = [t.requires_grad_(True) for t in (x, a, bc * 0.3, cc * 0.3)]
+    before = ssd_scan.launches
+    got = torch.autograd.grad(SSDScan.apply(*ins, 64), ins, gy)
+    assert ssd_scan.launches == before + 1
+    live = [t.detach().requires_grad_(True) for t in ins]
+    want = torch.autograd.grad(ssd_plain(*live, chunk=64), live, gy)
+    for u, w in zip(got, want):
+        assert float((u - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["smollm-135m", "mamba2-370m", "granite-moe-1b-a400m"])
+def test_lm_train_step_on_the_card_matches_the_cpu(cuda_device, name):
+    """One reduced train step (remat full) on the card against the CPU from
+    the same state and batch: the loss within 2e-3, every gradient leaf
+    within 5e-2 of its largest entry (MoE-fed leaves: of the model's), K4
+    and K5 launched twice a layer (forward and recomputed forward)."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import flash_attention as k4
+    from repro_torch.models.lm import LM
+    from repro_torch.train import SyntheticTokens, tree_leaves, tree_map, value_and_grad
+    from repro_torch.train.train_step import build_train_step, init_train_state
+
+    cfg = configs.reduced(configs.get_config(name))
+    tok, tgt = (torch.from_numpy(a) for a in
+                SyntheticTokens(cfg.vocab_size, 128, 2).host_batch(0))
+    state = init_train_state(LM(cfg, device="cpu", remat="full"), 0)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        model = LM(cfg, device=dev, remat="full")
+        st = tree_map(lambda t: t.to(dev), state)
+        k4_0, k5_0 = k4.launches, ssd_scan.launches
+        loss, (grads,) = value_and_grad(lambda p: model.loss(p, tok.to(dev), tgt.to(dev)),
+                                        st.params)
+        out[str(dev)] = (loss, grads, k4.launches - k4_0, ssd_scan.launches - k5_0)
+        from repro_torch.launch.mesh import make_debug_mesh
+
+        step, _ = build_train_step(model, make_debug_mesh(1, 1, device=dev), 2)
+        new, m = step(st, tok.to(dev), tgt.to(dev))
+        assert all(bool(torch.isfinite(p).all()) for p in tree_leaves(new.params))
+    (l_c, g_c, _, _), (l_d, g_d, n4, n5) = out["cpu"], out[str(cuda_device)]
+    attn = sum(m in ("attn", "local", "mla") for m, _ in cfg.block_pattern) * cfg.num_groups
+    ssm = sum(m == "ssm" for m, _ in cfg.block_pattern) * cfg.num_groups
+    assert (n4, n5) == (2 * attn, 2 * ssm)
+    assert abs(float(l_c) - float(l_d)) <= 2e-3
+    moe = {i for i, (_, f) in enumerate(cfg.block_pattern) if f == "moe"}
+    model_max = max(float(x.float().abs().max()) for x in tree_leaves(g_c))
+    for pos, (bc_, bd) in enumerate(zip(g_c["blocks"], g_d["blocks"])):
+        for key in bc_:
+            for a, b in zip(tree_leaves(bc_[key]), tree_leaves(bd[key])):
+                scale = model_max if pos in moe and key in ("ffn", "ln2") else \
+                    float(a.float().abs().max())
+                assert float((b.cpu().float() - a.float()).abs().max()) <= 5e-2 * max(scale, 1e-30)
+
+
+@pytest.mark.cuda
+def test_lm_train_step_repeats_bitwise_on_the_card(cuda_device, monkeypatch):
+    """Two steps from one state and batch under deterministic algorithms
+    (a fixed cuBLAS workspace) are bitwise equal."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.lm import LM
+    from repro_torch.train import SyntheticTokens, tree_leaves
+    from repro_torch.train.train_step import build_train_step, init_train_state
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = configs.reduced(configs.get_config("granite-moe-1b-a400m"))
+    model = LM(cfg, device=cuda_device, remat="full")
+    state = init_train_state(model, 0)
+    step, _ = build_train_step(model, make_debug_mesh(1, 1, device="cuda"), 4, microbatches=2)
+    tok, tgt = (torch.from_numpy(a).to(cuda_device) for a in
+                SyntheticTokens(cfg.vocab_size, 128, 4).host_batch(0))
+    torch.use_deterministic_algorithms(True)
+    try:
+        a, ma = step(state, tok, tgt)
+        b, mb = step(state, tok, tgt)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(ma["loss"], mb["loss"])
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))

@@ -52,7 +52,10 @@ def test_import_closure_is_free_of_jax_and_repro():
                 "repro_torch.train.optim", "repro_torch.train.hgnn_step",
                 "repro_torch.train.checkpoint", "repro_torch.train.tree",
                 "repro_torch.distributed", "repro_torch.distributed.hgnn",
-                "repro_torch.launch.mesh", "repro_torch.core.buffersim"):
+                "repro_torch.launch.mesh", "repro_torch.core.buffersim",
+                "repro_torch.train.train_step", "repro_torch.train.data",
+                "repro_torch.train.compress", "repro_torch.train.fault_tolerance",
+                "repro_torch.train._lm_pspecs", "repro_torch.launch.train"):
         assert mod in res["imported"]
 
 

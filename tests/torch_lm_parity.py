@@ -3,12 +3,16 @@ a reduced architecture built on both sides from one reference
 initialisation, its seeded inputs (token ids, or ``embeds`` and M-RoPE
 ``pos3`` for the frontend stubs), and the checks every architecture goes
 through: parameters bit for bit, full and last-position logits, the MoE aux
-loss, a token-by-token decode with its caches, and the port's own init.
+loss, a token-by-token decode with its caches, and the port's own init;
+and mamba2-370m's prefill-vs-decode gap at depth (``check_mamba2_depth_gap``,
+one test file for each depth, so that the two slow cases run in parallel).
 
 Tolerances are the reference suite's: bf16 layer outputs and caches within
 3e-2 (``tests/test_kernels.py:98``), logits within 5e-2
 (``tests/test_models_lm.py:80``).
 """
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -187,3 +191,56 @@ def check_init_cache(name: str) -> None:
         assert tuple(a.shape) == tuple(b.shape)
         assert str(a.dtype) == str(b.dtype).replace("torch.", "")
         assert not b.any()
+
+
+def _prefill_decode_gap(prefill, decode, cache, toks, v):
+    """max |last-position logits of a prefill - of a token-by-token decode|."""
+    pre = np.asarray(prefill(toks), np.float32)[:, -1, :v]
+    for i in range(toks.shape[1]):
+        step, cache = decode(toks[:, i:i + 1], cache, i)
+    return float(np.abs(np.asarray(step, np.float32)[:, 0, :v] - pre).max())
+
+
+DEPTH_VOCAB = 512  # mamba2-370m's widths, vocab cut
+DEPTH_SEQ, DEPTH_CHUNK = 128, 64  # two SSD chunks: the carried state is used
+DEPTH_FACTOR = 3
+
+
+def check_mamba2_depth_gap(layers: int) -> None:
+    """In bf16 a prefill and a token-by-token decode of one prompt round at
+    different places, and a random-weight stack amplifies it with depth, in
+    the reference as in the port.  At mamba2-370m's full mixer width (d 1024,
+    32 heads of 64, state 128, vocab cut to 512) and 8 or 16 layers, the
+    port's gap must stay within DEPTH_FACTOR times the reference's (or
+    LOGIT_TOL): a fault of either path that grows with depth gives a gap the
+    size of the logits themselves."""
+    name, cut = "mamba2-370m", dict(num_layers=layers, vocab_size=DEPTH_VOCAB)
+    ref = RefLM(dataclasses.replace(ref_configs.ARCHS[name], **cut),
+                backend="interpret", ssd_chunk=DEPTH_CHUNK)
+    port = LM(dataclasses.replace(configs.get_config(name), **cut), device="cpu",
+              ssd_chunk=DEPTH_CHUNK)
+    rp = ref.init(jax.random.key(0))
+    pp = lm_params_from_numpy(jax.tree.map(np.asarray, rp), "cpu")
+    toks = np.random.default_rng(1).integers(0, DEPTH_VOCAB, (2, DEPTH_SEQ)).astype(np.int32)
+    jit_decode = jax.jit(lambda p, t, c, i: ref.forward(p, tokens=t, cache=c, cache_pos=i))
+
+    def ref_decode(t, c, i):
+        out, c, _ = jit_decode(rp, jnp.asarray(t), c, jnp.int32(i))
+        return out, c
+
+    def port_decode(t, c, i):
+        out, c, _ = port.forward(pp, tokens=torch.from_numpy(t), cache=c, cache_pos=i)
+        return out.numpy(), c
+
+    v = DEPTH_VOCAB
+    gaps = {
+        "reference": _prefill_decode_gap(
+            lambda t: ref.forward(rp, tokens=jnp.asarray(t), last_only=True)[0],
+            ref_decode, ref.init_cache(2, DEPTH_SEQ), toks, v),
+        "port": _prefill_decode_gap(
+            lambda t: port.forward(pp, tokens=torch.from_numpy(t), last_only=True)[0].numpy(),
+            port_decode, port.init_cache(2, DEPTH_SEQ), toks, v),
+    }
+    print(f"mamba2-370m widths, {layers} layers, S={DEPTH_SEQ}: "
+          f"max|decode - prefill| of the last logits {gaps}")
+    assert 0 < gaps["port"] <= max(DEPTH_FACTOR * gaps["reference"], LOGIT_TOL), gaps
