@@ -302,15 +302,47 @@ Phases, in order; any failure raises and the script exits non-zero:
    first) and tokens/s, the forward / backward / optimizer split, a
    profiled step's device busy share and the shares of K4, K5 and the
    float32 attention and SSD backward, and peak memory.
-10. Report: one JSON line ``{"kernels": [...]}`` (K1 and K2 with their
+10. LM parallelism, on the one card.  (a) Data parallelism: a ``(2, 1)``
+   mesh of two ranks on ``cuda:0`` (``make_mesh_for``), each rank's rows
+   from ``SyntheticTokens.sharded_batch``, full width, S = 4096, remat
+   full: smollm-135m (B = 8 as 2 microbatches), granite-moe-1b-a400m
+   (B = 2, one row a rank) and mamba2-370m (B = 4), one step each from
+   phase 9's seeded state against phase 9's one-rank step on the same
+   batch by phase 9's microbatch gate (loss within 1e-4, first moments
+   within 2e-2 of each leaf's largest entry); K4 and K5 launches a step
+   (counters set to 0 just before it, read just after) equal to ranks x
+   microbatches x 2 x the model's attention or SSM layers (240, 96, 192);
+   two steps bitwise equal under deterministic algorithms; planted faults
+   read in the same run above the gate: rank 1's gradient dropped from the
+   rank-order sum (smollm, granite), and, on granite's router moments,
+   each rank's own aux averaged in place of the aux over every rank's
+   tokens (both readings printed, with the routes that flip between the
+   whole batch and the ranks' halves).  The one-rank smollm step's peak
+   memory is read for (c).  (b) ``cp_zigzag_attention`` at smollm-135m's
+   layer (B = 4, 9 / 3 heads of 64, S = 4096, bf16) over a ``(1, 16)``
+   mesh of 16 ranks on the card, ``p_shards=16``, both modes: 32 K4
+   launches a call, against the float32 plain causal attention by K4's
+   per-element and per-tile gates, a planted fault (rank 0's high chunk
+   without its last key chunk) above the tile gate, whether it equals one
+   K4 call over the whole sequence bit for bit, and its event median and
+   queue-full time beside one K4 call's (a reading, not a gate); then a
+   smollm-135m forward (B = 2, S = 4096) under ``ATTN_IMPL="cp_zigzag"``
+   and ``set_mesh`` against the same forward without it, by phase 8's
+   logit tolerance over every position, with 960 K4 launches.  (c) The
+   dry run (``launch/dryrun.py``) of smollm-135m ``train_4k`` on the
+   16 x 16 meta mesh, its JSON printed; then its memory estimate on a
+   1 x 1 mesh at (a)'s smollm step (B = 8 as 2 x 4, remat full) beside
+   that step's measured ``torch.cuda.max_memory_allocated`` and phase 9's.
+11. Report: one JSON line ``{"kernels": [...]}`` (K1 and K2 with their
    launches per train step by model, K1 with its launches in one
    dependency forward, rows for K1 and K2 over phase 3c's sliced packings,
    rows for K1 and K2 over phase 3d's spliced packing, rows for K1 and
    K2 over phase 3e's largest merged shard stream, K4's and K5's rows with
    their launches by model, and a row for K4's padded route at each of
    hubert-xlarge's and minicpm3-4b's layers, with its launches in phase
-   8b), the card line, and last the contract line ``{"ok": true, "device":
-   {...}}``.
+   8b; K4's and K5's launches per data-parallel step and K4's per CP
+   call, phase 10), the card line, and last the contract line ``{"ok":
+   true, "device": {...}}``.
 
 Needs one CUDA card; exits non-zero without one, or without the repository
 beside it.
@@ -3339,7 +3371,8 @@ def moe_gate(model, params, inputs) -> dict:
         layers.moe_ffn = moe_ffn
     p, x, kw = seen[0]
     d = x.shape[-1]
-    out, aux = moe_ffn(p, x, **kw)
+    out, terms = moe_ffn(p, x, **kw)
+    aux = layers.moe_aux(*terms)
     route = layers.moe_route(p, x.reshape(-1, kw["group_size"], d),
                              num_experts=kw["num_experts"], top_k=kw["top_k"])
     plain = layers.moe_plain(p, x, route)
@@ -4081,6 +4114,319 @@ def phase_lm_train(dev, card: str) -> dict:
     return out
 
 
+# --------------------------------------------------------- phase 10 ----
+# arch -> (global batch, microbatches): phase 9's runs on a (2, 1) mesh of
+# two ranks on the one card (smollm's batch 8 as 2 x 4, as phase 9's)
+DP_RUNS = {
+    "smollm-135m": (8, 2),
+    "granite-moe-1b-a400m": (2, 1),
+    "mamba2-370m": (4, 1),
+}
+DP_RANKS = 2
+DP_LOSS_TOL = 1e-4  # phase 9's microbatch gate: the loss, and first moments
+DP_LEAF_RTOL = MB_LEAF_RTOL  # within 2e-2 of each leaf's largest entry
+DP_LR = 3e-4
+CP_SHARDS = 16  # the reference's p_shards (ops.py:132)
+CP_SHAPE = (4, 9, 3, TRAIN_SEQ, 64)  # smollm-135m's layer: B, Hq, Hkv, S, Dh
+CP_FORWARD_BATCH = 2  # the smollm-135m forward under ATTN_IMPL="cp_zigzag"
+
+
+def _mu_rel(a, want_mu, leaves=None) -> float:
+    """The worst leaf of state ``a``'s first moments against ``want_mu``,
+    over each leaf's largest entry (``leaves`` picks leaves by key path)."""
+    from repro_torch.train import tree_leaves
+
+    pairs = zip(leaf_paths(a.opt.mu), tree_leaves(a.opt.mu), tree_leaves(want_mu))
+    return max(_max_rel(x, y) for p, x, y in pairs if leaves is None or leaves(p))
+
+
+def _event_ms(fn) -> float:
+    """CUDA-event ms of one call of ``fn`` (a train step: its result is
+    dropped before the next allocation)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def _route_flips(model, params, tok, ranks: int) -> tuple:
+    """Tokens whose experts differ between one forward of the whole batch
+    and one forward per rank's rows (bf16 matmuls of other sizes round
+    differently, and near-tied gates then pick other experts), and the
+    token-layer routes compared."""
+    if not model.cfg.num_experts:
+        return 0, 0
+    per = tok.shape[0] // ranks
+    with _RouteLog() as whole:
+        model.forward(params, tok)
+    with _RouteLog() as split:
+        for r in range(ranks):
+            model.forward(params, tok[r * per:(r + 1) * per])
+    layers = len(whole.idx)
+    flips = sum(int((whole.idx[l] != torch.cat([split.idx[r * layers + l] for r in range(ranks)])
+                     ).any(-1).sum()) for l in range(layers))
+    return flips, sum(x[..., 0].numel() for x in whole.idx)
+
+
+def dp_model(dev, arch) -> dict:
+    """One data-parallel step of ``arch`` at full width over two ranks on
+    the card against phase 9's one-rank step from the same state and batch:
+    the loss and first moments by the microbatch gate, K4 / K5 launches,
+    a bitwise repeat, and the planted faults (rank 1's gradient dropped;
+    for MoE, each rank's own aux averaged)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch.mesh import make_debug_mesh, make_mesh_for
+    from repro_torch.models import LM
+    from repro_torch.models.layers import moe_aux
+    from repro_torch.train import SyntheticTokens, tree_map
+    from repro_torch.train import train_step as ts
+    from repro_torch.train._lm_pspecs import data_pspec
+
+    t0 = time.perf_counter()
+    batch, mb = DP_RUNS[arch]
+    cfg = _train_cfg(arch)
+    model = LM(cfg, device=dev, remat="full")
+    state0 = ts.init_train_state(model, SEED)
+    data = SyntheticTokens(cfg.vocab_size, TRAIN_SEQ, batch, seed=SEED)
+    tok, tgt = (torch.from_numpy(a).to(dev) for a in data.host_batch(0))
+    one_fn, _ = ts.build_train_step(model, make_debug_mesh(1, 1, device=dev), batch, lr=DP_LR,
+                                    microbatches=mb)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    one, m_one = one_fn(state0, tok, tgt)
+    peak = torch.cuda.max_memory_allocated()
+    one = one.opt.mu  # the gate reads the first moments; a state of granite's is 13 GB
+    torch.cuda.empty_cache()
+    one_ms = _event_ms(lambda: one_fn(state0, tok, tgt))
+    card0 = torch.device("cuda", 0)
+    mesh = make_mesh_for([card0] * DP_RANKS, shard_axes=("data", "model"), shape=(DP_RANKS, 1))
+    dp_fn, _ = ts.build_train_step(model, mesh, batch, lr=DP_LR, microbatches=mb)
+    shards = data.sharded_batch(0, mesh, data_pspec(mesh, batch))
+    per_fwd = launches_per_forward(cfg)
+    want = {k: DP_RANKS * mb * 2 * n for k, n in per_fwd.items()}
+    dp_ms = _event_ms(lambda: dp_fn(state0, shards))
+    # two steps from state0 under deterministic algorithms; the first is
+    # read and moved to the host (a granite state is 13 GB) before the
+    # second runs
+    torch.use_deterministic_algorithms(True)
+    try:
+        flash_attention.launches = ssd_scan.launches = 0
+        s1, m1 = dp_fn(state0, shards)
+        counts = {"flash_attention": flash_attention.launches, "ssd_scan": ssd_scan.launches}
+        rel = _mu_rel(s1, one)
+        good_r = _mu_rel(s1, one, lambda p: p.endswith("w_router")) if cfg.num_experts else None
+        s1 = tree_map(lambda t: t.cpu(), s1)
+        torch.cuda.empty_cache()
+        s2, m2 = dp_fn(state0, shards)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = _state_equal(s1, tree_map(lambda t: t.cpu(), s2)) and torch.equal(m1["loss"],
+                                                                              m2["loss"])
+    del s1, s2
+    torch.cuda.empty_cache()
+    flips, routes = _route_flips(model, state0.params, tok, DP_RANKS)
+    loss_err = abs(float(m1["loss"]) - float(m_one["loss"]))
+    print(f"data parallel {arch} (full width, B={batch} as {mb} microbatch(es), S={TRAIN_SEQ}, "
+          f"{DP_RANKS} ranks on {card0}): loss {float(m1['loss']):.6f} vs the one-rank step's "
+          f"{float(m_one['loss']):.6f} (|diff| {loss_err:.2e}, gate {DP_LOSS_TOL}); worst first "
+          f"moment {rel:.3e} of its leaf's largest entry (gate {DP_LEAF_RTOL}); K4 / K5 "
+          f"launches {counts} (expected {want}); two steps bitwise equal: {same}; step "
+          f"{dp_ms:.1f} ms against the one-rank step's {one_ms:.1f} ms (CUDA events, one "
+          f"each, on {card_line()})"
+          + (f"; {flips} of {routes} token-layer routes pick other experts split by rank"
+             if cfg.num_experts else ""))
+    require(loss_err <= DP_LOSS_TOL, f"{arch}: the data-parallel loss misses the one-rank step's")
+    require(rel <= DP_LEAF_RTOL, f"{arch}: data-parallel gradients miss the one-rank step's")
+    require(counts == want, f"{arch}: data-parallel launches {counts}, expected {want}")
+    require(same, f"{arch}: two data-parallel steps from one state differ")
+    row = {"batch": batch, "microbatches": mb, "ranks": DP_RANKS, "loss_err": loss_err,
+           "step_ms": dp_ms, "one_rank_step_ms": one_ms,
+           "grad_max_rel": rel, "launches": counts, "bitwise_repeat": same,
+           "route_flips": flips, "one_rank_peak_bytes": peak}
+    if arch != "mamba2-370m":
+        orig = ts._accumulate
+        ts._accumulate = lambda acc, grads, rank, dt: acc if rank == 1 else orig(
+            acc, grads, rank, dt)
+        try:
+            bad, _ = dp_fn(state0, shards)
+        finally:
+            ts._accumulate = orig
+        fault = _mu_rel(bad, one)
+        del bad
+        torch.cuda.empty_cache()
+        print(f"data parallel {arch}: planted fault (rank 1's gradient dropped) reads "
+              f"{fault:.3e}, {fault / DP_LEAF_RTOL:.1f}x the gate")
+        require(fault > DP_LEAF_RTOL, f"{arch}: the gate would pass a dropped rank")
+        row["fault_rank_dropped"] = fault
+    if cfg.num_experts:
+        def router(path):
+            return path.endswith("w_router")
+
+        orig = ts.aux_share
+        ts.aux_share = lambda own, top1, n: sum(moe_aux(m, f) for m, f in own) / n
+        try:
+            bad, m_bad = dp_fn(state0, shards)
+        finally:
+            ts.aux_share = orig
+        bad_r = _mu_rel(bad, one, router)
+        print(f"data parallel {arch}: router first moments {good_r:.3e} of their largest entry "
+              f"(gate {DP_LEAF_RTOL}); planted fault (the mean of per-rank aux values in place "
+              f"of the global aux) reads {bad_r:.3e}, {bad_r / DP_LEAF_RTOL:.1f}x the gate, loss "
+              f"|diff| {abs(float(m_bad['loss']) - float(m_one['loss'])):.2e}")
+        require(good_r <= DP_LEAF_RTOL, f"{arch}: the router's gradient misses")
+        require(bad_r > DP_LEAF_RTOL, f"{arch}: the router gate would pass a per-rank aux")
+        row.update({"router_max_rel": good_r, "fault_per_rank_aux": bad_r})
+        del bad
+        torch.cuda.empty_cache()
+    del one, state0
+    print(f"phase 10 {arch}: {time.perf_counter() - t0:.1f} s of wall time")
+    return row
+
+
+def cp_gate(out, q, k, v) -> tuple:
+    """(per-element ratio, per-tile RMS) of a causal bf16 output against the
+    float32 plain version, K4's gates (``K4_BF16_*``, ``K4_TILE_RMS``), and
+    the reference itself."""
+    from repro_torch.kernels.flash_attention import attention_plain
+
+    ref = attention_plain(q.float(), k.float(), v.float(), causal=True)
+    elem = ((out.float() - ref).abs() / (K4_BF16_ATOL + K4_BF16_RTOL * ref.abs())).max().item()
+    return elem, tile_rms(out, ref).max().item(), ref
+
+
+def phase_cp(dev) -> dict:
+    """Phase 10 (b): ``cp_zigzag_attention`` over 16 ranks on the card at
+    smollm-135m's layer, both modes, against the float32 plain version; a
+    planted fault; its time beside one K4 call's; then a smollm-135m
+    forward under ``ATTN_IMPL="cp_zigzag"`` against the same forward
+    without it."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cp_attention import cp_zigzag_attention, zigzag_positions
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.mesh import make_mesh_for, set_mesh
+    from repro_torch.train import SyntheticTokens
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    b, hq, hkv, s, dh = CP_SHAPE
+    q, k, v = (_randn(gen, (b, h, s, dh), dev, torch.bfloat16) for h in (hq, hkv, hkv))
+    mesh = make_mesh_for([torch.device("cuda", 0)] * CP_SHARDS, shard_axes=("data", "model"),
+                         shape=(1, CP_SHARDS))
+    pos = torch.from_numpy(zigzag_positions(s, CP_SHARDS)).to(dev)
+    back = torch.argsort(pos)
+    flash_attention.launches = 0
+    out = cp_zigzag_attention(q, k, v, p_shards=CP_SHARDS, mesh=mesh)
+    launches = flash_attention.launches
+    native = cp_zigzag_attention(q[:, :, pos], k[:, :, pos], v[:, :, pos], p_shards=CP_SHARDS,
+                                 pre_permuted=True, mesh=mesh)[:, :, back]
+    whole = flash_attention(q, k, v, causal=True)
+    elem, rms, ref = cp_gate(out, q, k, v)
+    n_elem, n_rms, _ = cp_gate(native, q, k, v)
+    c = s // (2 * CP_SHARDS)
+    hi = 2 * CP_SHARDS - 1  # rank 0's high chunk, the sequence's last
+    fault = ref.clone()
+    fault[:, :, hi * c:] = plain_rows(q[:, :, hi * c:], k, v, hi * c, drop=slice(hi * c, s))
+    fault_rms = tile_rms(fault, ref).max().item()
+    ms = median_ms(lambda: cp_zigzag_attention(q, k, v, p_shards=CP_SHARDS, mesh=mesh), reps=10)
+    q_ms = queued_ms(lambda: cp_zigzag_attention(q, k, v, p_shards=CP_SHARDS, mesh=mesh),
+                     reps=10)
+    k4_ms = median_ms(lambda: flash_attention(q, k, v, causal=True), reps=10)
+    k4_q_ms = queued_ms(lambda: flash_attention(q, k, v, causal=True), reps=10)
+    print(f"CP attention B={b} {hq}/{hkv} heads of {dh}, S={s}, {CP_SHARDS} ranks on the card: "
+          f"K4 launches a call {launches} (expected {2 * CP_SHARDS}); against the float32 plain "
+          f"version, plain mode max|d| / ({K4_BF16_ATOL} + {K4_BF16_RTOL}|ref|) = {elem:.3f}, "
+          f"tile RMS {rms:.3e}; native mode {n_elem:.3f}, {n_rms:.3e} (at most 1 and "
+          f"{K4_TILE_RMS}); planted fault (rank 0's high chunk without its last key chunk) "
+          f"reads {fault_rms:.3e}, {fault_rms / K4_TILE_RMS:.1f}x the limit; bitwise one K4 "
+          f"call over the whole sequence: plain {torch.equal(out, whole)}, native "
+          f"{torch.equal(native, whole)}; CP call {ms:.4f} ms (queue full {q_ms:.4f}) against "
+          f"one K4 call {k4_ms:.4f} ms (queue full {k4_q_ms:.4f}), on {card_line()}")
+    require(launches == 2 * CP_SHARDS, f"CP attention launched K4 {launches} times")
+    require(max(elem, n_elem) <= 1.0 and max(rms, n_rms) <= K4_TILE_RMS,
+            "CP attention disagrees with the float32 plain version")
+    require(fault_rms > K4_TILE_RMS, "the CP gate would pass a dropped key chunk")
+    row = {"shape": f"B={b} Hq={hq} Hkv={hkv} S={s} Dh={dh} bf16 causal, {CP_SHARDS} ranks",
+           "k4_launches_per_call": launches, "elem_ratio": max(elem, n_elem),
+           "tile_rms": max(rms, n_rms), "fault_tile_rms": fault_rms,
+           "bitwise_one_k4_call": [torch.equal(out, whole), torch.equal(native, whole)],
+           "ms": ms, "queued_ms": q_ms, "k4_ms": k4_ms, "k4_queued_ms": k4_q_ms}
+    del q, k, v, out, native, whole, ref, fault
+    # a smollm-135m forward routed through it
+    model, params = _lm("smollm-135m", dev)
+    tok = torch.from_numpy(SyntheticTokens(model.cfg.vocab_size, s, CP_FORWARD_BATCH,
+                                           seed=SEED).host_batch(0)[0]).to(dev)
+    base = model.forward(params, tok)[0]
+    flash_attention.launches = 0
+    impl = ops.ATTN_IMPL
+    with set_mesh(mesh):
+        ops.ATTN_IMPL = "cp_zigzag"
+        try:
+            routed = model.forward(params, tok)[0]
+        finally:
+            ops.ATTN_IMPL = impl
+    fwd_launches = flash_attention.launches
+    v_ = model.cfg.vocab_size
+    err = (routed[..., :v_] - base[..., :v_]).abs().max().item()
+    want = 2 * CP_SHARDS * launches_per_forward(model.cfg)["flash_attention"]
+    print(f"CP forward smollm-135m (B={CP_FORWARD_BATCH}, S={s}) under ATTN_IMPL='cp_zigzag': "
+          f"K4 launches {fwd_launches} (expected {want}); max|logits - the forward without it| "
+          f"= {err:.3e} over every position (gate {LM_LOGIT_TOL}; bitwise "
+          f"{torch.equal(routed, base)})")
+    require(fwd_launches == want, "the CP forward's K4 launches")
+    require(err <= LM_LOGIT_TOL, "the CP forward misses the forward without it")
+    row.update({"forward_logit_err": err, "forward_k4_launches": fwd_launches,
+                "forward_bitwise": torch.equal(routed, base)})
+    del model, params, base, routed
+    torch.cuda.empty_cache()
+    print(f"phase 10 CP: {time.perf_counter() - t0:.1f} s of wall time")
+    return row
+
+
+def phase_dryrun(one_rank_peak: int, phase9_peak_gib) -> dict:
+    """Phase 10 (c): the dry run of smollm-135m train_4k on the 16 x 16 meta
+    mesh, then its memory estimate on a 1 x 1 mesh at phase 9's smollm run
+    (B = 8 as 2 x 4, remat full) beside the peak this phase measured for
+    that step on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import SHAPES
+
+    t0 = time.perf_counter()
+    res = dryrun.roofline_cell("smollm-135m", "train_4k")
+    print("dry run smollm-135m train_4k on the 16 x 16 meta mesh: " + json.dumps(res))
+    batch, mb = DP_RUNS["smollm-135m"]
+    spec = dataclasses.replace(SHAPES["train_4k"], global_batch=batch)
+    est = dryrun.memory_estimate(get_config("smollm-135m"), spec,
+                                 dryrun.meta_mesh(shape=(1, 1)), mb)
+    ratio = est["peak_bytes_per_rank_estimate"] / one_rank_peak
+    print(f"dry run smollm-135m on a 1 x 1 mesh at B={batch} as {mb} x {batch // mb}, remat "
+          f"full: peak estimate {est['peak_hbm_gib_estimate']:.3f} GiB against "
+          f"torch.cuda.max_memory_allocated {one_rank_peak / 2 ** 30:.3f} GiB of the same step "
+          f"(estimate / measured {ratio:.3f}); phase 9's run peaked at "
+          f"{phase9_peak_gib:.3f} GiB (its B = 8 one-batch comparison included), on "
+          f"{card_line()}; {time.perf_counter() - t0:.1f} s of wall time")
+    return {"cell": res, "one_by_one": est, "measured_peak_bytes": one_rank_peak,
+            "estimate_over_measured": ratio}
+
+
+def phase_lm_parallel(dev, card: str, phase9_peak_gib) -> dict:
+    """Phase 10: LM data parallelism over two ranks, zigzag context-parallel
+    attention over sixteen, and the dry run."""
+    t_phase = time.perf_counter()
+    dp = {}
+    for arch in DP_RUNS:
+        dp[arch] = dp_model(dev, arch)
+        torch.cuda.empty_cache()
+    cp_row = phase_cp(dev)
+    dry = phase_dryrun(dp["smollm-135m"]["one_rank_peak_bytes"], phase9_peak_gib)
+    print(f"phase 10: {time.perf_counter() - t_phase:.1f} s of wall time, on {card}")
+    return {"dp": dp, "cp": cp_row, "dryrun": dry}
+
+
 def _leaves(tree) -> list:
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -4236,6 +4582,18 @@ def main() -> int:
         "remat": "none", "microbatches": TRAIN_RUNS["smollm-135m"][1],
         "launches": launch_row["k4_launches_per_step_remat_none"]}
     print(f"phase 9 (LM training): {time.perf_counter() - t0:.1f} s of wall time")
+    par = phase_lm_parallel(dev, card, train["models"]["smollm-135m"]["peak_gib"])
+    for k in kernels:
+        if k["name"] in ("flash_attention", "ssd_scan"):
+            k["launches_per_dp_step"] = {
+                arch: {"ranks": r["ranks"], "microbatches": r["microbatches"], "remat": "full",
+                       "launches": r["launches"][k["name"]]}
+                for arch, r in par["dp"].items() if r["launches"][k["name"]]}
+            require(k["launches_per_dp_step"],
+                    f"{k['name']} never launched in a data-parallel step")
+    k4_row["launches_per_cp_call"] = {"ranks": CP_SHARDS,
+                                      "launches": par["cp"]["k4_launches_per_call"]}
+    k4_row["cp"] = par["cp"]
     for k in kernels:
         k["kernel_ms"] = k["ms"]
     print(json.dumps({"kernels": kernels}))

@@ -281,14 +281,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     A CUDA ``q`` launches kernel K4 once (counted in
     ``flash_attention.launches``), padded to a head dim it takes where
-    ``Dh`` is not one or ``Dv != Dh``; a CPU ``q`` runs ``attention_plain``.
-    ``scale`` defaults to ``Dh ** -0.5`` (q's true head dim, also on the
-    padded route).  Records no gradient: ``FlashAttention`` does.
+    ``Dh`` is not one or ``Dv != Dh``; a CPU ``q`` runs ``attention_plain``,
+    and so does a ``meta`` one (shapes and operation counts without memory:
+    ``launch/dryrun.py``).  ``scale`` defaults to ``Dh ** -0.5`` (q's true
+    head dim, also on the padded route).  Records no gradient:
+    ``FlashAttention`` does.
     """
     if q.device.type == "cuda":
         return flash_attention_cuda(q, k, v, causal, window, softcap, scale)
-    if q.device.type != "cpu":
-        raise ValueError(f"flash_attention runs on cuda or cpu, got {q.device}")
+    if q.device.type not in ("cpu", "meta"):
+        raise ValueError(f"flash_attention runs on cuda, cpu or meta, got {q.device}")
     return attention_plain(q, k, v, causal, window, softcap, scale)
 
 

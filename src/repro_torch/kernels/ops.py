@@ -4,7 +4,12 @@ zoo's attention and SSD scan: the JAX package's ``repro.kernels.ops``.
 The device of the input tensors picks the implementation: CUDA tensors go
 through the hand-written kernels K1 (``seg_sum_na``), K2
 (``edge_softmax_stats``), K3 (``spgemm_bsr``), K4 (``flash_attention``) and
-K5 (``ssd_scan``), CPU tensors through their plain versions.  The alpha
+K5 (``ssd_scan``), CPU tensors through their plain versions, and ``meta``
+tensors (the dry run's, ``launch/dryrun.py``) through K4's and K5's plain
+versions, which count operations without memory.  ``ATTN_IMPL`` picks the
+reference's long-sequence attention route: under ``"cp_zigzag"`` or
+``"cp_zigzag_native"`` a long causal self-attention runs zigzag context
+parallel over the ambient mesh (``kernels/cp_attention.py``), K4 per rank.  The alpha
 computation between K2 and K1 stays in PyTorch, as in the reference
 (``ops.py:200-204``).  The NA operations carry the reference's VJPs as
 ``torch.autograd.Function``s (``seg_sum.BandedMatvec``,
@@ -33,6 +38,29 @@ from repro_torch.kernels.spgemm_bsr import (compose_dense_blocked,
 from repro_torch.kernels.ssd_scan import SSDScan, ssd_scan
 
 
+# Long-sequence attention route, the reference's module-level switch
+# (``repro/kernels/ops.py:52``, same values and default).  The port has
+# none of its jnp paths ("chunked", "chunked2d"): every route but the two
+# context-parallel ones is one K4 call.
+#   "cp_zigzag"        — zigzag context parallelism over the ambient
+#                        mesh's 'model' axis (``launch.mesh.set_mesh``),
+#                        p_shards=16, output in sequence order;
+#   "cp_zigzag_native" — the same on a sequence stored in zigzag chunk
+#                        order end to end (``models/lm.py`` gives RoPE the
+#                        logical positions).
+ATTN_IMPL: str = "chunked"
+CP_P_SHARDS = 16
+
+
+def _takes_cp_route(q, k, causal, window) -> bool:
+    """The reference's conditions for the context-parallel route
+    (``ops.py:116-127``): a cp ``ATTN_IMPL``, causal, no window, S == T,
+    S % 32 == 0 and S·T above 2048²."""
+    s, t = q.shape[2], k.shape[2]
+    return (ATTN_IMPL in ("cp_zigzag", "cp_zigzag_native") and causal and window is None
+            and s == t and s % 32 == 0 and s * t > 2048 * 2048)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, window: Optional[int] = None,
               softcap: Optional[float] = None,
@@ -44,7 +72,24 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and 256 with ``Dv == Dh``; other head dims (hubert's 80, MLA's 96 / 64)
     are padded to the next one K4 takes (``flash_attention.pad_head_dims``).
     The output has ``q``'s layout.  Differentiable (``FlashAttention``)
-    when autograd records on q, k or v."""
+    when autograd records on q, k or v.  Under a context-parallel
+    ``ATTN_IMPL`` and the reference's conditions (``_takes_cp_route``) the
+    call runs ``cp_zigzag_attention`` over the ambient mesh instead."""
+    if _takes_cp_route(q, k, causal, window):
+        from repro_torch.kernels.cp_attention import cp_zigzag_attention
+
+        return cp_zigzag_attention(q, k, v, softcap=softcap, scale=scale,
+                                   p_shards=CP_P_SHARDS,
+                                   pre_permuted=ATTN_IMPL == "cp_zigzag_native")
+    return attention_k4(q, k, v, causal, window, softcap, scale)
+
+
+def attention_k4(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool = True, window: Optional[int] = None,
+                 softcap: Optional[float] = None,
+                 scale: Optional[float] = None) -> torch.Tensor:
+    """``attention`` as one K4 call, whatever ``ATTN_IMPL`` says (each
+    rank's call in ``cp_zigzag_attention``)."""
     if needs_grad(q, k, v):
         return FlashAttention.apply(q, k, v, causal, window, softcap, scale)
     return flash_attention(q, k, v, causal=causal, window=window, softcap=softcap,

@@ -128,12 +128,13 @@ def ssd_scan(x: torch.Tensor, a_log: torch.Tensor, b_coef: torch.Tensor,
     ``S`` a multiple of ``chunk``.
 
     A CUDA ``x`` launches kernel K5 (counted in ``ssd_scan.launches``); a
-    CPU ``x`` runs ``ssd_plain``.
+    CPU ``x`` runs ``ssd_plain``, and so does a ``meta`` one (shapes and
+    operation counts without memory: ``launch/dryrun.py``).
     """
     if x.device.type == "cuda":
         return ssd_scan_cuda(x, a_log, b_coef, c_coef, chunk)
-    if x.device.type != "cpu":
-        raise ValueError(f"ssd_scan runs on cuda or cpu, got {x.device}")
+    if x.device.type not in ("cpu", "meta"):
+        raise ValueError(f"ssd_scan runs on cuda, cpu or meta, got {x.device}")
     return ssd_plain(x, a_log, b_coef, c_coef, chunk)
 
 

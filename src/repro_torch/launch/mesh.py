@@ -12,11 +12,16 @@ card or on the CPU (the counterpart of XLA's
 
 ``make_mesh_for`` is the one constructor, as in the JAX package
 (``repro/launch/mesh.py``); the LM meshes ``make_production_mesh`` and
-``make_debug_mesh`` build on it with the reference's axis names.
+``make_debug_mesh`` build on it with the reference's axis names.  Ranks
+may also be ``torch.device("meta")``, for planning without memory
+(``launch/dryrun.py``).  ``set_mesh`` makes a mesh ambient, as
+``jax.set_mesh`` does.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
+import contextvars
 import dataclasses
 import math
 import os
@@ -154,3 +159,25 @@ def make_debug_mesh(data: int = 1, model: int = 1, device="cuda") -> Mesh:
                          f"the pool of {device!r} has {len(pool)}")
     return make_mesh_for(pool[:data * model], shard_axes=("data", "model"),
                          shape=(data, model))
+
+
+_AMBIENT: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh", default=None)
+
+
+@contextlib.contextmanager
+def set_mesh(mesh: Mesh):
+    """Make ``mesh`` the ambient mesh inside the ``with`` block (the
+    counterpart of ``jax.set_mesh``): ``get_mesh`` returns it there, and the
+    context-parallel attention route (``kernels/ops.py``) runs over its
+    'model' axis.  Blocks nest; the previous mesh comes back on exit."""
+    token = _AMBIENT.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _AMBIENT.reset(token)
+
+
+def get_mesh() -> Optional[Mesh]:
+    """The ambient mesh of the innermost ``set_mesh`` block, or ``None``
+    (the counterpart of ``jax.sharding.get_abstract_mesh``)."""
+    return _AMBIENT.get()

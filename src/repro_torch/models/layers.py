@@ -56,7 +56,8 @@ def mrope_cos_sin(pos3: torch.Tensor, sections: Sequence[int], dim: int,
         raise ValueError(f"M-RoPE sections {tuple(sections)} must sum to dim/2 = {dim // 2}")
     cos, sin = rope_cos_sin(pos3, dim, theta)  # (3, B, S, dim/2)
     comp = torch.repeat_interleave(torch.arange(3, device=pos3.device),
-                                   torch.tensor(list(sections), device=pos3.device))
+                                   torch.tensor(list(sections), device=pos3.device),
+                                   output_size=dim // 2)
     chan = torch.arange(dim // 2, device=pos3.device)
     return cos[comp, ..., chan].permute(1, 2, 0), sin[comp, ..., chan].permute(1, 2, 0)
 
@@ -271,14 +272,18 @@ def moe_ffn(
     top_k: int,
     capacity_factor: float = 1.25,
     group_size: int = 512,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """GShard-style grouped, capacity-based top-k MoE; ``(out, aux)``.
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """GShard-style grouped, capacity-based top-k MoE; ``(out, (mean gates,
+    top-1 shares))``.
 
     Tokens are split into groups of ``group_size`` that route independently
     (``moe_route``); a (token, slot) past its expert's capacity is dropped.
     The bf16 dispatch and combine tensors (G, Tg, E, C) are built slot by
     slot, then four bf16 einsums run dispatch, the experts and combine.
-    ``aux`` is the Switch load-balancing loss over the top-1 experts.  The
+    The two per-expert means, each ``(E,)`` float32 over these tokens, make
+    the Switch load-balancing loss over the top-1 experts (``moe_aux``, the
+    reference's ``aux``); a caller forms it, so that several ranks' means
+    can be combined first.  The
     reference's ``constrain_batch`` sharding hints have no counterpart on
     one device and are left out.
     """
@@ -303,7 +308,16 @@ def moe_ffn(
     out = moe_combine(comb, moe_experts(p, moe_dispatch(xt, disp))).reshape(b, s, d)
     me = r["gates"].mean(dim=(0, 1))
     fe = F.one_hot(r["idx"][..., 0], num_experts).float().mean(dim=(0, 1))
-    return out, num_experts * (me * fe).sum()
+    return out, (me, fe)
+
+
+def moe_aux(mean_gates: torch.Tensor, top1_share: torch.Tensor) -> torch.Tensor:
+    """The Switch load-balancing loss ``E * sum_e mean(gates)_e *
+    mean(onehot(top1))_e`` from its two per-expert means over the tokens
+    (``layers.py:258-262`` of the JAX package).  It is not additive over
+    token subsets: ranks holding parts of a batch average their means
+    first."""
+    return mean_gates.shape[-1] * (mean_gates * top1_share).sum()
 
 
 def moe_plain(p: Dict[str, torch.Tensor], x: torch.Tensor, route: Dict[str, torch.Tensor]

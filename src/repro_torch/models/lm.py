@@ -18,7 +18,12 @@ decode).  Training follows the reference's gradient: K4 and K5 forward in
 their autograd Functions (float32 autograd of the plain versions
 backward), the embedding's gradient as a one-hot contraction
 (``EmbedLookup``), and ``remat`` as the reference's ``jax.checkpoint`` of
-each layer group.  ``LM.loss`` is the reference's next-token loss.
+each layer group.  ``LM.loss`` is the reference's next-token loss;
+``LM.loss_terms`` leaves the MoE aux as per-layer means, for a
+data-parallel step to combine over its ranks.  Under the
+``"cp_zigzag_native"`` attention route (``ops.ATTN_IMPL``) a cache-less
+forward takes its sequence in zigzag chunk order and gives RoPE the
+logical positions, as the reference does.
 """
 from __future__ import annotations
 
@@ -31,6 +36,8 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.kernels import ops
+from repro_torch.kernels.cp_attention import zigzag_positions
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 
@@ -171,8 +178,9 @@ def _positions_cos_sin(cfg: ArchConfig, positions: torch.Tensor,
 
 def _block_apply(cfg: ArchConfig, mixer: str, ffn: str, p: Dict, x: torch.Tensor,
                  cos, sin, cache: Optional[Dict], cache_pos, ssd_chunk: int
-                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """One layer; ``(x, aux)`` with the MoE aux loss (``None`` without MoE)."""
+                 ) -> Tuple[torch.Tensor, Any]:
+    """One layer; ``(x, terms)`` with a MoE layer's two per-expert means
+    (``L.moe_ffn``), ``None`` without MoE."""
     gn = cfg.gemma_norms
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps, plus_one=gn)
     if mixer in ("attn", "local"):
@@ -199,7 +207,7 @@ def _block_apply(cfg: ArchConfig, mixer: str, ffn: str, p: Dict, x: torch.Tensor
         o = L.rms_norm(o, p["ln1_post"], cfg.norm_eps, plus_one=True)
     x = x + o.to(x.dtype)
 
-    aux = None
+    terms = None
     if ffn != "none":
         h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps, plus_one=gn)
         if ffn == "mlp":
@@ -207,13 +215,13 @@ def _block_apply(cfg: ArchConfig, mixer: str, ffn: str, p: Dict, x: torch.Tensor
         elif ffn == "gelu_mlp":
             f = L.gelu_mlp(p["ffn"], h2)
         else:
-            f, aux = L.moe_ffn(
+            f, terms = L.moe_ffn(
                 p["ffn"], h2, num_experts=cfg.num_experts, top_k=cfg.experts_per_token,
                 group_size=min(cfg.moe_group_size, h2.shape[0] * h2.shape[1]))
         if gn:
             f = L.rms_norm(f, p["ln2_post"], cfg.norm_eps, plus_one=True)
         x = x + f.to(x.dtype)
-    return x, aux
+    return x, terms
 
 
 def _unbind_groups(tree, n: int) -> List:
@@ -263,6 +271,20 @@ def _leaves(tree) -> List:
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in _leaves(v)]
     return [tree]
+
+
+def _records_grad(params, embeds) -> bool:
+    """Whether a forward records autograd: grad enabled and a parameter (or
+    ``embeds``) requiring it."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in _leaves(params) + [embeds] if t is not None)
+
+
+def _mean_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """The mean next-token NLL of ``targets`` under the float32 log-softmax."""
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    return nll.mean()
 
 
 class LM:
@@ -319,30 +341,35 @@ class LM:
         MoE).  The input is ``tokens`` (B, S) or ``embeds`` (B, S, D), cast
         to bf16 with no gemma scaling; ``pos3`` (3, B, S) gives M-RoPE's
         position components (default: the positions on all three)."""
-        train = torch.is_grad_enabled() and any(
-            t.requires_grad for t in _leaves(params) + [embeds] if t is not None)
+        train = _records_grad(params, embeds)
         with contextlib.nullcontext() if train else torch.inference_mode():
-            return self._forward(params, tokens, embeds, pos3, cache, cache_pos,
-                                 last_only, train)
+            logits, cache, terms = self._forward(params, tokens, embeds, pos3, cache,
+                                                 cache_pos, last_only, train)
+            aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+            for mean_gates, top1_share in terms:
+                aux = aux + L.moe_aux(mean_gates, top1_share)
+            return logits, cache, aux
 
     def _group_fn(self, cos, sin, cache_pos):
         """One layer group ``(x, params of its pattern positions, their
-        caches) -> (x, aux)``."""
+        caches) -> (x, terms)``, ``terms`` its MoE layers' per-expert means."""
         cfg = self.cfg
 
         def body(x, gp, gc):
-            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            terms = []
             for pos, (mixer, ffn) in enumerate(cfg.block_pattern):
-                x, a = _block_apply(cfg, mixer, ffn, gp[pos], x, cos, sin,
+                x, t = _block_apply(cfg, mixer, ffn, gp[pos], x, cos, sin,
                                     gc[pos] if gc is not None else None, cache_pos,
                                     self.ssd_chunk)
-                if a is not None:
-                    aux = aux + a
-            return x, aux
+                if t is not None:
+                    terms.append(t)
+            return x, terms
 
         return body
 
     def _forward(self, params, tokens, embeds, pos3, cache, cache_pos, last_only, train):
+        """``(logits, cache, terms)``, ``terms`` every MoE layer's ``(mean
+        gates, top-1 shares)`` in layer order (empty without MoE)."""
         cfg = self.cfg
         if embeds is None:
             x = EmbedLookup.apply(params["embed"], tokens.long()).to(torch.bfloat16)
@@ -352,7 +379,13 @@ class LM:
             x = embeds.to(torch.bfloat16)
         b, s = x.shape[0], x.shape[1]
         start = int(cache_pos) if cache_pos is not None else 0
-        positions = (start + torch.arange(s, device=x.device))[None, :].expand(b, s)
+        if ops.ATTN_IMPL == "cp_zigzag_native" and cache is None and s % 32 == 0:
+            # a sequence stored in zigzag chunk order: RoPE takes the logical
+            # positions (the reference's lm.py:246-252)
+            positions = torch.from_numpy(zigzag_positions(s, ops.CP_P_SHARDS)).to(x.device)
+        else:
+            positions = start + torch.arange(s, device=x.device)
+        positions = positions[None, :].expand(b, s)
         cos, sin = _positions_cos_sin(cfg, positions, pos3)
         n = cfg.num_groups
         per_pos = [_unbind_groups(blk, n) for blk in params["blocks"]]
@@ -362,7 +395,7 @@ class LM:
                   if cache is not None else [None] * n)
         body = self._group_fn(cos, sin, cache_pos)
         remat = self.remat if train and cache is None else "none"
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        terms = []
         for g in range(n):
             if remat == "none":
                 x, a = body(x, groups[g], caches[g])
@@ -372,7 +405,7 @@ class LM:
                 x, a = checkpoint(body, x, groups[g], None, use_reentrant=False,
                                   context_fn=functools.partial(
                                       create_selective_checkpoint_contexts, _dots_policy))
-            aux = aux + a
+            terms += a
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=cfg.gemma_norms)
         if last_only:
             x = x[:, -1:]
@@ -383,7 +416,7 @@ class LM:
         if logits.shape[-1] != cfg.vocab_size:  # mask vocab padding
             pad = torch.arange(logits.shape[-1], device=x.device) >= cfg.vocab_size
             logits = logits.masked_fill(pad, -1e30)
-        return logits, cache, aux
+        return logits, cache, terms
 
     def loss(self, params, tokens, targets, embeds=None, pos3=None,
              aux_weight: float = 0.01) -> torch.Tensor:
@@ -393,9 +426,20 @@ class LM:
         the MoE aux loss.  Differentiable in ``params`` when they require
         grad."""
         logits, _, aux = self.forward(params, tokens=tokens, embeds=embeds, pos3=pos3)
-        logp = torch.log_softmax(logits, dim=-1)
-        nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
-        return nll.mean() + aux_weight * aux
+        return _mean_nll(logits, targets) + aux_weight * aux
+
+    def loss_terms(self, params, tokens, targets, embeds=None, pos3=None
+                   ) -> Tuple[torch.Tensor, List[Tuple[torch.Tensor, torch.Tensor]]]:
+        """``loss`` before the MoE aux is formed: ``(mean NLL, terms)``,
+        ``terms`` every MoE layer's ``(mean gates, top-1 shares)`` over these
+        tokens, in layer order (``L.moe_aux`` of a pair is the layer's aux).
+        A data-parallel step averages each pair over the ranks before
+        ``moe_aux``, which makes the aux the one-rank step's."""
+        train = _records_grad(params, embeds)
+        with contextlib.nullcontext() if train else torch.inference_mode():
+            logits, _, terms = self._forward(params, tokens, embeds, pos3, None, None,
+                                             False, train)
+            return _mean_nll(logits, targets), terms
 
     # ------------------------------------------------------------ cache ----
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16) -> List[Dict]:

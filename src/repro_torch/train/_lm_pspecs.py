@@ -16,11 +16,13 @@ dim -> leading None):
 
 The port runs a mesh in one process and keeps each leaf whole on the rank
 that holds its first shard, mesh position 0 (``shard_params``); the specs
-say how a multi-rank step would split it (ROADMAP slice 14).
+say how a sharded program would split it.  The batch's spec
+(``data_pspec``) is what the port splits: each data rank
+(``data_rank_devices``) runs its rows of the data-parallel train step.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 
@@ -124,6 +126,22 @@ def data_ranks(mesh: Mesh, spec: Spec) -> int:
     entry = spec[0] if spec else None
     names = () if entry is None else (entry,) if isinstance(entry, str) else entry
     return int(np.prod([mesh.shape[a] for a in names] or [1]))
+
+
+def data_rank_devices(mesh: Mesh, spec: Spec) -> List:
+    """The device of each of the ``data_ranks(mesh, spec)`` shards of the
+    batch, in rank order: shard ``i`` sits at the mesh position with index
+    ``i`` over the spec's batch axes (row-major) and 0 on the others."""
+    entry = spec[0] if spec else None
+    names = () if entry is None else (entry,) if isinstance(entry, str) else entry
+    sizes = [mesh.shape[a] for a in names]
+    out = []
+    for i in range(data_ranks(mesh, spec)):
+        pos = [0] * len(mesh.axis_names)
+        for a, j in zip(names, np.unravel_index(i, sizes) if names else ()):
+            pos[mesh.axis_names.index(a)] = int(j)
+        out.append(mesh.devices[tuple(pos)])
+    return out
 
 
 def cache_pspecs(cfg: ArchConfig, cache: Any, mesh: Mesh, batch: int) -> Any:

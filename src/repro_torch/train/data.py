@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.launch.mesh import Mesh
-from repro_torch.train._lm_pspecs import Spec, data_ranks
+from repro_torch.train._lm_pspecs import Spec, data_rank_devices
 
 
 def _hash_tokens(step: int, row: np.ndarray, seq: int, vocab: int,
@@ -63,19 +63,13 @@ class SyntheticTokens:
         B/n, (i + 1) * B/n)``, generated from those rows alone and placed
         on the mesh position with index ``i`` over the batch axes (0 on the
         others).  Concatenated, they are ``host_batch(step)``."""
-        n = data_ranks(mesh, spec)
+        devices = data_rank_devices(mesh, spec)
+        n = len(devices)
         if self.global_batch % n:
             raise ValueError(f"batch {self.global_batch} does not split over {n} data ranks")
-        entry = spec[0] if spec else None
-        names = () if entry is None else (entry,) if isinstance(entry, str) else entry
-        sizes = [mesh.shape[a] for a in names]
         per = self.global_batch // n
         out = []
-        for i in range(n):
-            pos = [0] * len(mesh.axis_names)
-            for a, j in zip(names, np.unravel_index(i, sizes) if names else ()):
-                pos[mesh.axis_names.index(a)] = int(j)
-            device = mesh.devices[tuple(pos)]
+        for i, device in enumerate(devices):
             toks = self._rows(step, np.arange(i * per, (i + 1) * per))
             out.append((torch.from_numpy(np.ascontiguousarray(toks[:, :-1])).to(device),
                         torch.from_numpy(np.ascontiguousarray(toks[:, 1:])).to(device)))

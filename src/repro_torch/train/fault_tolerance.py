@@ -52,7 +52,7 @@ class FaultTolerantRunner:
     def __init__(
         self,
         step_fn: Callable,  # (state, tok, tgt) -> (state, metrics)
-        data_fn: Callable,  # step -> (tok, tgt)
+        data_fn: Callable,  # step -> (tok, tgt), or (per-rank shards, None)
         ckpt: CheckpointManager,
         ckpt_every: int = 50,
         max_retries: int = 3,
@@ -117,8 +117,10 @@ class ElasticController:
     """Rebuild a mesh after losing ranks and move state onto it.
 
     ``make_mesh`` takes the first ``num_devices`` ranks of ``device``'s
-    pool (``launch.mesh.device_pool``); state must be whole on the host or
-    checkpointed."""
+    pool (``launch.mesh.device_pool``) as a ``(num_devices /
+    model_parallel, model_parallel)`` mesh, whose data ranks the train
+    step then splits the batch over; ``reshard`` puts the state where that
+    step keeps it.  State must be whole on the host or checkpointed."""
 
     def __init__(self, axis_names=("data", "model"), device="cuda"):
         self.axis_names = tuple(axis_names)

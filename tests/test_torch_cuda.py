@@ -623,7 +623,8 @@ def test_moe_layer_on_the_card_matches_its_plain_version(cuda_device):
     p = {"w_router": rand((d, e), 0.5, torch.float32), "w_gate": rand((e, d, f), 0.1),
          "w_up": rand((e, d, f), 0.1), "w_down": rand((e, f, d), 0.1)}
     x = rand((2, t // 2, d), 1.0)
-    got, aux = layers.moe_ffn(p, x, num_experts=e, top_k=k, group_size=512)
+    got, terms = layers.moe_ffn(p, x, num_experts=e, top_k=k, group_size=512)
+    aux = layers.moe_aux(*terms)
     route = layers.moe_route(p, x.reshape(-1, 512, d), num_experts=e, top_k=k)
     plain = layers.moe_plain(p, x, route)
     torch.cuda.synchronize()
@@ -1389,3 +1390,69 @@ def test_lm_train_step_repeats_bitwise_on_the_card(cuda_device, monkeypatch):
         torch.use_deterministic_algorithms(False)
     assert torch.equal(ma["loss"], mb["loss"])
     assert all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["smollm-135m", "granite-moe-1b-a400m"])
+def test_data_parallel_step_on_two_ranks_of_the_card_matches_the_cpu(cuda_device, name):
+    """A reduced train step over a (2, 1) mesh of two ranks on the card
+    against the one-rank step on the CPU from the same state and batch: the
+    loss within 2e-3, first moments within 5e-2 of each leaf's largest entry
+    (of the model's for MoE-fed leaves: routing may flip on the card), K4
+    launched ranks x 2 a layer (forward and recomputed forward)."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import flash_attention as k4
+    from repro_torch.launch.mesh import make_debug_mesh, make_mesh_for
+    from repro_torch.models.lm import LM
+    from repro_torch.train import SyntheticTokens, tree_leaves, tree_map
+    from repro_torch.train._lm_pspecs import data_pspec
+    from repro_torch.train.train_step import build_train_step, init_train_state
+
+    cfg = configs.reduced(configs.get_config(name))
+    data = SyntheticTokens(cfg.vocab_size, 128, 4)
+    state = init_train_state(LM(cfg, device="cpu", remat="full"), 0)
+    one, m1 = build_train_step(LM(cfg, device="cpu", remat="full"),
+                               make_debug_mesh(1, 1, device="cpu"), 4)[0](
+        state, *(torch.from_numpy(a) for a in data.host_batch(0)))
+    mesh = make_mesh_for([cuda_device, cuda_device], shard_axes=("data", "model"),
+                         shape=(2, 1))
+    fn, _ = build_train_step(LM(cfg, device=cuda_device, remat="full"), mesh, 4)
+    k4_0 = k4.launches
+    dp, m2 = fn(tree_map(lambda t: t.to(cuda_device), state),
+                data.sharded_batch(0, mesh, data_pspec(mesh, 4)))
+    attn = sum(m in ("attn", "local", "mla") for m, _ in cfg.block_pattern) * cfg.num_groups
+    assert k4.launches - k4_0 == 2 * 2 * attn
+    assert abs(float(m1["loss"]) - float(m2["loss"])) <= 2e-3
+    model_max = max(float(x.abs().max()) for x in tree_leaves(one.opt.mu))
+    for a, b in zip(tree_leaves(one.opt.mu), tree_leaves(dp.opt.mu)):
+        scale = model_max if cfg.num_experts else float(a.abs().max())
+        assert b.device.type == "cuda"
+        assert float((b.cpu() - a).abs().max()) <= 5e-2 * max(scale, 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("native", [False, True])
+def test_cp_zigzag_attention_on_sixteen_ranks_of_the_card(cuda_device, native):
+    """``cp_zigzag_attention`` at p_shards=16 over a (1, 16) mesh of ranks
+    on the card (B = 2, 9 / 3 heads of 64, S = 4096, bf16): 32 K4 launches,
+    and against the float32 plain causal attention per element within
+    4e-3 + 2^-6 |ref|, in both modes."""
+    from repro_torch.kernels.cp_attention import cp_zigzag_attention, zigzag_positions
+    from repro_torch.kernels.flash_attention import flash_attention as k4
+    from repro_torch.launch.mesh import make_mesh_for
+
+    s = 4096
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn((2, h, s, 64), generator=gen, device=cuda_device).to(torch.bfloat16)
+               for h in (9, 3, 3))
+    want = attention_plain(q.float(), k.float(), v.float(), causal=True)
+    mesh = make_mesh_for([cuda_device] * 16, shard_axes=("data", "model"), shape=(1, 16))
+    pos = torch.from_numpy(zigzag_positions(s, 16)).to(cuda_device)
+    args = (q[:, :, pos], k[:, :, pos], v[:, :, pos]) if native else (q, k, v)
+    k4_0 = k4.launches
+    got = cp_zigzag_attention(*args, p_shards=16, pre_permuted=native, mesh=mesh)
+    assert k4.launches - k4_0 == 32
+    if native:
+        got = got[:, :, torch.argsort(pos)]
+    err = (got.float() - want).abs()
+    assert bool((err <= 4e-3 + 2 ** -6 * want.abs()).all())

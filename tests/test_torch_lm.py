@@ -319,13 +319,14 @@ def test_port_init_keys_shapes_dtypes_and_scale(name):
     assert not torch.equal(other["embed"], got["embed"])
 
 
-def test_unported_paths_raise():
-    """Every shipped config constructs on the CPU and its loss, ported with
-    the LM training slice, is finite on its reduced form; what is still
-    unported, an LM train step over more than one data rank (ROADMAP
-    slice 14), raises and names it."""
-    from repro_torch.launch.mesh import make_mesh_for
-    from repro_torch.train.train_step import build_train_step
+def test_every_config_trains_and_data_parallel_meshes_run():
+    """Every shipped config constructs on the CPU and its loss is finite on
+    its reduced form; the LM train step over a (2, 1) mesh and a pod mesh
+    (2, 1, 1) of data ranks runs and equals the one-rank step (loss within
+    1e-5, first moments within 5e-2 of each leaf's largest entry)."""
+    from repro_torch.launch.mesh import make_debug_mesh, make_mesh_for
+    from repro_torch.train import tree_leaves
+    from repro_torch.train.train_step import build_train_step, init_train_state
 
     for name in sorted(configs.ARCHS):
         LM(configs.get_config(name), device="cpu")
@@ -339,10 +340,19 @@ def test_unported_paths_raise():
                 rng.standard_normal((1, 16, cfg.d_model)).astype(np.float32))
         loss = model.loss(model.init(0), None if kw else toks, toks, **kw)
         assert loss.shape == () and bool(torch.isfinite(loss)), name
+    cfg = configs.reduced(configs.get_config("smollm-135m"))
+    model = LM(cfg, device="cpu")
+    rng = np.random.default_rng(1)
+    tok, tgt = (torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 16))) for _ in range(2))
+    state = init_train_state(model, 0)
+    one, m1 = build_train_step(model, make_debug_mesh(1, 1, device="cpu"), 4)[0](state, tok, tgt)
     cpu = torch.device("cpu")
-    mesh = make_mesh_for([cpu, cpu], shard_axes=("data", "model"), shape=(2, 1))
-    with pytest.raises(NotImplementedError, match="slice 14"):
-        build_train_step(model, mesh, 4)
+    for shape, axes in (((2, 1), ("data", "model")), ((2, 1, 1), ("pod", "data", "model"))):
+        mesh = make_mesh_for([cpu, cpu], shard_axes=axes, shape=shape)
+        dp, m2 = build_train_step(model, mesh, 4)[0](state, tok, tgt)
+        assert abs(float(m1["loss"]) - float(m2["loss"])) <= 1e-5, shape
+        for a, b in zip(tree_leaves(one.opt.mu), tree_leaves(dp.opt.mu)):
+            assert float((a - b).abs().max()) <= 5e-2 * float(a.abs().max()), shape
 
 
 def test_cuda_model_raises_without_cuda(monkeypatch):

@@ -117,7 +117,8 @@ def test_moe_ffn_matches_reference(case):
     rng = np.random.default_rng(11)
     p_ref, p_port, xj, xt = _moe_setup(rng, d, e, f, tokens)
     want, aux_ref = ref_layers.moe_ffn(p_ref, xj, num_experts=e, top_k=k, group_size=group)
-    got, aux = layers.moe_ffn(p_port, xt, num_experts=e, top_k=k, group_size=group)
+    got, terms = layers.moe_ffn(p_port, xt, num_experts=e, top_k=k, group_size=group)
+    aux = layers.moe_aux(*terms)
     assert got.dtype == torch.bfloat16 and got.shape == xt.shape
     assert aux.dtype == torch.float32
     np.testing.assert_allclose(np32(got), np32(want), atol=LAYER_TOL)
@@ -138,7 +139,8 @@ def test_moe_capacity_drops_match_reference():
     _, idx, keep, _ = _ref_route(p_ref, xj, e, k, group)
     assert int(keep.sum()) == kept
     want, aux_ref = ref_layers.moe_ffn(p_ref, xj, num_experts=e, top_k=k, group_size=group)
-    got, aux = layers.moe_ffn(p_port, xt, num_experts=e, top_k=k, group_size=group)
+    got, terms = layers.moe_ffn(p_port, xt, num_experts=e, top_k=k, group_size=group)
+    aux = layers.moe_aux(*terms)
     np.testing.assert_allclose(np32(got), np32(want), atol=LAYER_TOL)
     assert abs(float(aux) - float(aux_ref)) <= AUX_RTOL * float(aux_ref)
     plain = layers.moe_plain(p_port, xt, r)

@@ -167,8 +167,8 @@ def test_moe_layer_gradient_matches_the_reference(name):
         return jnp.sum(out.astype(jnp.float32) * r) + aux
 
     def f_port(p, xx):
-        out, aux = layers.moe_ffn(p, xx, **kw)
-        return (out.float() * torch.from_numpy(r)).sum() + aux
+        out, terms = layers.moe_ffn(p, xx, **kw)
+        return (out.float() * torch.from_numpy(r)).sum() + layers.moe_aux(*terms)
 
     v_ref, (g_ref, gx_ref) = jax.value_and_grad(f_ref, argnums=(0, 1))(
         p_ref, jnp.asarray(x, jnp.bfloat16))

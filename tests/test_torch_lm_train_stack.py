@@ -38,6 +38,9 @@ from repro.train.checkpoint import CheckpointManager as RefCheckpoints  # noqa: 
 from repro.train.data import SyntheticTokens as RefTokens  # noqa: E402
 from repro.train.train_step import TrainState as RefTrainState  # noqa: E402
 from repro.train.train_step import state_pspecs as ref_state_pspecs  # noqa: E402
+from lm_ref_step import max_rel as _max_rel  # noqa: E402
+from lm_ref_step import ref_model  # noqa: E402
+from lm_ref_step import ref_step as ref_step_fn  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.launch import mesh as port_mesh  # noqa: E402
 from repro_torch.launch.mesh import make_debug_mesh, make_mesh_for  # noqa: E402
@@ -60,49 +63,21 @@ LOSS_TOL = 1e-3  # as tests/test_torch_lm_train.py: bf16 layers round at other p
 GRAD_RTOL = 5e-2  # gradient-derived leaves (moments), of each leaf's largest entry
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread for these small steps: under the suite's
+    parallel workers a thread pool a process oversubscribes the cores and
+    each small op waits on its pool (restored after each test)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _reduced():
-    cfg = ref_configs.reduced(ref_configs.ARCHS[NAME])
-    ref = RefLM(cfg, backend="jnp", remat="none")
-    rp = ref.init(jax.random.key(0))
+    ref, rp = ref_model(NAME)
     port = LM(configs.reduced(configs.get_config(NAME)), device="cpu", remat="full")
-    return cfg, ref, rp, port
-
-
-def _ref_step(ref, microbatches, use_compression, lr):
-    """The body of the reference's ``build_train_step.step``
-    (``repro/train/train_step.py:91-134``) without the mesh: the same
-    pieces in the same order, the microbatch scan as a loop."""
-    def loss_fn(params, tok, tgt):
-        return ref.loss(params, tok, tgt, aux_weight=0.01)
-
-    vg = jax.jit(jax.value_and_grad(loss_fn))
-
-    def step(params, opt, residuals, tok, tgt):
-        if microbatches == 1:
-            loss, grads = vg(params, tok, tgt)
-        else:
-            rows = tok.shape[0] // microbatches
-            loss = jnp.zeros(())
-            grads = jax.tree.map(lambda p: jnp.zeros(jnp.shape(p), jnp.float32), params)
-            for i in range(microbatches):
-                sl = slice(i * rows, (i + 1) * rows)
-                l_i, g_i = vg(params, tok[sl], tgt[sl])
-                loss = loss + l_i
-                grads = jax.tree.map(lambda a, b: a + b.astype(jnp.float32), grads, g_i)
-            loss = loss / microbatches
-            grads = jax.tree.map(lambda g: g / microbatches, grads)
-        grads, gnorm = ref_optim.clip_by_global_norm(grads, 1.0)
-        if use_compression:
-            grads, residuals = ref_compress.compress_decompress(grads, residuals)
-        params, opt = ref_optim.adamw_update(grads, opt, params, lr)
-        return params, opt, residuals, loss, gnorm
-
-    return step
-
-
-def _max_rel(a, b) -> float:
-    a32, b32 = np.asarray(a, np.float32), b.float().numpy()
-    return float(np.abs(a32 - b32).max() / max(np.abs(a32).max(), 1e-30))
+    return ref.cfg, ref, rp, port
 
 
 @pytest.mark.parametrize("compress", [False, True])
@@ -123,7 +98,7 @@ def test_train_step_matches_the_reference_pieces(microbatches, compress):
                                       lr=LR, microbatches=microbatches,
                                       use_compression=compress)
     assert isinstance(specs, TrainState)
-    ref_step = _ref_step(ref, microbatches, compress, LR)
+    ref_step = ref_step_fn(ref, microbatches, compress, LR)
     r_params, r_opt = rp, ref_optim.adamw_init(rp)
     r_res = ref_compress.init_residuals(rp) if compress else None
     data = SyntheticTokens(cfg.vocab_size, SEQ, BATCH)
@@ -171,20 +146,41 @@ def test_microbatches_split_the_rows_in_order():
         build_train_step(port, mesh, BATCH, microbatches=3)
 
 
-def test_mesh_with_more_than_one_data_rank_raises():
-    """Data parallelism over ranks is the next slice: a (2, 1) mesh raises
-    and names it; a (1, 2) mesh of ranks on one device runs."""
-    _, _, _, port = _reduced()
+def test_meshes_with_several_data_ranks_equal_the_one_rank_step():
+    """A (2, 1) mesh and a pod mesh (2, 1, 1) of data ranks run the step,
+    from the reference's parameters, and equal the one-rank step (loss
+    within 1e-5, moments within GRAD_RTOL of each leaf's largest entry) and
+    the reference's step body on the whole batch (loss within LOSS_TOL,
+    global norm and moments within GRAD_RTOL); a (1, 2) mesh, one data
+    rank, runs it as the one-rank step does, bit for bit."""
+    _, ref, rp, port = _reduced()
     cpu = torch.device("cpu")
-    mesh = make_mesh_for([cpu, cpu], shard_axes=("data", "model"), shape=(2, 1))
-    with pytest.raises(NotImplementedError, match="slice 14"):
-        build_train_step(port, mesh, BATCH)
-    pods = make_mesh_for([cpu, cpu], shard_axes=("pod", "data", "model"), shape=(2, 1, 1))
-    with pytest.raises(NotImplementedError, match="slice 14"):
-        build_train_step(port, pods, BATCH)
+    tok_np, tgt_np = SyntheticTokens(port.cfg.vocab_size, SEQ, BATCH).host_batch(0)
+    tok, tgt = torch.from_numpy(tok_np), torch.from_numpy(tgt_np)
+    pp = lm_params_from_numpy(jax.tree.map(np.asarray, rp), "cpu")
+    state = TrainState(params=pp, opt=adamw_init(pp), residuals=None)
+    _, r_opt, _, r_loss, r_norm = ref_step_fn(ref, 1, False, LR)(
+        rp, ref_optim.adamw_init(rp), None, tok_np, tgt_np)
+    one, m1 = build_train_step(port, make_debug_mesh(1, 1, device="cpu"), BATCH, lr=LR)[0](
+        state, tok, tgt)
+    for shape, axes in (((2, 1), ("data", "model")), ((2, 1, 1), ("pod", "data", "model"))):
+        mesh = make_mesh_for([cpu, cpu], shard_axes=axes, shape=shape)
+        dp, m2 = build_train_step(port, mesh, BATCH, lr=LR)[0](state, tok, tgt)
+        assert abs(float(m1["loss"]) - float(m2["loss"])) <= 1e-5, shape
+        for a, b in zip(tree_leaves((one.opt.mu, one.opt.nu)), tree_leaves((dp.opt.mu, dp.opt.nu))):
+            assert float((a - b).abs().max()) <= GRAD_RTOL * float(a.abs().max()), shape
+        assert abs(float(m2["loss"]) - float(r_loss)) <= LOSS_TOL, shape
+        assert abs(float(m2["grad_norm"]) / float(r_norm) - 1) <= GRAD_RTOL, shape
+        for a, b in zip(jax.tree.leaves((r_opt.mu, r_opt.nu)),
+                        tree_leaves((dp.opt.mu, dp.opt.nu))):
+            assert _max_rel(a, b) <= GRAD_RTOL, shape
     fn, specs = build_train_step(
-        port, make_mesh_for([cpu, cpu], shard_axes=("data", "model"), shape=(1, 2)), BATCH)
+        port, make_mesh_for([cpu, cpu], shard_axes=("data", "model"), shape=(1, 2)), BATCH,
+        lr=LR)
     assert specs.params["embed"] == ("model", None)
+    same, m3 = fn(state, tok, tgt)
+    assert torch.equal(m1["loss"], m3["loss"])
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(one), tree_leaves(same)))
 
 
 # ------------------------------------------------------------------ data --
