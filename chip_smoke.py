@@ -182,20 +182,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    jamba-v0.1-52b's 32 / 8 query / KV heads, each by the same float32
    gates with its dropped-tile fault.  The bf16 K4's registers, dynamic shared memory
    and local (spill) bytes are printed as the runtime reports them, at
-   head dims 64, 128 and 256.  K5's plain version runs with TF32 off; a
+   every (q/k, v) head-dim pair it is instantiated at: (64, 64), (128,
+   128) and (256, 256) must keep the registers and shared bytes they had
+   (``K4_SQUARE_INFO``), (80, 80) and (96, 64) must not spill.  K5's plain version runs with TF32 off; a
    planted fault (the plain version of the second half of the sequence
    alone, which drops the state carried across the midpoint) must break
-   K5's tolerance.  Then K4's padded route (head dims the kernel does not
-   take, zero-padded to the next one, at the true scale) at the two layers
-   that take it: hubert-xlarge's (B = 4, 16 heads of 80, S = T = 2048,
-   non-causal) and minicpm3-4b's MLA prefill (B = 4, 40 heads, q and k at
-   96, v at 64, S = 2048, causal), each against the float32 plain version
-   within 3e-2 per element and by the per-tile gate, bitwise repeatable,
-   with two planted faults that must break the tile gate (the padded head
-   dim's scale; one key tile dropped); printed: the kernel's event median
-   and queue-full time, the padding copies' time, the plain version's, the
-   bound at the true head dims, and SDPA's time at the true shapes with the
-   backend it picked.
+   K5's tolerance.  Then K4 at its native pairs beyond (d, d), at the two
+   layers that run them: hubert-xlarge's (B = 4, 16 heads of 80, S = T =
+   2048, non-causal) and minicpm3-4b's MLA prefill (B = 4, 40 heads, q and
+   k at 96, v at 64, S = 2048, causal): one launch a call and no padding
+   copy, against the float32 plain version within 3e-2 per element and by
+   the per-tile gate, bitwise repeatable, bitwise the same on q, k and v
+   given as the first columns of 128-wide buffers of noise, with two
+   planted faults that must break the tile gate (the padded head dim's
+   scale; one key tile dropped); printed: the kernel's event median and
+   queue-full time, those of the padded route it replaced on the same
+   operands (copies and kernel at 128; the copies alone, the kernel alone),
+   the plain version's, the bound at the true head dims, and SDPA's time at
+   the true shapes with the backend it picked.
 7. LM serving, a functional check and not a load: ``ServeEngine`` on
    full-width smollm-135m, olmoe-1b-7b and minicpm3-4b with
    ``launch/serve.py``'s defaults (6 requests, 4 slots, prompt 6, 8 new
@@ -234,8 +238,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    each, ``LM.forward(..., last_only=True)`` at B = 4, S = 2048 twice with
    the counters set to 0 just before and read just after: K4 launches once
    per attention or MLA layer (16, 24, 62, 28, 48, 1) and K5 once per SSM
-   layer (jamba: 7), logits finite and bitwise repeatable, the MoE aux
-   finite and positive; one forward profiled, with K4's share of the device
+   layer (jamba: 7), no ``pad_head_dims`` call (every K4 call runs at its
+   own head dims; a spy counts them), logits finite and bitwise
+   repeatable, the MoE aux finite and positive; one forward profiled, with K4's share of the device
    time and the MoE dispatch, expert and combine einsums' shares.  Gates:
    olmoe's first MoE layer at the prefill's activations against its
    float32 per-token plain version within 3e-2 (absolute and of the largest
@@ -250,10 +255,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    per element and per 128-row tile, a dropped key tile above the tile
    gate; minicpm3's absorbed MLA decode against its prefill within 5e-2
    (``MLA_DECODE_GATE_LAYERS``), a decode without the ``q_r k_r`` term of
-   the logits (a planted fault: the rope key projection zeroed) above it,
-   and its prefill timed with q and k built at K4's padded width against
-   q and k concatenated at the true head dim as the reference does,
-   interleaved (logits bitwise equal); qwen2-vl's forward
+   the logits (a planted fault: the rope key projection zeroed) above it;
+   minicpm3's and hubert's prefills timed with K4 at its native pair
+   against the padded route it took before (``PaddedRoute``), interleaved,
+   with the two forwards' logit gap printed; qwen2-vl's forward
    from ``embeds = embed[tokens]`` with the positions on all three M-RoPE
    components against its token forward within 5e-2.  Each phase prints
    its wall time.
@@ -338,9 +343,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    dependency forward, rows for K1 and K2 over phase 3c's sliced packings,
    rows for K1 and K2 over phase 3d's spliced packing, rows for K1 and
    K2 over phase 3e's largest merged shard stream, K4's and K5's rows with
-   their launches by model, and a row for K4's padded route at each of
-   hubert-xlarge's and minicpm3-4b's layers, with its launches in phase
-   8b; K4's and K5's launches per data-parallel step and K4's per CP
+   their launches by model, and a row for K4 at its native (Dqk, Dv) pair
+   at each of hubert-xlarge's and minicpm3-4b's layers, with its launches
+   in phase 8b and the prefill A/B; K4's and K5's launches per data-parallel step and K4's per CP
    call, phase 10), the card line, and last the contract line ``{"ok":
    true, "device": {...}}``.
 
@@ -446,11 +451,17 @@ LM_NEW_ARCHS = ("olmoe-1b-7b", "granite-moe-1b-a400m", "minicpm3-4b", "qwen2-vl-
 # 26.5 GB) runs its SSM, attention, MLP and MoE layers
 LM_DEPTH_CUT = {"jamba-v0.1-52b": 8}
 LM_SERVE_ARCHS = ("olmoe-1b-7b", "minicpm3-4b")  # phase 7's models beside smollm-135m
-# K4's padded route at the two layers that take it: B, H, S = T, Dqk, Dv, causal
-K4_PADDED = {
+# K4's native (Dqk, Dv) pairs beyond (d, d) at the two layers that run them
+# (they took the padded route at 128 before): B, H, S = T, Dqk, Dv, causal
+K4_NATIVE = {
     "hubert-xlarge": (4, 16, 2048, 80, 80, False),
     "minicpm3-4b": (4, 40, 2048, 96, 64, True),
 }
+# the bf16 kernel's registers a thread and dynamic shared bytes at the
+# square pairs, as the card reported them before the native pairs came in
+# (PERF.md section 6): the (Dqk, Dv) templates leave them as they were
+K4_SQUARE_INFO = {(64, 64): (168, 83016), (128, 128): (168, 164936),
+                  (256, 256): (168, 197704)}
 MOE_TOL = 3e-2  # the MoE layer against its float32 plain version (bf16 einsums)
 # Phase 8b's logit gates are bf16 products: two prefills (or a prefill and
 # a decode) whose attention rounds at other places drift apart with depth.
@@ -584,6 +595,44 @@ def queued_ms(fn, reps: int = 20) -> float:
 
 def _ms(x) -> str:
     return "not measured" if x is None else f"{x:.4f} ms"
+
+
+class PadCalls:
+    """Counts the padded route's copies: each ``pad_head_dims`` call made
+    while the context is open (the wrapper reads the module attribute at
+    call time), in ``calls``."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as fa
+
+        self.fa, self.pad, self.calls = fa, fa.pad_head_dims, 0
+
+        def spy(*args):
+            self.calls += 1
+            return self.pad(*args)
+
+        fa.pad_head_dims = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.fa.pad_head_dims = self.pad
+
+
+class PaddedRoute:
+    """K4 as it ran before its native (Dqk, Dv) pairs: while open, the
+    wrapper takes only the square pairs natively, so hubert's 80 and MLA's
+    96 / 64 are zero-padded to 128 (``pad_head_dims``) and MLA builds q and
+    k at 128 (``ops.attention_width``)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as fa
+
+        self.fa, self.pairs = fa, fa.NATIVE_PAIRS
+        fa.NATIVE_PAIRS = tuple((d, d) for d in fa.HEAD_DIMS)
+        return self
+
+    def __exit__(self, *exc):
+        self.fa.NATIVE_PAIRS = self.pairs
 
 
 def host_us(fn, reps: int = 200) -> float:
@@ -2696,50 +2745,72 @@ def sdpa_backend(q, k, v, causal: bool) -> str:
                 str(pick))
 
 
-def k4_padded_shape(dev, gen, arch, b, h, s, dqk, dv, causal):
-    """K4 through its padded route at one layer's shapes (S = T, no GQA):
-    against the float32 plain version per element (within K4_TOL for bf16)
-    and per 128-row query tile (K4_TILE_RMS), bitwise repeatable; two
-    planted faults read in the same run must break the tile gate: the
-    padded head dim's scale in place of the true one, and one key tile
-    dropped from the last 256 rows.  Times: the kernel (event median and
-    queue-full), the padding copies alone, the float32 plain version, and
-    SDPA at the true shapes (v's head dim may differ from q's) with the
-    backend it picked; the bound at the true head dims."""
+def k4_native_shape(dev, gen, arch, b, h, s, dqk, dv, causal):
+    """K4 at a native (Dqk, Dv) pair, at one layer's shapes (S = T, no
+    GQA): one launch a call and no ``pad_head_dims`` call; against the
+    float32 plain version per element (within K4_TOL for bf16) and per
+    128-row query tile (K4_TILE_RMS), bitwise repeatable, and bitwise the
+    same output when q, k and v are the first Dqk / Dv columns of 128-wide
+    buffers whose other columns hold noise (the kernel reads only the true
+    columns); two planted faults read in the same run must break the tile
+    gate: the padded head dim's scale in place of the true one, and one key
+    tile dropped from the last 256 rows.  Times (event median and queue
+    full): the native kernel; the padded route it replaced, on the same
+    operands (``pad_head_dims`` and the kernel at the padded head dim,
+    together, then the copies alone and the kernel alone); the float32
+    plain version; SDPA at the true shapes with the backend it picked; the
+    bound at the true head dims."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (attention_plain, flash_attention,
-                                                     kernel_info, pad_head_dims,
+                                                     kernel_info, kernel_pair, pad_head_dims,
                                                      padded_head_dim)
 
     dp = padded_head_dim(dqk, dv)
+    label = f"{arch} layer: B={b} H={h} S=T={s} q/k Dh={dqk} v Dh={dv}"
+    require(kernel_pair(dqk, dv, torch.bfloat16) == (dqk, dv),
+            f"K4 {label}: not a native pair of the bf16 kernel")
     q = _randn(gen, (b, h, s, dqk), dev, torch.bfloat16)
     k = _randn(gen, (b, h, s, dqk), dev, torch.bfloat16)
     v = _randn(gen, (b, h, s, dv), dev, torch.bfloat16)
-    out = flash_attention(q, k, v, causal=causal)
-    again = flash_attention(q, k, v, causal=causal)
+    # the same operands as the first columns of 128-wide buffers of noise
+    wide = [_randn(gen, (b, h, s, 128), dev, torch.bfloat16) for _ in range(3)]
+    for buf, x in zip(wide, (q, k, v)):
+        buf[..., :x.shape[-1]] = x
+    qw, kw, vw = wide[0][..., :dqk], wide[1][..., :dqk], wide[2][..., :dv]
+    torch.cuda.synchronize()
+    with PadCalls() as pads:
+        before = flash_attention.launches
+        out = flash_attention(q, k, v, causal=causal)
+        again = flash_attention(q, k, v, causal=causal)
+        junk = flash_attention(qw, kw, vw, causal=causal)
+        launched = flash_attention.launches - before
     wrong_scale = flash_attention(q, k, v, causal=causal, scale=dp ** -0.5)
     ref = attention_f32(q, k, v, causal)
     torch.cuda.synchronize()
-    label = f"{arch} layer: B={b} H={h} S=T={s} q/k Dh={dqk} v Dh={dv} (padded to {dp})"
+    require(launched == 3 and pads.calls == 0,
+            f"K4 {label}: {launched} launches and {pads.calls} padding copies in 3 calls")
     require(out.shape == (b, h, s, dv), f"K4 {label}: output shape {tuple(out.shape)}")
     require(torch.equal(out, again), f"K4 not bitwise repeatable at {label}")
+    require(torch.equal(junk, out), f"K4 {label}: views of 128-wide buffers give another "
+            f"output than contiguous operands (max|d| {(junk.float() - out.float()).abs().max()})")
     err = (out.float() - ref).abs().max().item()
     rms = tile_rms(out, ref).max().item()
     scale_rms = tile_rms(wrong_scale, ref).max().item()
-    bk = kernel_info(dp)["block_k"]
+    bk = kernel_info(dqk, dv)["block_k"]
     first = s - 256
     d0 = (first // 2) // bk * bk
     qb = q[:, :, first:]
     fault = plain_rows(qb, k, v, first, drop=slice(d0, d0 + bk), causal=causal)
     drop_rms = tile_rms(fault, plain_rows(qb, k, v, first, causal=causal)).max().item()
     tol = K4_TOL[torch.bfloat16]
-    print(f"K4 {label}, {'causal' if causal else 'non-causal'}: max|kernel - float32 plain| "
-          f"= {err:.3e} (at most {tol}); largest 128-row tile ||d|| / ||ref|| = {rms:.3e} "
-          f"(at most {K4_TILE_RMS}); planted faults: the padded head dim's scale "
-          f"{dp}**-0.5 reads {scale_rms:.3e} ({scale_rms / K4_TILE_RMS:.1f}x the limit), one "
-          f"key tile dropped from the last 256 rows {drop_rms:.3e} "
-          f"({drop_rms / K4_TILE_RMS:.1f}x); run-to-run bitwise equal")
+    print(f"K4 {label}, {'causal' if causal else 'non-causal'}, native: {launched} launches "
+          f"and {pads.calls} padding copies in 3 calls; max|kernel - float32 plain| = "
+          f"{err:.3e} (at most {tol}); largest 128-row tile ||d|| / ||ref|| = {rms:.3e} (at most "
+          f"{K4_TILE_RMS}); planted faults: the padded head dim's scale {dp}**-0.5 reads "
+          f"{scale_rms:.3e} ({scale_rms / K4_TILE_RMS:.1f}x the limit), one key tile dropped "
+          f"from the last 256 rows {drop_rms:.3e} ({drop_rms / K4_TILE_RMS:.1f}x); run-to-run "
+          f"bitwise equal; on views of 128-wide buffers of noise bitwise equal")
     require(err <= tol, f"K4 disagrees with its float32 plain version at {label}: {err}")
     require(rms <= K4_TILE_RMS, f"K4 tile error {rms} over {K4_TILE_RMS} at {label}")
     require(scale_rms > K4_TILE_RMS, f"K4 gate would pass the padded scale at {label}")
@@ -2748,13 +2819,21 @@ def k4_padded_shape(dev, gen, arch, b, h, s, dqk, dv, causal):
     def sdpa():
         return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
 
+    def padded_route():
+        qp, kp, vp, true_scale, _ = pad_head_dims(q, k, v)
+        return flash_attention(qp, kp, vp, causal=causal, scale=true_scale)[..., :dv]
+
     lib_err = (sdpa().float() - ref).abs().max().item()
+    padded_same = torch.equal(padded_route(), out)
     ms = median_ms(lambda: flash_attention(q, k, v, causal=causal))
     q_ms = queued_ms(lambda: flash_attention(q, k, v, causal=causal))
+    padded_ms = median_ms(padded_route)
+    padded_q_ms = queued_ms(padded_route)
     pad_ms = median_ms(lambda: pad_head_dims(q, k, v))
     pad_q_ms = queued_ms(lambda: pad_head_dims(q, k, v))
     qp, kp, vp, true_scale, _ = pad_head_dims(q, k, v)  # the kernel alone, at Dp
-    kernel_q_ms = queued_ms(lambda: flash_attention(qp, kp, vp, causal=causal, scale=true_scale))
+    kernel_padded_q_ms = queued_ms(lambda: flash_attention(qp, kp, vp, causal=causal,
+                                                           scale=true_scale))
     plain_ms = median_ms(lambda: attention_plain(q, k, v, causal=causal), reps=3)
     lib_ms = median_ms(sdpa)
     lib_q_ms = queued_ms(sdpa)
@@ -2763,10 +2842,14 @@ def k4_padded_shape(dev, gen, arch, b, h, s, dqk, dv, causal):
     flops = 2.0 * pairs * (dqk + dv) * h * b  # q k^T and p v at the true head dims
     nbytes = 2 * b * h * s * (2 * dqk + 2 * dv)  # q, k (Dqk) and v, o (Dv) in bf16
     t_ops, t_bytes = flops / BF16_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    row = {"shape": f"{label}, bf16 {'causal' if causal else 'non-causal'}",
+    row = {"shape": f"{label}, bf16 {'causal' if causal else 'non-causal'}, native",
            "max_abs_err": err, "f32_tile_rms": rms, "fault_scale_tile_rms": scale_rms,
-           "fault_drop_tile_rms": drop_rms, "ms": ms, "queued_ms": q_ms,
-           "kernel_padded_queued_ms": kernel_q_ms,
+           "fault_drop_tile_rms": drop_rms, "junk_columns_bitwise": True,
+           "launches_per_call": launched // 3, "padding_copies": pads.calls,
+           "ms": ms, "queued_ms": q_ms,
+           "padded_route_ms": padded_ms, "padded_route_queued_ms": padded_q_ms,
+           "padded_route_bitwise_native": padded_same,
+           "kernel_padded_queued_ms": kernel_padded_q_ms,
            "padding_ms": pad_ms, "padding_queued_ms": pad_q_ms, "plain_ms": plain_ms,
            "library_ms": lib_ms, "library_queued_ms": lib_q_ms, "library_err": lib_err,
            "library_fn": f"scaled_dot_product_attention at the true head dims "
@@ -2774,12 +2857,14 @@ def k4_padded_shape(dev, gen, arch, b, h, s, dqk, dv, causal):
            "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "flops": flops, "bytes": nbytes}
-    print(f"K4 {label}: kernel {ms:.4f} ms, queue full {q_ms:.4f} ms, of which padding copies "
-          f"{pad_ms:.4f} ms ({pad_q_ms:.4f} queue full), the kernel alone on padded operands "
-          f"{kernel_q_ms:.4f} ms queue full; plain {plain_ms:.3f} ms; SDPA "
-          f"{lib_ms:.4f} ms, queue full {lib_q_ms:.4f} ms (backend {backend}, max|SDPA - plain| "
-          f"{lib_err:.3e}); bound at the true head dims {row['bound_ms']:.5f} ms "
-          f"({row['bound_by']}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    print(f"K4 {label}: native kernel {ms:.4f} ms, queue full {q_ms:.4f} ms; the padded route "
+          f"it replaced (to {dp}) {padded_ms:.4f} ms, queue full {padded_q_ms:.4f} ms (padding "
+          f"copies {pad_ms:.4f} / {pad_q_ms:.4f}, the kernel alone on padded operands "
+          f"{kernel_padded_q_ms:.4f} queue full; output bitwise the native one: {padded_same}); "
+          f"plain {plain_ms:.3f} ms; SDPA {lib_ms:.4f} ms, queue full {lib_q_ms:.4f} ms (backend "
+          f"{backend}, max|SDPA - plain| {lib_err:.3e}); bound at the true head dims "
+          f"{row['bound_ms']:.5f} ms ({row['bound_by']}: {flops / 1e9:.1f} GFLOP, "
+          f"{nbytes / 1e6:.1f} MB)")
     return row
 
 
@@ -2847,8 +2932,8 @@ def k5_shape(dev, gen, b, s, h, g, p, n, chunk):
 
 def phase_lm_kernels(dev):
     """Phase 6: K4 and K5 against their plain versions at the LM shapes."""
-    from repro_torch.kernels.flash_attention import (attention_plain, flash_attention,
-                                                     kernel_info)
+    from repro_torch.kernels.flash_attention import (NATIVE_PAIRS, attention_plain,
+                                                     flash_attention, kernel_info)
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     k4_rows = [k4_shape(dev, gen, *shape) for shape in K4_SHAPES]
@@ -2869,18 +2954,25 @@ def phase_lm_kernels(dev):
     k4_rows.append(k4_shape(dev, gen, *K4_DH128))
     b, hq, hkv, s, dh, window, cap = K4_GEMMA_LOCAL
     k4_rows.append(k4_shape(dev, gen, b, hq, hkv, s, dh, window=window, softcap=cap))
-    for dh in (64, 128, 256):
-        info = kernel_info(dh)
-        print(f"K4 bf16 kernel, head dim {dh}: {info['registers']} registers a thread, "
-              f"{info['shared_bytes']} bytes of dynamic shared memory, "
+    for dqk, dv in NATIVE_PAIRS:
+        info = kernel_info(dqk, dv)
+        print(f"K4 bf16 kernel, q/k head dim {dqk}, v head dim {dv}: {info['registers']} "
+              f"registers a thread, {info['shared_bytes']} bytes of dynamic shared memory, "
               f"{info['local_bytes']} bytes of local memory a thread, "
-              f"{info['threads']} threads a CTA")
+              f"{info['threads']} threads a CTA, {info['block_k']} keys a K/V tile")
+        if (dqk, dv) in K4_SQUARE_INFO:
+            require((info["registers"], info["shared_bytes"]) == K4_SQUARE_INFO[(dqk, dv)],
+                    f"K4 ({dqk}, {dv}): registers and shared bytes moved from "
+                    f"{K4_SQUARE_INFO[(dqk, dv)]}")
+        else:
+            require(info["local_bytes"] == 0 and info["registers"] <= 168,
+                    f"K4 ({dqk}, {dv}) spills or launches above 168 registers: {info}")
     for arch, shape in K4_MODEL_LAYOUTS.items():
         k4_rows.append(dict(k4_shape(dev, gen, *shape), model=arch))
     k5_rows = [k5_shape(dev, gen, *shape) for shape in K5_SHAPES]
-    padded_rows = {arch: k4_padded_shape(dev, gen, arch, *shape)
-                   for arch, shape in K4_PADDED.items()}
-    return k4_rows, f32_err, k5_rows, padded_rows
+    native_rows = {arch: k4_native_shape(dev, gen, arch, *shape)
+                   for arch, shape in K4_NATIVE.items()}
+    return k4_rows, f32_err, k5_rows, native_rows
 
 
 def launches_per_forward(cfg) -> dict:
@@ -3015,7 +3107,7 @@ def dropped_tile_attention(every_call: bool = False):
     width) from the middle of the first half, the fault a wrong tile plan
     would make."""
     from repro_torch.kernels.flash_attention import (flash_attention, kernel_info,
-                                                     padded_head_dim)
+                                                     kernel_pair)
 
     calls = []
 
@@ -3024,7 +3116,7 @@ def dropped_tile_attention(every_call: bool = False):
                               scale=scale)
         if every_call or not calls:
             s = q.shape[2]
-            bk = kernel_info(padded_head_dim(q.shape[3], v.shape[3]))["block_k"]
+            bk = kernel_info(*kernel_pair(q.shape[3], v.shape[3], q.dtype))["block_k"]
             first = s // 2
             d0 = first // 2 // bk * bk
             out = out.clone()
@@ -3254,7 +3346,7 @@ def k4_at_activations(model, params, inputs) -> dict:
     its logits."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import (flash_attention, kernel_info,
-                                                     padded_head_dim)
+                                                     kernel_pair)
 
     seen = []
     kernel = ops.flash_attention
@@ -3282,7 +3374,7 @@ def k4_at_activations(model, params, inputs) -> dict:
     err = (out.float() - ref).abs().max().item()
     rms = tile_rms(out, ref).max().item()
     s = q.shape[2]
-    bk = kernel_info(padded_head_dim(q.shape[3], v.shape[3]))["block_k"]
+    bk = kernel_info(*kernel_pair(q.shape[3], v.shape[3], q.dtype))["block_k"]
     first = s - 256
     d0 = first // 2 // bk * bk
     qb = q[:, :, first:]
@@ -3307,45 +3399,45 @@ def k4_at_activations(model, params, inputs) -> dict:
             "fault_drop_tile_rms": drop_rms}
 
 
-def mla_width_ab(model, params, inputs, rounds: int = 3) -> dict:
-    """An MLA prefill as the port runs it (q and k built at K4's padded
-    width, ``ops.attention_width``, so the wrapper pads only v) against the
-    same prefill with q and k concatenated at the true head dim as the
-    reference does (the wrapper then pads all three), interleaved A B B A in
-    one process: the median CUDA-event milliseconds of each forward, and
-    whether the two give the same logits bit for bit (the padding is
-    exact)."""
-    from repro_torch.kernels import ops
-
-    width = ops.attention_width
-
-    def forward(concat: bool):
-        ops.attention_width = (lambda dqk, dv, device: dqk) if concat else width
-        try:
+def route_ab(model, params, inputs, rounds: int = 3) -> dict:
+    """A full-width prefill with K4 at its native (Dqk, Dv) pair against the
+    same prefill on the padded route K4 took before (``PaddedRoute``: q, k
+    and v zero-padded to 128), interleaved A B B A in one process: the
+    median CUDA-event milliseconds of each forward, the padded route's
+    ``pad_head_dims`` calls, and how far the two forwards' logits lie apart
+    (printed, not gated: both are bf16 prefills of the same function)."""
+    def forward(padded: bool):
+        if not padded:
             return model.forward(params, last_only=True, **inputs)[0]
-        finally:
-            ops.attention_width = width
+        with PaddedRoute():
+            return model.forward(params, last_only=True, **inputs)[0]
 
-    same = torch.equal(forward(False), forward(True))
+    native = forward(False)
+    with PadCalls() as pads:
+        padded = forward(True)
+    torch.cuda.synchronize()
+    same = torch.equal(native, padded)
+    gap = (native.float() - padded.float()).abs().max().item()
     times = {False: [], True: []}
     for i in range(4 * rounds):
-        concat = i % 4 in (1, 2)
+        route = i % 4 in (1, 2)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        forward(concat)
+        forward(route)
         end.record()
         end.synchronize()
-        times[concat].append(start.elapsed_time(end))
-    width_ms, concat_ms = (statistics.median(times[c]) for c in (False, True))
-    print(f"MLA q/k width A/B {model.cfg.name} (B={LM_BATCH} S={LM_SEQ}, {2 * rounds} forwards "
-          f"each, interleaved): q and k built at K4's width {width_ms:.3f} ms (median; "
-          f"{['%.3f' % t for t in times[False]]}), concatenated at the true head dim and "
-          f"padded by the wrapper {concat_ms:.3f} ms ({['%.3f' % t for t in times[True]]}), "
-          f"{100 * (concat_ms / width_ms - 1):+.2f}%; logits bitwise equal: {same}")
-    require(same, f"{model.cfg.name}: MLA's width changes the prefill's logits")
-    return {"width_ms": width_ms, "concat_ms": concat_ms, "width_runs": times[False],
-            "concat_runs": times[True]}
+        times[route].append(start.elapsed_time(end))
+    native_ms, padded_ms = (statistics.median(times[r]) for r in (False, True))
+    print(f"K4 route A/B {model.cfg.name} (B={LM_BATCH} S={LM_SEQ}, {2 * rounds} forwards "
+          f"each, interleaved): native (Dqk, Dv) {native_ms:.3f} ms (median; "
+          f"{['%.3f' % t for t in times[False]]}), the padded route ({pads.calls} padding copies "
+          f"a forward) {padded_ms:.3f} ms ({['%.3f' % t for t in times[True]]}), "
+          f"{100 * (padded_ms / native_ms - 1):+.2f}%; logits bitwise equal: {same} "
+          f"(max|d| {gap:.4e})")
+    return {"native_ms": native_ms, "padded_ms": padded_ms, "native_runs": times[False],
+            "padded_runs": times[True], "padded_copies_per_forward": pads.calls,
+            "logits_bitwise": same, "logits_max_abs_diff": gap}
 
 
 def moe_gate(model, params, inputs) -> dict:
@@ -3429,13 +3521,14 @@ def phase_lm_new(dev, arch, model, params, card: str) -> dict:
     torch.cuda.synchronize()
     flash_attention.launches = ssd_scan.launches = 0
     outs, auxes, lat = [], [], []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        logits, _, aux = model.forward(params, last_only=True, **inputs)
-        torch.cuda.synchronize()
-        lat.append((time.perf_counter() - t0) * 1e3)
-        outs.append(logits)
-        auxes.append(aux)
+    with PadCalls() as pads:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            logits, _, aux = model.forward(params, last_only=True, **inputs)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+            outs.append(logits)
+            auxes.append(aux)
     counts = {"flash_attention": flash_attention.launches, "ssd_scan": ssd_scan.launches}
     per = launches_per_forward(cfg)
     v = cfg.vocab_size
@@ -3444,7 +3537,9 @@ def phase_lm_new(dev, arch, model, params, card: str) -> dict:
           f"{counts} (want {({k: 2 * n for k, n in per.items()})}); forward ms "
           f"{['%.3f' % x for x in lat]} ({LM_BATCH * LM_SEQ / (min(lat) / 1e3):.0f} tokens/s); "
           f"logits {tuple(outs[0].shape)}, max|logit| {outs[0][..., :v].abs().max().item():.4f}; "
-          f"aux {float(auxes[0]):.6f} ({card})")
+          f"aux {float(auxes[0]):.6f}; K4 padding copies {pads.calls} ({card})")
+    require(pads.calls == 0, f"{arch}: the prefill made {pads.calls} padding copies: every "
+            f"K4 call should run at its own head dims")
     for name, n in per.items():
         require(counts[name] == 2 * n, f"{arch}: {name} launched {counts[name]} times in 2 "
                 f"forwards, want {2 * n}")
@@ -3454,7 +3549,8 @@ def phase_lm_new(dev, arch, model, params, card: str) -> dict:
     if cfg.num_experts:
         require(bool(torch.isfinite(auxes[0])) and float(auxes[0]) > 0,
                 f"{arch}: MoE aux {float(auxes[0])} not finite and positive")
-    out = {"launches": counts, "per_forward": per, "forward_ms": lat}
+    out = {"launches": counts, "per_forward": per, "forward_ms": lat,
+           "padding_copies": pads.calls}
     spans = [(n, layers, "moe_" + n) for n in ("ffn", "route", "dispatch", "experts", "combine")] \
         if cfg.num_experts else []
     out["profile"] = spanned_profile(f"{arch} prefill B={LM_BATCH} S={LM_SEQ}",
@@ -3477,8 +3573,9 @@ def phase_lm_new(dev, arch, model, params, card: str) -> dict:
         require(gated["fault"] > gated["tol"],
                 f"{arch}: the control gate would pass a dropped key tile")
         out["control"] = gated
+    if arch in K4_NATIVE:
+        out["route_ab"] = route_ab(model, params, inputs)
     if "mla" in mixers:
-        out["mla_width_ab"] = mla_width_ab(model, params, inputs)
         prompt = torch.randint(0, v, (DECODE_BATCH, DECODE_SEQ), generator=gen, device=dev)
         out["decode_err_full_depth"], _, _ = prefill_vs_decode(model, params, prompt,
                                                                "full depth")
@@ -4517,7 +4614,7 @@ def main() -> int:
     require(kernels[-1]["launches"] > 0, "spgemm_bsr never launched on the device-SGB path")
 
     t0 = time.perf_counter()
-    k4_rows, k4_f32_err, k5_rows, k4_padded = phase_lm_kernels(dev)
+    k4_rows, k4_f32_err, k5_rows, k4_native = phase_lm_kernels(dev)
     print(f"phase 6: {time.perf_counter() - t0:.1f} s of wall time")
     t0 = time.perf_counter()
     models = {arch: _lm(arch, dev) for arch in LM_ARCHS}
@@ -4529,9 +4626,9 @@ def main() -> int:
     t0 = time.perf_counter()
     lm_new = lm_new_phases(dev, card)
     print(f"phases 7-8b, new families: {time.perf_counter() - t0:.1f} s of wall time")
-    padded = {arch: r for arch, r in lm_new.items() if arch in K4_PADDED}
+    native = {arch: r for arch, r in lm_new.items() if arch in K4_NATIVE}
     for arch, r in lm_new.items():
-        if arch not in padded:
+        if arch not in native:
             lm_launches[arch] = r["launches"]
     for name, rows, src, line in (
             ("flash_attention", k4_rows, "flash_attention.cu",
@@ -4553,20 +4650,21 @@ def main() -> int:
         })
         if name == "flash_attention":
             kernels[-1]["prefill_activations"] = {
-                arch: r["k4_activations"] for arch, r in lm_new.items() if arch not in padded}
+                arch: r["k4_activations"] for arch, r in lm_new.items() if arch not in native}
         require(kernels[-1]["launches"] > 0, f"{name} never launched on an LM prefill")
-    for arch, row in k4_padded.items():
-        cfg_per = padded[arch]["per_forward"]["flash_attention"]
+    for arch, row in k4_native.items():
+        cfg_per = native[arch]["per_forward"]["flash_attention"]
         kernels.append({
-            "name": f"flash_attention (padded route, {arch})", "route": "cuda",
+            "name": f"flash_attention (native (Dqk, Dv), {arch})", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "wrapper": "src/repro_torch/kernels/flash_attention.py",
             "replaces": "src/repro/kernels/flash_attention.py:30",
-            "launches": padded[arch]["launches"]["flash_attention"],
+            "launches": native[arch]["launches"]["flash_attention"],
             "launches_per_forward": cfg_per, **row,
-            "prefill_activations": padded[arch]["k4_activations"],
+            "prefill_activations": native[arch]["k4_activations"],
+            "prefill_route_ab": native[arch]["route_ab"],
         })
-        require(kernels[-1]["launches"] > 0, f"K4's padded route never launched on {arch}")
+        require(kernels[-1]["launches"] > 0, f"K4's native pair never launched on {arch}")
     t0 = time.perf_counter()
     train = phase_lm_train(dev, card)
     for k in kernels:

@@ -2,8 +2,9 @@
 //
 // K4  fa_forward  replaces repro/kernels/flash_attention.py::_fa_kernel
 //
-// Forward attention with an online softmax: (B, Hq, S, Dh) queries against
-// (B, Hkv, T, Dh) keys and values, GQA (kv head = q head / (Hq / Hkv)),
+// Forward attention with an online softmax: (B, Hq, S, Dqk) queries against
+// (B, Hkv, T, Dqk) keys and (B, Hkv, T, Dv) values, GQA (kv head = q head /
+// (Hq / Hkv)),
 // queries end-aligned at key position T - S, optional causal mask, sliding
 // window and tanh softcap, output divided by max(l, 1e-20).  The TPU kernel
 // runs a grid (B*Hq, q blocks, kv blocks) with the kv axis innermost and
@@ -14,10 +15,13 @@
 // loop bounds skip them.  Fully masked rows keep m = -1e30: alpha is 0 while
 // m_prev <= -1e30 / 2 and masked p are 0, as in the TPU kernel, so such a row
 // ends 0.  Causal query tiles differ in work by up to S / 128 times, so the
-// heaviest are launched first.  Dh is 64, 128 or 256.  Every tensor comes with its
-// batch, head and row strides (the last dimension has stride 1), so views
-// such as (B, S, H, Dh).transpose(1, 2) need no copy.  Sums run in a fixed
-// order and there are no atomics: a run repeats bit for bit.
+// heaviest are launched first.  (Dqk, Dv) is (64, 64), (128, 128) or (256,
+// 256) in both types, and also (80, 80) (hubert-xlarge) or (96, 64) (MLA's
+// prefill) in bf16.  Every tensor comes with its batch, head and row strides
+// (the last dimension has stride 1), so views such as (B, S, H,
+// Dh).transpose(1, 2), or the first Dqk columns of a wider buffer, need no
+// copy.  Sums run in a fixed order and there are no atomics: a run repeats
+// bit for bit.
 //
 // Bound: at the prefill shapes (S = T = 2048..32768, Dh = 64) the work is
 // 4 * Dh * (live q.k pairs) flops per (batch, q head), far above the q/k/v/o
@@ -44,7 +48,14 @@
 //   MN-major through the descriptor's transpose bit; at head dim 256 two
 //   m64n128k16 on the two halves of V's columns).  The loop is software
 //   pipelined: Q K^T of tile j and P V of tile j - 1 are issued together,
-//   and the softmax of tile j runs while P V still executes.  The two
+//   and the softmax of tile j runs while P V still executes.  Head dims
+//   that are not a multiple of 64 (80, 96) need no padded copy in device
+//   memory: the tensor maps are encoded at the true Dqk and Dv columns, so
+//   TMA zero-fills each 64-column panel past them in shared memory (the
+//   transaction still counts whole boxes), Q K^T issues k16 steps only over
+//   the Dqk live columns (5 at 80, 6 at 96, in place of 8 at 128), and P V
+//   takes N = Dv (m64n80k16 over the two panels of V at 80: the second
+//   swizzle atom is read for its first 16 columns).  The two
 //   consumers take turns to issue (two named barriers), so one's softmax
 //   overlaps the other's products.  The last pass divides by max(l, 1e-20)
 //   in float32 and stores bf16 once.
@@ -61,7 +72,10 @@
 //      in base 2: the row max is taken on the raw scores and p = 2^(s *
 //      scale * log2(e) - m) is one FFMA and one ex2 (hence scale > 0);
 //   6. tiles: 128 query rows and BK keys per tile (was 64 x 64), so each
-//      staged K/V tile serves twice the queries.
+//      staged K/V tile serves twice the queries;
+//   7. head dims 80 and 96 / 64: (Dqk, Dv) instantiations read q, k and v
+//      in place, so no zero-padded copy at 128 is made and no product runs
+//      over padding (128 / Dqk of the Q K^T and 128 / Dv of the P V work).
 //   Left for later: a persistent tile scheduler (a CTA's Q load and first
 //   Q K^T are not hidden behind another tile's work), a TMA store of the
 //   output, and a third consumer warpgroup at head dim 64.
@@ -280,8 +294,8 @@ constexpr int kStages = 2;                  // depth of the K/V ring
 // At head dim 256 a tile of 128 keys would need Q (64 KB) + 2 stages of K
 // and V (4 x 64 KB) = 320 KB; with 64 keys it is 64 + 4 x 32 = 192 KB, and a
 // consumer thread holds O (128 floats), S (32) and P (16 registers).
-template <int DH>
-constexpr int kBlockK = DH == 256 ? kBlockKDh256 : kBlockKWide;
+template <int DQK>
+constexpr int kBlockK = DQK == 256 ? kBlockKDh256 : kBlockKWide;
 constexpr int kWgThreads = 128;             // one warpgroup
 constexpr int kFaThreads = 3 * kWgThreads;  // producer + 2 consumer warpgroups
 constexpr int kRowBytes = 128;              // one swizzled row: 64 bf16
@@ -289,15 +303,18 @@ constexpr int kConsumerWarps = 8;
 
 // Shared memory, from a 1024-byte aligned base (the 128-byte swizzle repeats
 // every 8 rows): Q, then the K stages, the V stages and the mbarriers.  A
-// tile of Dh > 64 is stored as Dh / 64 panels of [rows][64], one TMA box each.
-template <int DH>
+// Q or K tile is stored as ceil(Dqk / 64) panels of [rows][64], a V tile as
+// ceil(Dv / 64), one TMA box each; columns past the head dim are TMA's zeros.
+template <int DQK, int DV>
 struct FaSmem {
-  static constexpr int kPanels = DH / 64;
-  static constexpr uint32_t kQBytes = kBlockQ * DH * 2;
-  static constexpr uint32_t kTileBytes = kBlockK<DH> * DH * 2;
+  static constexpr int kQkPanels = (DQK + 63) / 64;
+  static constexpr int kVPanels = (DV + 63) / 64;
+  static constexpr uint32_t kQBytes = kBlockQ * kQkPanels * kRowBytes;
+  static constexpr uint32_t kKTileBytes = kBlockK<DQK> * kQkPanels * kRowBytes;
+  static constexpr uint32_t kVTileBytes = kBlockK<DQK> * kVPanels * kRowBytes;
   static constexpr uint32_t kK = kQBytes;
-  static constexpr uint32_t kV = kK + kStages * kTileBytes;
-  static constexpr uint32_t kBars = kV + kStages * kTileBytes;
+  static constexpr uint32_t kV = kK + kStages * kKTileBytes;
+  static constexpr uint32_t kBars = kV + kStages * kVTileBytes;
   static constexpr uint32_t kBytes = kBars + 8 * (1 + 4 * kStages) + 1024;  // + alignment slack
 };
 
@@ -375,6 +392,7 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
       "+f"(d[i + 6]), "+f"(d[i + 7])
 #define FA_D32 FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24)
+#define FA_D40 FA_D32, FA_D8(32)
 #define FA_D64 FA_D32, FA_D8(32), FA_D8(40), FA_D8(48), FA_D8(56)
 
 // Accumulator layout of m64nN (per warpgroup thread: warp w, lane = 4 g + t):
@@ -422,6 +440,20 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// D (64 x 80) += A (64 x 16, bf16 in registers) * B (16 x 80, MN-major in
+// shared memory: columns 0-63 in one swizzle atom, 64-79 in the next, LBO on)
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : FA_D40
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // D (64 x 128) += A (64 x 16, bf16 in registers) * B (16 x 128, MN-major in shared memory)
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
@@ -438,6 +470,7 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
 
 #undef FA_D8
 #undef FA_D32
+#undef FA_D40
 #undef FA_D64
 
 // 2^x in one MUFU instruction (inputs far below -126 flush to 0)
@@ -511,15 +544,15 @@ __device__ __forceinline__ void online_softmax(float (&s)[BK / 2], float (&m)[2]
 
 // One consumer warpgroup (c = 0 or 1: rows 64 c .. 64 c + 63 of the query
 // tile) over key tiles kt_begin .. kt_end - 1, then its part of the output.
-template <int DH, bool kCap>
+template <int DQK, int DV, bool kCap>
 __device__ __forceinline__ void consume(int c, uint32_t s_q, uint32_t s_k, uint32_t s_v,
                                         uint32_t bar_q, __nv_bfloat16* __restrict__ o,
                                         const Strides& so, int bi, int hi, int q0, int q_lo,
                                         int kt_begin, int kt_end, int s_len, int t_len,
                                         float scale_log2, int causal, int window, float cap_in,
                                         float cap_out) {
-  using L = FaSmem<DH>;
-  constexpr int BK = kBlockK<DH>;
+  using L = FaSmem<DQK, DV>;
+  constexpr int BK = kBlockK<DQK>;
   auto full_k = [&](int st) { return bar_q + 8u * (1 + st); };
   auto full_v = [&](int st) { return bar_q + 8u * (1 + kStages + st); };
   auto empty_k = [&](int st) { return bar_q + 8u * (1 + 2 * kStages + st); };
@@ -532,21 +565,23 @@ __device__ __forceinline__ void consume(int c, uint32_t s_q, uint32_t s_k, uint3
   const int wg_lo = q_lo + 64 * c;           // key position of the warpgroup's first row
   const int qpos = wg_lo + 16 * warp + g;    // this thread's rows: qpos and qpos + 8
 
-  float o_acc[DH / 2];
+  float o_acc[DV / 2];
   float s_acc[BK / 2];
   uint32_t pa[BK / 16][4];  // P in bf16 A fragments: keys 16 kk .. 16 kk + 15
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) o_acc[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) o_acc[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < BK / 2; ++i) s_acc[i] = 0.f;
   float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
 
-  // S = Q K^T on stage st, committed as one wgmma group
+  // S = Q K^T on stage st, committed as one wgmma group: one k16 step per
+  // 16 live columns of Q and K (Dqk is a multiple of 16); the zero-filled
+  // columns of a last panel are never issued
   auto issue_qk = [&](int st) {
 #pragma unroll
-    for (int ks = 0; ks < DH / 16; ++ks) {
+    for (int ks = 0; ks < DQK / 16; ++ks) {
       const uint32_t qa = s_q + (ks / 4) * kBlockQ * kRowBytes + c * 64 * kRowBytes + (ks % 4) * 32;
-      const uint32_t kb = s_k + st * L::kTileBytes + (ks / 4) * BK * kRowBytes + (ks % 4) * 32;
+      const uint32_t kb = s_k + st * L::kKTileBytes + (ks / 4) * BK * kRowBytes + (ks % 4) * 32;
       if constexpr (BK == 64) {
         wgmma_ss_n64(s_acc, sw128_desc(qa, 16, 1024), sw128_desc(kb, 16, 1024), ks > 0);
       } else {
@@ -555,18 +590,21 @@ __device__ __forceinline__ void consume(int c, uint32_t s_q, uint32_t s_k, uint3
     }
     wgmma_commit();
   };
-  // O += P V on stage st, committed as one wgmma group.  At head dim 256
-  // the product is two of 128 columns: panels 0-1 into o_acc[0..63], panels
-  // 2-3 into o_acc[64..127] (the accumulator layout then reads column 8 n +
-  // 2 t + c at o_acc[4 n + 2 i + c] over all 256 columns, as at 64 and 128).
+  // O += P V on stage st, committed as one wgmma group, N = Dv.  At head
+  // dim 256 the product is two of 128 columns: panels 0-1 into
+  // o_acc[0..63], panels 2-3 into o_acc[64..127] (the accumulator layout
+  // then reads column 8 n + 2 t + c at o_acc[4 n + 2 i + c] over all 256
+  // columns, as at 64, 80 and 128).
   auto issue_pv = [&](int st) {
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t va = s_v + st * L::kTileBytes + kk * 16 * kRowBytes;
+      const uint32_t va = s_v + st * L::kVTileBytes + kk * 16 * kRowBytes;
       const uint64_t vb = sw128_desc(va, BK * kRowBytes, 1024);
-      if constexpr (DH == 64) {
+      if constexpr (DV == 64) {
         wgmma_rs_n64(o_acc, pa[kk], vb);
-      } else if constexpr (DH == 128) {
+      } else if constexpr (DV == 80) {
+        wgmma_rs_n80(o_acc, pa[kk], vb);
+      } else if constexpr (DV == 128) {
         wgmma_rs_n128(o_acc, pa[kk], vb);
       } else {
         wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&o_acc[0]), pa[kk], vb);
@@ -657,7 +695,7 @@ __device__ __forceinline__ void consume(int c, uint32_t s_q, uint32_t s_k, uint3
       fence_regs(o_acc);
       release(empty_v(st));
 #pragma unroll
-      for (int n = 0; n < DH / 8; ++n) {
+      for (int n = 0; n < DV / 8; ++n) {
         o_acc[4 * n + 0] *= alpha[0];
         o_acc[4 * n + 1] *= alpha[0];
         o_acc[4 * n + 2] *= alpha[1];
@@ -686,14 +724,14 @@ __device__ __forceinline__ void consume(int c, uint32_t s_q, uint32_t s_k, uint3
     const float inv = 1.f / fmaxf(l[i], 1e-20f);
     __nv_bfloat16* orow = og + r * so.s + 2 * t4;
 #pragma unroll
-    for (int n = 0; n < DH / 8; ++n) {
+    for (int n = 0; n < DV / 8; ++n) {
       *reinterpret_cast<uint32_t*>(orow + 8 * n) =
           pack_bf16(o_acc[4 * n + 2 * i] * inv, o_acc[4 * n + 2 * i + 1] * inv);
     }
   }
 }
 
-template <int DH, bool kCap>
+template <int DQK, int DV, bool kCap>
 __global__ void __launch_bounds__(kFaThreads, 1)
 fa_forward_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const __grid_constant__ CUtensorMap tm_k,
@@ -701,8 +739,8 @@ fa_forward_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                         __nv_bfloat16* __restrict__ o, Strides so, int hq, int hkv,
                         int s_len, int t_len, float scale_log2, int causal, int window,
                         float cap_in, float cap_out) {
-  using L = FaSmem<DH>;
-  constexpr int BK = kBlockK<DH>;
+  using L = FaSmem<DQK, DV>;
+  constexpr int BK = kBlockK<DQK>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t s_q = base;
@@ -753,22 +791,22 @@ fa_forward_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    : "memory");
       mbar_expect_tx(bar_q, L::kQBytes);
 #pragma unroll
-      for (int p = 0; p < L::kPanels; ++p)
+      for (int p = 0; p < L::kQkPanels; ++p)
         tma_load_4d(s_q + p * kBlockQ * kRowBytes, &tm_q, bar_q, 64 * p, q0, hi, bi);
       int st = 0;
       uint32_t ph = 0;
       for (int kt = kt_begin; kt < kt_end; ++kt) {
         mbar_wait(empty_k(st), ph ^ 1);
-        mbar_expect_tx(full_k(st), L::kTileBytes);
+        mbar_expect_tx(full_k(st), L::kKTileBytes);
 #pragma unroll
-        for (int p = 0; p < L::kPanels; ++p)
-          tma_load_4d(s_k + st * L::kTileBytes + p * BK * kRowBytes, &tm_k, full_k(st),
+        for (int p = 0; p < L::kQkPanels; ++p)
+          tma_load_4d(s_k + st * L::kKTileBytes + p * BK * kRowBytes, &tm_k, full_k(st),
                       64 * p, kt * BK, kvh, bi);
         mbar_wait(empty_v(st), ph ^ 1);
-        mbar_expect_tx(full_v(st), L::kTileBytes);
+        mbar_expect_tx(full_v(st), L::kVTileBytes);
 #pragma unroll
-        for (int p = 0; p < L::kPanels; ++p)
-          tma_load_4d(s_v + st * L::kTileBytes + p * BK * kRowBytes, &tm_v, full_v(st),
+        for (int p = 0; p < L::kVPanels; ++p)
+          tma_load_4d(s_v + st * L::kVTileBytes + p * BK * kRowBytes, &tm_v, full_v(st),
                       64 * p, kt * BK, kvh, bi);
         if (++st == kStages) {
           st = 0;
@@ -779,8 +817,8 @@ fa_forward_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   } else {
     // consumer warpgroups: wg 1 owns rows 0..63 of the tile, wg 2 rows 64..127
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-    consume<DH, kCap>(wg - 1, s_q, s_k, s_v, bar_q, o, so, bi, hi, q0, q_lo, kt_begin, kt_end,
-                      s_len, t_len, scale_log2, causal, window, cap_in, cap_out);
+    consume<DQK, DV, kCap>(wg - 1, s_q, s_k, s_v, bar_q, o, so, bi, hi, q0, q_lo, kt_begin,
+                           kt_end, s_len, t_len, scale_log2, causal, window, cap_in, cap_out);
   }
 }
 
@@ -812,7 +850,8 @@ EncodeTiled encode_tiled() {
 }
 
 // A 4-D bf16 tensor map (Dh, rows, heads, batch) with 64 x box_rows boxes
-// and the 128-byte swizzle; reads past `rows` fill with zeros.
+// and the 128-byte swizzle; reads past `rows` or past column `dh` (a box
+// that starts at column 64 of an 80- or 96-column tensor) fill with zeros.
 int tensor_map(CUtensorMap* map, const void* base, int rows, int heads, int batch, int dh,
                const Strides& st, int box_rows) {
   const EncodeTiled encode = encode_tiled();
@@ -830,13 +869,13 @@ int tensor_map(CUtensorMap* map, const void* base, int rows, int heads, int batc
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int DH, bool kCap>
+template <int DQK, int DV, bool kCap>
 int launch_wgmma(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv, void* o,
                  const Strides& so, int b, int hq, int hkv, int s_len, int t_len, float scale,
                  int causal, int window, float softcap, cudaStream_t stream) {
   constexpr float kLog2e = 1.4426950408889634f;
-  auto kern = fa_forward_wgmma_kernel<DH, kCap>;
-  const int smem = (int)FaSmem<DH>::kBytes;
+  auto kern = fa_forward_wgmma_kernel<DQK, DV, kCap>;
+  const int smem = (int)FaSmem<DQK, DV>::kBytes;
   // the shared-memory attribute is set once per device (a bit each)
   static unsigned long long configured = 0;
   int dev = 0;
@@ -854,44 +893,64 @@ int launch_wgmma(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap
   return (int)cudaGetLastError();
 }
 
-template <int DH>
+// The float32 kernel takes (Dh, Dh) with Dh a multiple of 64 only.
+template <int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, const Strides* st, int b,
            int hq, int hkv, int s_len, int t_len, int bf16, float scale, int causal, int window,
            float softcap, cudaStream_t stream) {
   if (bf16) {
     CUtensorMap mq, mk, mv;
-    int rc = tensor_map(&mq, q, s_len, hq, b, DH, st[0], kBlockQ);
-    if (rc == 0) rc = tensor_map(&mk, k, t_len, hkv, b, DH, st[1], kBlockK<DH>);
-    if (rc == 0) rc = tensor_map(&mv, v, t_len, hkv, b, DH, st[2], kBlockK<DH>);
+    int rc = tensor_map(&mq, q, s_len, hq, b, DQK, st[0], kBlockQ);
+    if (rc == 0) rc = tensor_map(&mk, k, t_len, hkv, b, DQK, st[1], kBlockK<DQK>);
+    if (rc == 0) rc = tensor_map(&mv, v, t_len, hkv, b, DV, st[2], kBlockK<DQK>);
     if (rc != 0) return rc;
     return softcap > 0.f
-               ? launch_wgmma<DH, true>(mq, mk, mv, o, st[3], b, hq, hkv, s_len, t_len, scale,
-                                        causal, window, softcap, stream)
-               : launch_wgmma<DH, false>(mq, mk, mv, o, st[3], b, hq, hkv, s_len, t_len, scale,
-                                         causal, window, softcap, stream);
+               ? launch_wgmma<DQK, DV, true>(mq, mk, mv, o, st[3], b, hq, hkv, s_len, t_len,
+                                             scale, causal, window, softcap, stream)
+               : launch_wgmma<DQK, DV, false>(mq, mk, mv, o, st[3], b, hq, hkv, s_len, t_len,
+                                              scale, causal, window, softcap, stream);
   }
-  const dim3 grid((s_len + kBQ - 1) / kBQ, b * hq);
-  auto kern = fa_forward_f32_kernel<DH>;
-  const size_t smem = smem_bytes<DH>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if constexpr (DQK == DV && DQK % 64 == 0) {
+    const dim3 grid((s_len + kBQ - 1) / kBQ, b * hq);
+    auto kern = fa_forward_f32_kernel<DQK>;
+    const size_t smem = smem_bytes<DQK>();
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<grid, kThreads, smem, stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, (float*)o, st[0], st[1], st[2],
+        st[3], hq, hkv, s_len, t_len, scale, causal, window, softcap);
+    return (int)cudaGetLastError();
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+}
+
+// What the loaded bf16 kernel at (DQK, DV) (no softcap) takes per CTA.
+template <int DQK, int DV>
+int wgmma_info(int* info) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, fa_forward_wgmma_kernel<DQK, DV, false>);
   if (err != cudaSuccess) return (int)err;
-  kern<<<grid, kThreads, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, st[0], st[1], st[2], st[3],
-      hq, hkv, s_len, t_len, scale, causal, window, softcap);
-  return (int)cudaGetLastError();
+  info[0] = attr.numRegs;
+  info[1] = (int)FaSmem<DQK, DV>::kBytes;
+  info[2] = (int)attr.localSizeBytes;
+  info[3] = kFaThreads;
+  info[4] = kBlockK<DQK>;
+  return 0;
 }
 
 }  // namespace
 
-// q (b, hq, s_len, dh), k and v (b, hkv, t_len, dh), o (b, hq, s_len, dh), all
-// of one type (bf16 != 0: bfloat16, else float32).  strides holds 12 element
-// strides, (batch, head, row) of q, k, v and o in turn; the last dimension
-// has stride 1.  For bfloat16 every stride and address is a multiple of 16
-// bytes (the tensor maps' rule).  window <= 0 means no window; softcap <= 0
-// means no softcap.
+// q (b, hq, s_len, dh), k (b, hkv, t_len, dh), v (b, hkv, t_len, dv) and o
+// (b, hq, s_len, dv), all of one type (bf16 != 0: bfloat16, else float32).
+// (dh, dv) is (64, 64), (128, 128) or (256, 256), or in bfloat16 also (80,
+// 80) or (96, 64).  strides holds 12 element strides, (batch, head, row) of
+// q, k, v and o in turn; the last dimension has stride 1.  For bfloat16
+// every stride and address is a multiple of 16 bytes (the tensor maps'
+// rule).  window <= 0 means no window; softcap <= 0 means no softcap.
 extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o,
-                          int b, int hq, int hkv, int s_len, int t_len, int dh,
+                          int b, int hq, int hkv, int s_len, int t_len, int dh, int dv,
                           int bf16, float scale, int causal, int window,
                           float softcap, const long long* strides, void* stream) {
   if (b <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || s_len <= 0 ||
@@ -901,46 +960,38 @@ extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o,
   Strides st[4];
   for (int i = 0; i < 4; ++i) st[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   cudaStream_t cs = (cudaStream_t)stream;
-  if (dh == 64) {
-    return launch<64>(q, k, v, o, st, b, hq, hkv, s_len, t_len, bf16, scale, causal,
-                      window, softcap, cs);
+  if (dh == 64 && dv == 64) {
+    return launch<64, 64>(q, k, v, o, st, b, hq, hkv, s_len, t_len, bf16, scale, causal,
+                          window, softcap, cs);
   }
-  if (dh == 128) {
-    return launch<128>(q, k, v, o, st, b, hq, hkv, s_len, t_len, bf16, scale, causal,
-                       window, softcap, cs);
+  if (dh == 128 && dv == 128) {
+    return launch<128, 128>(q, k, v, o, st, b, hq, hkv, s_len, t_len, bf16, scale, causal,
+                            window, softcap, cs);
   }
-  if (dh == 256) {
-    return launch<256>(q, k, v, o, st, b, hq, hkv, s_len, t_len, bf16, scale, causal,
-                       window, softcap, cs);
+  if (dh == 256 && dv == 256) {
+    return launch<256, 256>(q, k, v, o, st, b, hq, hkv, s_len, t_len, bf16, scale, causal,
+                            window, softcap, cs);
+  }
+  if (dh == 80 && dv == 80) {
+    return launch<80, 80>(q, k, v, o, st, b, hq, hkv, s_len, t_len, bf16, scale, causal,
+                          window, softcap, cs);
+  }
+  if (dh == 96 && dv == 64) {
+    return launch<96, 64>(q, k, v, o, st, b, hq, hkv, s_len, t_len, bf16, scale, causal,
+                          window, softcap, cs);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// What the loaded bf16 kernel of head dim dh (no softcap) takes per CTA:
+// What the loaded bf16 kernel at (dqk, dv) (no softcap) takes per CTA:
 // info[0] registers a thread at launch, info[1] dynamic shared memory bytes,
 // info[2] local memory bytes a thread (stack and spills), info[3] threads,
 // info[4] keys per K/V tile.
-extern "C" int fa_wgmma_info(int dh, int* info) {
-  cudaFuncAttributes attr;
-  cudaError_t err;
-  if (dh == 64) {
-    err = cudaFuncGetAttributes(&attr, fa_forward_wgmma_kernel<64, false>);
-    info[1] = (int)FaSmem<64>::kBytes;
-    info[4] = kBlockK<64>;
-  } else if (dh == 128) {
-    err = cudaFuncGetAttributes(&attr, fa_forward_wgmma_kernel<128, false>);
-    info[1] = (int)FaSmem<128>::kBytes;
-    info[4] = kBlockK<128>;
-  } else if (dh == 256) {
-    err = cudaFuncGetAttributes(&attr, fa_forward_wgmma_kernel<256, false>);
-    info[1] = (int)FaSmem<256>::kBytes;
-    info[4] = kBlockK<256>;
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (err != cudaSuccess) return (int)err;
-  info[0] = attr.numRegs;
-  info[2] = (int)attr.localSizeBytes;
-  info[3] = kFaThreads;
-  return 0;
+extern "C" int fa_wgmma_info(int dqk, int dv, int* info) {
+  if (dqk == 64 && dv == 64) return wgmma_info<64, 64>(info);
+  if (dqk == 128 && dv == 128) return wgmma_info<128, 128>(info);
+  if (dqk == 256 && dv == 256) return wgmma_info<256, 256>(info);
+  if (dqk == 80 && dv == 80) return wgmma_info<80, 80>(info);
+  if (dqk == 96 && dv == 64) return wgmma_info<96, 64>(info);
+  return (int)cudaErrorInvalidValue;
 }

@@ -55,12 +55,12 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "spgemm_info": [_P],
     },
     "flash_attention": {
-        # q, k, v, o, b, hq, hkv, s_len, t_len, dh, bf16, scale, causal,
+        # q, k, v, o, b, hq, hkv, s_len, t_len, dh, dv, bf16, scale, causal,
         # window, softcap, strides (12 int64), stream
-        "fa_forward": [_P] * 4 + [_I] * 7 + [_F, _I, _I, _F, _P, _P],
-        # dh, info (5 ints: registers, dynamic shared bytes, local bytes, threads,
-        # keys per K/V tile)
-        "fa_wgmma_info": [_I, _P],
+        "fa_forward": [_P] * 4 + [_I] * 8 + [_F, _I, _I, _F, _P, _P],
+        # dqk, dv, info (5 ints: registers, dynamic shared bytes, local bytes,
+        # threads, keys per K/V tile)
+        "fa_wgmma_info": [_I, _I, _P],
     },
     "ssd_scan": {
         # x, a, b, c, y, cum, states, gmat, batch, seq, h, g, p_dim, n_dim,

@@ -17,17 +17,21 @@ bfloat16 inputs run on the tensor cores: 128-row query tiles, ``wgmma`` fed
 with K and V tiles by TMA through an ``mbarrier`` ring, float32
 accumulators, P rounded to bf16 for the P V product (key tiles of 128, of 64
 at head dim 256).  float32 inputs run on the CUDA cores in float32
-throughout.  The kernel takes one type for q, k, v and the output, one head
-dim of 64, 128 or 256 (``HEAD_DIMS``), and any strides whose last one is 1
-(for bfloat16 the others and the addresses must be multiples of 16 bytes,
-which the tensor maps require), so transposed views need no copy; the
-output has q's layout.  Any other head dims up to 256 (hubert's 80, MLA's
-96 / 64) take the padded route: ``pad_head_dims`` copies q, k and v into
-zero-filled buffers at the next head dim the kernel takes, the kernel runs
-there with the true scale ``Dqk ** -0.5``, and the output is sliced to v's
-head dim.  That is exact: a zero column adds 0.0 to every q·k dot product
-of the float32 accumulator, and a zero v column only fills output columns
-that are dropped.  On a CPU tensor it runs ``attention_plain``, unpadded.
+throughout.  The kernel takes one type for q, k, v and the output, and any
+strides whose last one is 1 (for bfloat16 the others and the addresses must
+be multiples of 16 bytes, which the tensor maps require), so transposed
+views, and the first columns of a wider buffer, need no copy; an output of
+q's head dim has q's layout.  Its head dims ``(Dqk, Dv)`` are, natively,
+``NATIVE_PAIRS`` in bfloat16 (64, 128 and 256 for both, hubert's 80 for
+both, MLA's q/k 96 with v 64: the bf16 kernel reads the true columns and
+issues no product over padding) and ``(d, d)`` for ``d`` in ``HEAD_DIMS``
+in float32.  Any other pair up to 256 (a reduced config's 16, or MLA in
+float32) takes the padded route: ``pad_head_dims`` copies q, k and v into
+zero-filled buffers at the next of ``HEAD_DIMS``, the same kernel runs there
+with the true scale ``Dqk ** -0.5``, and the output is sliced to v's head
+dim.  That is exact: a zero column adds 0.0 to every q·k dot product of the
+float32 accumulator, and a zero v column only fills output columns that are
+dropped.  On a CPU tensor it runs ``attention_plain``, unpadded.
 """
 from __future__ import annotations
 
@@ -40,7 +44,10 @@ import torch.nn.functional as F
 from repro_torch.kernels.cuda_build import check, load_library, ptr
 
 NEG = -1e30
+# head dims of the float32 kernel, and the widths the padded route pads to
 HEAD_DIMS = (64, 128, 256)
+# (Dqk, Dv) pairs the bf16 kernel is instantiated at (``fa_forward``'s dispatch)
+NATIVE_PAIRS = ((64, 64), (128, 128), (256, 256), (80, 80), (96, 64))
 
 
 def _compute_dtype(t: torch.Tensor) -> torch.dtype:
@@ -159,6 +166,19 @@ def padded_head_dim(dqk: int, dv: int) -> int:
                      f"got q/k {dqk} and v {dv}")
 
 
+def kernel_pair(dqk: int, dv: int, dtype: torch.dtype) -> tuple:
+    """The ``(Dqk, Dv)`` K4 runs a call of these head dims and ``dtype``
+    at on the card: the pair itself where the kernel takes it (a bf16 pair
+    in ``NATIVE_PAIRS``, a float32 ``(d, d)`` with ``d`` in ``HEAD_DIMS``),
+    else both at ``padded_head_dim``."""
+    native = ((dqk, dv) in NATIVE_PAIRS if dtype == torch.bfloat16
+              else dqk == dv and dqk in HEAD_DIMS)
+    if native:
+        return dqk, dv
+    dp = padded_head_dim(dqk, dv)
+    return dp, dp
+
+
 def pad_head_dims(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """``(qp, kp, vp, scale, dv)``: q, k and v zero-padded to
     ``padded_head_dim`` columns (copies; one already that wide is taken as
@@ -228,46 +248,56 @@ def _kernel_strides(*tensors: torch.Tensor) -> list:
 
 def flash_attention_cuda(q, k, v, causal=True, window=None, softcap=None,
                          scale=None) -> torch.Tensor:
-    """Launch K4 (``fa_forward``) on ``q``'s CUDA device; a head dim the
-    kernel does not take runs through ``pad_head_dims``."""
+    """Launch K4 (``fa_forward``) on ``q``'s CUDA device; head dims the
+    kernel does not take (``kernel_pair``) run through ``pad_head_dims``."""
     _check_cuda_operands(q, k, v, window, softcap)
-    dh, dv = q.shape[3], v.shape[3]
-    if dh != dv or dh not in HEAD_DIMS:
+    dqk, dv = q.shape[3], v.shape[3]
+    if kernel_pair(dqk, dv, q.dtype) != (dqk, dv):
         qp, kp, vp, true_scale, dv = pad_head_dims(q, k, v)
         out = flash_attention_cuda(qp, kp, vp, causal, window, softcap,
                                    true_scale if scale is None else scale)
         return out[..., :dv]
-    b, hq, s, dh = q.shape
-    hkv, t = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
+    b, hq, s, _ = q.shape
+    t = k.shape[2]
+    out = torch.empty_like(q) if dv == dqk else q.new_empty((b, hq, s, dv))
     if b == 0 or s == 0:
         return out
     if t == 0:
         raise ValueError("flash_attention needs at least one key")
-    scale = scale if scale is not None else dh ** -0.5
+    scale = scale if scale is not None else dqk ** -0.5
     if q.dtype == torch.bfloat16 and not scale > 0:
         raise ValueError(f"flash_attention's bfloat16 kernel takes a positive scale "
                          f"(it takes the row max before scaling), got {scale}")
+    _fa_forward(q, k, v, out, scale, causal, window, softcap)
+    return out
+
+
+def _fa_forward(q, k, v, out, scale, causal, window, softcap) -> None:
+    """One ``fa_forward`` launch into ``out`` on the current stream of
+    ``q``'s device, at q's and v's head dims, counted in
+    ``flash_attention.launches``."""
+    b, hq, s, dqk = q.shape
+    hkv, t, dv = k.shape[1], k.shape[2], v.shape[3]
     strides = (ctypes.c_longlong * 12)(*_kernel_strides(q, k, v, out))
     lib = load_library("flash_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.fa_forward(
-            ptr(q), ptr(k), ptr(v), ptr(out), b, hq, hkv, s, t, dh,
+            ptr(q), ptr(k), ptr(v), ptr(out), b, hq, hkv, s, t, dqk, dv,
             int(q.dtype == torch.bfloat16), float(scale), int(bool(causal)),
             int(window or 0), float(softcap or 0.0), strides, ctypes.c_void_p(stream))
     check(rc, "fa_forward")
     flash_attention.launches += 1
-    return out
 
 
-def kernel_info(dh: int) -> dict:
-    """What the loaded bf16 kernel at head dim ``dh`` takes per CTA, as the
-    CUDA runtime reports it: registers a thread at launch, dynamic shared
-    memory bytes, local-memory (stack and spill) bytes a thread, threads,
-    and the keys of one K/V tile."""
+def kernel_info(dqk: int, dv: Optional[int] = None) -> dict:
+    """What the loaded bf16 kernel at ``(dqk, dv)`` (``dv`` defaults to
+    ``dqk``) takes per CTA, as the CUDA runtime reports it: registers a
+    thread at launch, dynamic shared memory bytes, local-memory (stack and
+    spill) bytes a thread, threads, and the keys of one K/V tile."""
     info = (ctypes.c_int * 5)()
-    check(load_library("flash_attention").fa_wgmma_info(dh, info), "fa_wgmma_info")
+    check(load_library("flash_attention").fa_wgmma_info(dqk, dqk if dv is None else dv, info),
+          "fa_wgmma_info")
     return {"registers": info[0], "shared_bytes": info[1], "local_bytes": info[2],
             "threads": info[3], "block_k": info[4]}
 
@@ -280,8 +310,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, Hq, S, Dv)``.
 
     A CUDA ``q`` launches kernel K4 once (counted in
-    ``flash_attention.launches``), padded to a head dim it takes where
-    ``Dh`` is not one or ``Dv != Dh``; a CPU ``q`` runs ``attention_plain``,
+    ``flash_attention.launches``), at the head dims themselves where the
+    kernel takes them (``kernel_pair``), else padded to ``padded_head_dim``;
+    a CPU ``q`` runs ``attention_plain``,
     and so does a ``meta`` one (shapes and operation counts without memory:
     ``launch/dryrun.py``).  ``scale`` defaults to ``Dh ** -0.5`` (q's true
     head dim, also on the padded route).  Records no gradient:

@@ -29,7 +29,7 @@ import torch
 
 from repro_torch.kernels.edge_softmax import NEG, edge_softmax_stats
 from repro_torch.kernels.flash_attention import (FlashAttention, flash_attention,
-                                                 padded_head_dim)
+                                                 kernel_pair)
 from repro_torch.kernels.seg_sum import (PackedEdges, edge_dots, needs_grad,
                                          pack_edge_blocks, seg_sum_forward,
                                          seg_sum_na, seg_sum_transposed)
@@ -68,9 +68,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Multi-head attention ``(B, Hq, S, Dh) x (B, Hkv, T, Dh) x (B, Hkv, T,
     Dv) -> (B, Hq, S, Dv)``, scaled by ``scale`` (default ``Dh ** -0.5``),
     through K4.  The kernel reads strided views as they are (the last
-    dimension contiguous), so nothing is copied here at head dims 64, 128
-    and 256 with ``Dv == Dh``; other head dims (hubert's 80, MLA's 96 / 64)
-    are padded to the next one K4 takes (``flash_attention.pad_head_dims``).
+    dimension contiguous), so nothing is copied here at the head dims it
+    takes (``flash_attention.kernel_pair``: in bf16 64, 128, 256, hubert's 80
+    and MLA's 96 / 64); others are padded to the next one K4 takes
+    (``flash_attention.pad_head_dims``).
     The output has ``q``'s layout.  Differentiable (``FlashAttention``)
     when autograd records on q, k or v.  Under a context-parallel
     ``ATTN_IMPL`` and the reference's conditions (``_takes_cp_route``) the
@@ -97,12 +98,15 @@ def attention_k4(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_width(dqk: int, dv: int, device) -> int:
-    """The head dim a caller building q and k itself should give them
-    (zero-filled past ``dqk``) so that ``attention`` copies neither: the
-    head dim K4 runs a ``(dqk, dv)`` call at on a CUDA device, ``dqk`` on
-    the CPU (whose plain version takes any).  The call then passes
-    ``scale=dqk ** -0.5``."""
-    return padded_head_dim(dqk, dv) if torch.device(device).type == "cuda" else dqk
+    """The head dim a caller building bf16 q and k itself should give them
+    (zero-filled past ``dqk``) so that ``attention`` copies neither: the q/k
+    head dim K4 runs a ``(dqk, dv)`` bf16 call at on a CUDA device (``dqk``
+    itself for a pair the kernel takes, as MLA's 96 / 64), ``dqk`` on the
+    CPU (whose plain version takes any).  The call then passes ``scale=dqk
+    ** -0.5``."""
+    if torch.device(device).type != "cuda":
+        return dqk
+    return kernel_pair(dqk, dv, torch.bfloat16)[0]
 
 
 def ssd(x: torch.Tensor, a_log: torch.Tensor, b_coef: torch.Tensor,

@@ -197,8 +197,9 @@ def mla_attention(
         t = c_kv.shape[1]
         kv = (c_kv @ p["w_ukv"]).reshape(b, t, num_heads, 2 * nope).transpose(1, 2)
         # [q_n; q_r] and [k_n; k_r] written straight into buffers as wide as
-        # K4 runs them (zeros past head_dim), so ops.attention copies neither;
-        # the scale stays head_dim ** -0.5
+        # K4 runs them (head_dim itself where the kernel takes (head_dim,
+        # nope), zeros past it where it does not), so ops.attention copies
+        # neither; the scale stays head_dim ** -0.5
         width = ops.attention_width(head_dim, nope, x.device)
         q_cat = x.new_zeros((b, num_heads, s, width))
         k_cat = x.new_zeros((b, num_heads, t, width))

@@ -16,8 +16,10 @@ from repro_torch.kernels.edge_softmax import (edge_softmax_stats,  # noqa: E402
                                               softmax_stats_plain)
 from repro_torch.kernels.seg_sum import (pack_edge_blocks, seg_sum_na,  # noqa: E402
                                          seg_sum_plain)
-from repro_torch.kernels.flash_attention import (attention_plain,  # noqa: E402
-                                                 flash_attention, kernel_info)
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels.flash_attention import (NATIVE_PAIRS,  # noqa: E402
+                                                 attention_plain, flash_attention,
+                                                 kernel_info)
 from repro_torch.kernels.spgemm_bsr import (TILE,  # noqa: E402
                                             compose_padded_blocked,
                                             split_count, spgemm_bsr,
@@ -569,8 +571,10 @@ def test_flash_attention_wrapper_checks_layout_and_scale(cuda_device):
     assert out.shape == (1, 2, 16, 64)
 
 
-# K4's padded route: hubert-xlarge's head dim 80 (non-causal) and MLA's q/k
-# at 96 with v at 64 (minicpm3-4b), each run by the kernel at head dim 128
+# Head dims that are not (d, d) with d in HEAD_DIMS: hubert-xlarge's 80
+# (non-causal) and MLA's q/k at 96 with v at 64 (minicpm3-4b), which bf16
+# runs natively and float32 through the padded route at head dim 128, and
+# (48, 32), padded in both types
 FA_PADDED_CASES = [
     (2, 4, 4, 200, 200, 80, 80, False),
     (1, 3, 3, 129, 129, 80, 80, True),
@@ -585,8 +589,9 @@ FA_PADDED_CASES = [
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_padded_head_dims(cuda_device, b, hq, hkv, s, t, dqk, dv,
                                                  causal, dtype):
-    """One K4 launch a call at the padded head dim, at the true scale, the
-    output cut to v's head dim; against the unpadded float32 plain version."""
+    """One K4 launch a call (at the padded head dim where the kernel does
+    not take the pair), at the true scale, the output at v's head dim;
+    against the unpadded float32 plain version."""
     rng = np.random.default_rng(s * 7 + dqk)
 
     def rand(*shape):
@@ -604,6 +609,98 @@ def test_flash_attention_kernel_padded_head_dims(cuda_device, b, hq, hkv, s, t, 
     tol = 3e-2 if dtype == torch.bfloat16 else 2e-5
     np.testing.assert_allclose(got.float().cpu().numpy(), want.cpu().numpy(), atol=tol)
     assert torch.equal(got, again)
+
+
+# K4's native (Dqk, Dv) pairs beyond 64, 128 and 256: hubert-xlarge's 80
+# non-causal and causal, MLA's q/k 96 with v 64 causal and not; with GQA,
+# ragged S and T (S < T, S > T) and a query tile cut short
+FA_NATIVE_CASES = [
+    (2, 4, 4, 200, 200, 80, 80, False),
+    (1, 3, 3, 129, 129, 80, 80, True),
+    (1, 8, 2, 300, 300, 80, 80, True),
+    (1, 4, 2, 70, 333, 80, 80, True),
+    (1, 4, 4, 300, 190, 80, 80, False),
+    (2, 4, 4, 200, 200, 96, 64, True),
+    (1, 5, 5, 70, 333, 96, 64, True),
+    (1, 8, 2, 257, 257, 96, 64, True),
+    (1, 4, 4, 300, 190, 96, 64, False),
+    (4, 16, 16, 1024, 1024, 80, 80, False),
+    (2, 40, 40, 1024, 1024, 96, 64, True),
+]
+
+
+def _no_padding(monkeypatch) -> list:
+    """A spy on ``pad_head_dims``: the list of its calls."""
+    calls = []
+    pad = fa.pad_head_dims
+
+    def spy(*args):
+        calls.append(args)
+        return pad(*args)
+
+    monkeypatch.setattr(fa, "pad_head_dims", spy)
+    return calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,s,t,dqk,dv,causal", FA_NATIVE_CASES)
+def test_flash_attention_kernel_native_head_dims(cuda_device, monkeypatch, b, hq, hkv, s, t,
+                                                 dqk, dv, causal):
+    """bf16 K4 at a native (Dqk, Dv) pair: one launch a call and no padding
+    copy, within 3e-2 of the float32 plain version, bitwise repeatable."""
+    rng = np.random.default_rng(s * 11 + t + dqk)
+    q = _rand_cuda(rng, (b, hq, s, dqk), cuda_device, torch.bfloat16)
+    k = _rand_cuda(rng, (b, hkv, t, dqk), cuda_device, torch.bfloat16)
+    v = _rand_cuda(rng, (b, hkv, t, dv), cuda_device, torch.bfloat16)
+    pads = _no_padding(monkeypatch)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    again = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2 and not pads
+    assert got.shape == (b, hq, s, dv) and got.dtype == torch.bfloat16
+    want = attention_plain(q.float(), k.float(), v.float(), causal=causal)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.cpu().numpy(), atol=3e-2)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dqk,dv", [(80, 80), (96, 64)])
+def test_flash_attention_native_head_dims_read_only_the_true_columns(cuda_device, monkeypatch,
+                                                                     dqk, dv):
+    """q, k and v as the first Dqk / Dv columns of 128-wide buffers whose
+    other columns hold noise: one launch, no copy, and the output bitwise
+    that of the call on contiguous copies (the kernel's tensor maps stop at
+    the true head dims)."""
+    rng = np.random.default_rng(dqk + dv)
+    b, hq, hkv, s = 2, 6, 2, 300
+    qw = _rand_cuda(rng, (b, hq, s, 128), cuda_device, torch.bfloat16)
+    kw = _rand_cuda(rng, (b, hkv, s, 128), cuda_device, torch.bfloat16)
+    vw = _rand_cuda(rng, (b, hkv, s, 128), cuda_device, torch.bfloat16)
+    q, k, v = qw[..., :dqk], kw[..., :dqk], vw[..., :dv]
+    pads = _no_padding(monkeypatch)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=True)
+    want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2 and not pads
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dqk,dv", NATIVE_PAIRS)
+def test_flash_attention_kernel_info_every_pair(cuda_device, dqk, dv):
+    """Every bf16 instantiation launches at 168 registers a thread or fewer
+    and fits its shared memory in a block's 227 KB; the pairs beyond (d, d)
+    spill nothing (the square pairs keep what they had: 16 local bytes a
+    thread at (128, 128), none at 64 and 256)."""
+    info = kernel_info(dqk, dv)
+    assert info["threads"] == 384 and info["registers"] <= 168
+    if (dqk, dv) not in ((64, 64), (128, 128), (256, 256)):
+        assert info["local_bytes"] == 0
+    assert info["block_k"] == (64 if dqk == 256 else 128)
+    assert info["shared_bytes"] <= 232448
+    print(f"K4 bf16 (q/k {dqk}, v {dv}): {info}")
 
 
 @pytest.mark.cuda

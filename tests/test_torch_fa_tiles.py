@@ -4,7 +4,9 @@ bounds and tile classification (``csrc/flash_attention.cu``,
 order against the plain version and the JAX kernel.
 
 The kernel gives each CTA 128 query rows, split between two warpgroups of
-64, and walks keys in tiles of 128 (of 64 at head dim 256).  The loop bounds skip the key tiles
+64, and walks keys in tiles of 128 (of 64 at head dim 256).  Its (q/k, v)
+head dims are read from the dispatch in the source: (64, 64), (128, 128),
+(256, 256), (80, 80) and (96, 64).  The loop bounds skip the key tiles
 that no row of the CTA can see; inside the loop a warpgroup applies the
 element mask (causal, window, ``kpos < T``) only to the tiles it flagged.
 The mirror below must say the same: no live (q, k) pair in a skipped
@@ -21,18 +23,23 @@ import pytest
 CU = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
       / "flash_attention.cu").read_text()
 BLOCK_Q = int(re.search(r"constexpr int kBlockQ = (\d+);", CU).group(1))
-# keys per tile by head dim: ``kBlockK<DH>`` picks one of two constants
+# keys per tile by q/k head dim: ``kBlockK<DQK>`` picks one of two constants
 _BK_CONST = {m.group(1): int(m.group(2))
              for m in re.finditer(r"constexpr int (kBlockK\w+) = (\d+);", CU)}
-_BK_PICK = re.search(r"constexpr int kBlockK = DH == (\d+) \? (\w+) : (\w+);", CU)
-HEAD_DIMS_CU = tuple(int(d) for d in re.findall(r"if \(dh == (\d+)\) \{\n    return launch<",
-                                                CU))
+_BK_PICK = re.search(r"constexpr int kBlockK = DQK == (\d+) \? (\w+) : (\w+);", CU)
+# (dqk, dv) pairs of fa_forward's dispatch, each checked against the
+# template arguments it launches, and of fa_wgmma_info's
+_DISPATCH = re.findall(r"if \(dh == (\d+) && dv == (\d+)\) \{\n    return launch<(\d+), (\d+)>",
+                       CU)
+PAIRS_CU = tuple((int(a), int(b)) for a, b, _, _ in _DISPATCH)
+INFO_PAIRS_CU = tuple((int(a), int(b)) for a, b, c, d in re.findall(
+    r"if \(dqk == (\d+) && dv == (\d+)\) return wgmma_info<(\d+), (\d+)>", CU) if (a, b) == (c, d))
 
 
-def block_k(dh: int) -> int:
-    """Keys per K/V tile of the bf16 kernel at head dim ``dh``."""
+def block_k(dqk: int) -> int:
+    """Keys per K/V tile of the bf16 kernel at q/k head dim ``dqk``."""
     pick, yes, no = _BK_PICK.groups()
-    return _BK_CONST[yes if dh == int(pick) else no]
+    return _BK_CONST[yes if dqk == int(pick) else no]
 
 
 BLOCK_K = block_k(64)  # head dim 64 and 128
@@ -62,7 +69,8 @@ PLAN_CASES = [
 
 # (B, Hq, Hkv, S, T, Dh, causal, window, softcap) for the emulation:
 # test_flash_attention_sweep's grid, smollm-135m's (9 / 3, Dh 64) and
-# minitron-4b's (24 / 8, Dh 128) head layouts, and the tile-edge cases
+# minitron-4b's (24 / 8, Dh 128) head layouts, and the tile-edge cases;
+# Dh is a (q/k, v) pair where the two differ
 EMU_CASES = [
     (2, 4, 2, 128, 128, 64, True, None, None),
     (1, 8, 2, 100, 100, 64, True, None, 50.0),
@@ -81,6 +89,13 @@ EMU_CASES = [
     (1, 8, 4, 200, 200, 256, True, None, 50.0),
     (1, 2, 1, 96, 224, 256, True, None, None),
     (1, 2, 2, 130, 190, 256, False, 70, None),
+    # the native pairs of hubert-xlarge (80, non-causal and causal, ragged
+    # S and T) and of MLA's prefill (q/k 96, v 64; causal, S < T, GQA)
+    (1, 4, 4, 200, 200, 80, False, None, None),
+    (1, 3, 3, 129, 129, 80, True, None, None),
+    (1, 2, 1, 70, 333, 80, True, None, None),
+    (1, 4, 4, 200, 200, (96, 64), True, None, None),
+    (1, 4, 2, 96, 224, (96, 64), True, None, None),
 ]
 
 
@@ -194,27 +209,37 @@ def test_tile_plan_at_head_dim_256_masks_three_tiles_a_causal_query_tile():
 
 def test_every_config_the_port_runs_has_a_head_dim_k4_takes():
     """Each LM config the port runs (``LM`` constructs) and that has
-    attention has head dims K4's wrapper takes, natively or through its
-    padded route, at a head dim its CUDA dispatch takes: gemma2-2b's 256
-    was once refused on the card though the config ran on the CPU.  MLA
-    calls K4 with q and k at the head dim and v at the nope dim."""
-    pytest.importorskip("torch")
+    attention runs K4 in bf16 at its own (q/k, v) head dims, a pair of the
+    CUDA dispatch: gemma2-2b's 256 was once refused on the card though the
+    config ran on the CPU, and hubert-xlarge's 80 and minicpm3-4b's MLA
+    (q and k at the head dim 96, v at the nope dim 64) once ran the 128
+    kernel on zero-padded copies.  ``NATIVE_PAIRS`` is the dispatch's, and
+    ``HEAD_DIMS`` the float32 kernel's square pairs of it."""
+    torch = pytest.importorskip("torch")
     from repro_torch.configs import ARCHS
-    from repro_torch.kernels.flash_attention import HEAD_DIMS, padded_head_dim
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import HEAD_DIMS, NATIVE_PAIRS, kernel_pair
     from repro_torch.models import LM
 
-    assert tuple(sorted(HEAD_DIMS)) == tuple(sorted(HEAD_DIMS_CU))
+    assert PAIRS_CU and tuple(sorted(NATIVE_PAIRS)) == tuple(sorted(PAIRS_CU))
+    assert all((a, b) == (c, d) for a, b, c, d in _DISPATCH)
+    assert tuple(sorted(INFO_PAIRS_CU)) == tuple(sorted(PAIRS_CU))
+    assert tuple(sorted(HEAD_DIMS)) == tuple(sorted(a for a, b in PAIRS_CU
+                                                    if a == b and a % 64 == 0))
     runs = {}
     for name, cfg in sorted(ARCHS.items()):
         LM(cfg, device="cpu")
         mixers = {mixer for mixer, _ in cfg.block_pattern}
         if mixers & {"attn", "local", "mla"}:
             dv = cfg.head_dim - cfg.mla_rope_dim if "mla" in mixers else cfg.head_dim
-            runs[name] = padded_head_dim(cfg.head_dim, dv)
-            assert runs[name] in HEAD_DIMS_CU, (name, cfg.head_dim, dv)
+            runs[name] = kernel_pair(cfg.head_dim, dv, torch.bfloat16)
+            assert runs[name] == (cfg.head_dim, dv), (name, runs[name])
+            assert runs[name] in PAIRS_CU, (name, cfg.head_dim, dv)
+            # MLA builds q and k at the width the kernel runs: the true head dim
+            assert ops.attention_width(cfg.head_dim, dv, "cuda") == cfg.head_dim
     assert {"smollm-135m", "gemma2-2b", "minitron-4b", "hubert-xlarge",
             "minicpm3-4b"} <= set(runs)
-    assert runs["hubert-xlarge"] == runs["minicpm3-4b"] == 128  # Dh 80; q/k 96, v 64
+    assert runs["hubert-xlarge"] == (80, 80) and runs["minicpm3-4b"] == (96, 64)
 
 
 def test_tile_plan_runs_most_causal_tiles_unmasked():
@@ -240,17 +265,17 @@ def emulate_kernel(q, k, v, causal, window, softcap, scale):
     import torch
 
     b, hq, s, dh = q.shape
-    hkv, t = k.shape[1], k.shape[2]
+    hkv, t, dv = k.shape[1], k.shape[2], v.shape[3]
     g = hq // hkv
     bk = block_k(dh)
     t_pad = math.ceil(t / bk) * bk
     kf = torch.zeros((b, hkv, t_pad, dh))
-    vf = torch.zeros((b, hkv, t_pad, dh))
+    vf = torch.zeros((b, hkv, t_pad, dv))
     kf[:, :, :t], vf[:, :, :t] = k.float(), v.float()
     kf, vf = kf.repeat_interleave(g, dim=1), vf.repeat_interleave(g, dim=1)
     qf = q.float()
     live = torch.from_numpy(live_pairs(s, t, causal, window))
-    out = torch.zeros((b, hq, s, dh))
+    out = torch.zeros((b, hq, s, dv))
     for q0, rows, kt_begin, kt_end, masked in tile_plan(s, t, causal, window, bk):
         for c, flags in enumerate(masked):
             r0, r1 = q0 + WG_ROWS * c, min(q0 + WG_ROWS * (c + 1), q0 + rows)
@@ -259,7 +284,7 @@ def emulate_kernel(q, k, v, causal, window, softcap, scale):
             qw = qf[:, :, r0:r1]
             m = torch.full((b, hq, r1 - r0, 1), NEG)
             l = torch.zeros((b, hq, r1 - r0, 1))
-            acc = torch.zeros((b, hq, r1 - r0, dh))
+            acc = torch.zeros((b, hq, r1 - r0, dv))
             for kt, flag in zip(range(kt_begin, kt_end), flags):
                 k0 = kt * bk
                 x = qw @ kf[:, :, k0:k0 + bk].transpose(-1, -2)
@@ -295,18 +320,23 @@ def test_kernel_order_emulation_matches_plain_and_jax(b, hq, hkv, s, t, dh, caus
     import jax.numpy as jnp
 
     from repro.kernels.flash_attention import flash_attention as ref_flash
+    from repro.kernels.ref import attention_ref
     from repro_torch.kernels.flash_attention import attention_plain
 
+    dh, dv = dh if isinstance(dh, tuple) else (dh, dh)
     rng = np.random.default_rng(s * 1000 + t + hq)
     arrays = [rng.standard_normal(shape).astype(np.float32)
-              for shape in ((b, hq, s, dh), (b, hkv, t, dh), (b, hkv, t, dh))]
+              for shape in ((b, hq, s, dh), (b, hkv, t, dh), (b, hkv, t, dv))]
     q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in arrays)
     got = emulate_kernel(q, k, v, causal, window, cap, dh ** -0.5)
     plain = attention_plain(q, k, v, causal=causal, window=window, softcap=cap)
     qj, kj, vj = (jnp.asarray(a, jnp.bfloat16) for a in arrays)
-    jax_out = ref_flash(qj, kj, vj, causal=causal, window=window, softcap=cap,
-                        interpret=True)
-    assert got.dtype == torch.bfloat16 and got.shape == (b, hq, s, dh)
+    # the reference's Pallas K4 takes one head dim; MLA's pair is held to
+    # its jnp attention, as the reference's MLA prefill runs it
+    jax_out = (ref_flash(qj, kj, vj, causal=causal, window=window, softcap=cap,
+                         interpret=True) if dh == dv else
+               attention_ref(qj, kj, vj, causal=causal, window=window, softcap=cap))
+    assert got.dtype == torch.bfloat16 and got.shape == (b, hq, s, dv)
     np.testing.assert_allclose(got.float().numpy(), plain.float().numpy(), atol=3e-2)
     np.testing.assert_allclose(got.float().numpy(), np.asarray(jax_out, np.float32),
                                atol=3e-2)

@@ -2,9 +2,10 @@
 through ``ops.attention`` with q and k at the head dim and v at the nope
 dim; absorbed decode over the latent cache) on the CPU against the JAX
 package's ``mla_attention`` on ``backend="jnp"`` (its Pallas K4 takes one
-head dim for q, k and v); K4's padded route for head dims the kernel does
-not take, through the plain version; reduced minicpm3-4b against the
-reference LM, and its serving engine and command line."""
+head dim for q, k and v); K4's wrapper routes (native pairs launched as
+they are, others through the padded route) and the padded route through
+the plain version; reduced minicpm3-4b against the reference LM, and its
+serving engine and command line."""
 import dataclasses
 
 import numpy as np
@@ -23,9 +24,10 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.models import layers as ref_layers  # noqa: E402
 from repro.serve.engine import Request as RefRequest  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention import (HEAD_DIMS,  # noqa: E402
-                                                 attention_plain, pad_head_dims,
-                                                 padded_head_dim)
+                                                 NATIVE_PAIRS, attention_plain,
+                                                 pad_head_dims, padded_head_dim)
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.serve.engine import Request  # noqa: E402
@@ -149,6 +151,67 @@ def test_k4_padded_route_is_exact(dqk, dv, causal):
     assert float((wrong - want).abs().max()) > 1e-2
 
 
+# (q/k head dim, v head dim, dtype, launched as it is): every bf16 pair the
+# kernel is instantiated at; the float32 kernel's square pairs; MLA and
+# hubert in float32, a reduced config's 16 and pairs of no instantiation
+# in bf16, all padded
+ROUTE_CASES = [(dqk, dv, torch.bfloat16, True) for dqk, dv in NATIVE_PAIRS] + [
+    (64, 64, torch.float32, True), (128, 128, torch.float32, True),
+    (80, 80, torch.float32, False), (96, 64, torch.float32, False),
+    (16, 16, torch.bfloat16, False), (48, 32, torch.bfloat16, False),
+    (128, 64, torch.bfloat16, False), (64, 80, torch.bfloat16, False),
+]
+
+
+@pytest.mark.parametrize("dqk,dv,dtype,native", ROUTE_CASES)
+@pytest.mark.parametrize("junk", [False, True])
+def test_k4_wrapper_launches_native_pairs_as_they_are(monkeypatch, dqk, dv, dtype, native,
+                                                      junk):
+    """``flash_attention_cuda`` with the launch replaced by a recorder (the
+    plain version into the output it was handed): a pair the kernel takes
+    is launched once at its own head dims, with no ``pad_head_dims`` call
+    and the scale ``Dqk ** -0.5``; any other is launched once at
+    ``padded_head_dim`` after one ``pad_head_dims`` call, at the same
+    scale, its output cut to ``Dv``.  With ``junk``, q, k and v are the
+    first columns of buffers 64 columns wider, those columns noise: a
+    native pair is launched on those views, uncopied."""
+    rng = np.random.default_rng(dqk * 1000 + dv)
+    b, hq, hkv, s, t = 2, 4, 2, 40, 56
+
+    def rand(rows, d, heads):
+        wide = rng.standard_normal((b, heads, rows, d + 64 * junk)).astype(np.float32)
+        return torch.from_numpy(wide).to(dtype)[..., :d]
+
+    q, k, v = rand(s, dqk, hq), rand(t, dqk, hkv), rand(t, dv, hkv)
+    launched, pads = [], []
+    pad = fa.pad_head_dims
+
+    def launch(q, k, v, out, scale, causal, window, softcap):
+        launched.append((q.shape[-1], k.shape[-1], v.shape[-1], out.shape[-1], scale,
+                         q.data_ptr()))
+        out.copy_(attention_plain(q, k, v, causal=causal, window=window, softcap=softcap,
+                                  scale=scale))
+
+    def spy(*args):
+        pads.append(args)
+        return pad(*args)
+
+    monkeypatch.setattr(fa, "_fa_forward", launch)
+    monkeypatch.setattr(fa, "pad_head_dims", spy)
+    got = fa.flash_attention_cuda(q, k, v, causal=True)
+    dp = padded_head_dim(dqk, dv)
+    assert len(launched) == 1 and launched[0][4] == dqk ** -0.5
+    if native:
+        assert launched[0][:4] == (dqk, dqk, dv, dv) and not pads
+        assert launched[0][5] == q.data_ptr()  # q itself, however strided
+    else:
+        assert launched[0][:4] == (dp, dp, dp, dp) and len(pads) == 1
+    assert got.shape == (b, hq, s, dv) and got.dtype == dtype
+    want = attention_plain(q.float(), k.float(), v.float(), causal=True)
+    tol = 2 ** -7 if dtype == torch.bfloat16 else PAD_TOL  # one bf16 rounding of |out| < 2
+    np.testing.assert_allclose(got.float().numpy(), want.numpy(), atol=tol)
+
+
 def test_k4_padded_head_dim_bounds():
     assert [padded_head_dim(d, d) for d in (16, 64, 80, 96, 128, 200, 256)] == \
         [64, 64, 128, 128, 128, 256, 256]
@@ -236,13 +299,16 @@ def test_mla_model_at_minicpm3_head_geometry():
 
 def test_mla_prefill_at_k4_width_passes_the_true_scale(monkeypatch):
     """On a CUDA device MLA builds q and k at the width K4 runs them
-    (``ops.attention_width``: 128 for q/k 96, v 64) and passes the scale of
-    the true head dim, which the padded route must not replace by 128 **
-    -0.5.  Forced onto the CPU, that route equals the unpadded one and
-    hands ops.attention head_dim ** -0.5."""
+    (``ops.attention_width``: 96 for q/k 96, v 64, a pair the bf16 kernel
+    takes, so nothing is padded) and passes the scale of the true head
+    dim.  A width past the head dim (the padded route's 128, forced here
+    onto the CPU, as a pair the kernel did not take would get) must keep
+    that scale, not 128 ** -0.5: it equals the unpadded prefill and hands
+    ops.attention head_dim ** -0.5."""
     from repro_torch.kernels import ops
 
-    assert ops.attention_width(96, 64, "cpu") == 96 and ops.attention_width(96, 64, "cuda") == 128
+    assert ops.attention_width(96, 64, "cpu") == 96 and ops.attention_width(96, 64, "cuda") == 96
+    assert ops.attention_width(48, 32, "cuda") == padded_head_dim(48, 32) == 64
     rng = np.random.default_rng(23)
     p_ref, p_port, xj, xt, kw = _mla_setup(rng, "minicpm3", 40)
     pos = np.arange(40)[None].repeat(2, 0)
