@@ -256,9 +256,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    gate; minicpm3's absorbed MLA decode against its prefill within 5e-2
    (``MLA_DECODE_GATE_LAYERS``), a decode without the ``q_r k_r`` term of
    the logits (a planted fault: the rope key projection zeroed) above it;
-   minicpm3's and hubert's prefills timed with K4 at its native pair
-   against the padded route it took before (``PaddedRoute``), interleaved,
-   with the two forwards' logit gap printed; qwen2-vl's forward
+   minicpm3's and hubert's prefills with K4 at its native pair bitwise
+   equal to the same prefill on the padded route it took before
+   (``PaddedRoute``, ``padded_route_gate``); qwen2-vl's forward
    from ``embeds = embed[tokens]`` with the positions on all three M-RoPE
    components against its token forward within 5e-2.  Each phase prints
    its wall time.
@@ -345,7 +345,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    K2 over phase 3e's largest merged shard stream, K4's and K5's rows with
    their launches by model, and a row for K4 at its native (Dqk, Dv) pair
    at each of hubert-xlarge's and minicpm3-4b's layers, with its launches
-   in phase 8b and the prefill A/B; K4's and K5's launches per data-parallel step and K4's per CP
+   in phase 8b and the padded-route gate; K4's and K5's launches per
+   data-parallel step and K4's per CP
    call, phase 10), the card line, and last the contract line ``{"ok":
    true, "device": {...}}``.
 
@@ -621,8 +622,7 @@ class PadCalls:
 class PaddedRoute:
     """K4 as it ran before its native (Dqk, Dv) pairs: while open, the
     wrapper takes only the square pairs natively, so hubert's 80 and MLA's
-    96 / 64 are zero-padded to 128 (``pad_head_dims``) and MLA builds q and
-    k at 128 (``ops.attention_width``)."""
+    96 / 64 go through ``pad_head_dims`` (q, k and v zero-padded to 128)."""
 
     def __enter__(self):
         from repro_torch.kernels import flash_attention as fa
@@ -2754,7 +2754,8 @@ def k4_native_shape(dev, gen, arch, b, h, s, dqk, dv, causal):
     buffers whose other columns hold noise (the kernel reads only the true
     columns); two planted faults read in the same run must break the tile
     gate: the padded head dim's scale in place of the true one, and one key
-    tile dropped from the last 256 rows.  Times (event median and queue
+    tile dropped from the last 256 rows; the padded route it replaced must
+    give the native output bit for bit.  Times (event median and queue
     full): the native kernel; the padded route it replaced, on the same
     operands (``pad_head_dims`` and the kernel at the padded head dim,
     together, then the copies alone and the kernel alone); the float32
@@ -2824,7 +2825,10 @@ def k4_native_shape(dev, gen, arch, b, h, s, dqk, dv, causal):
         return flash_attention(qp, kp, vp, causal=causal, scale=true_scale)[..., :dv]
 
     lib_err = (sdpa().float() - ref).abs().max().item()
-    padded_same = torch.equal(padded_route(), out)
+    padded_out = padded_route()
+    padded_same = torch.equal(padded_out, out)
+    require(padded_same, f"K4 {label}: the padded route's output differs from the native "
+            f"kernel's by max|d| {(padded_out.float() - out.float()).abs().max()}")
     ms = median_ms(lambda: flash_attention(q, k, v, causal=causal))
     q_ms = queued_ms(lambda: flash_attention(q, k, v, causal=causal))
     padded_ms = median_ms(padded_route)
@@ -3399,45 +3403,29 @@ def k4_at_activations(model, params, inputs) -> dict:
             "fault_drop_tile_rms": drop_rms}
 
 
-def route_ab(model, params, inputs, rounds: int = 3) -> dict:
-    """A full-width prefill with K4 at its native (Dqk, Dv) pair against the
-    same prefill on the padded route K4 took before (``PaddedRoute``: q, k
-    and v zero-padded to 128), interleaved A B B A in one process: the
-    median CUDA-event milliseconds of each forward, the padded route's
-    ``pad_head_dims`` calls, and how far the two forwards' logits lie apart
-    (printed, not gated: both are bf16 prefills of the same function)."""
-    def forward(padded: bool):
-        if not padded:
-            return model.forward(params, last_only=True, **inputs)[0]
-        with PaddedRoute():
-            return model.forward(params, last_only=True, **inputs)[0]
-
-    native = forward(False)
-    with PadCalls() as pads:
-        padded = forward(True)
+def padded_route_gate(model, params, inputs) -> dict:
+    """A full-width prefill with K4 at its native (Dqk, Dv) pair must give
+    the same logits bit for bit as the same prefill on the padded route K4
+    took before (``PaddedRoute``: q, k and v zero-padded to 128, the true
+    scale): a k16 step over zero columns adds exact zeros to the float32
+    accumulator and an output column of P V does not depend on N.  The
+    padded forward must copy once for each K4 call."""
+    native = model.forward(params, last_only=True, **inputs)[0]
+    with PaddedRoute(), PadCalls() as pads:
+        padded = model.forward(params, last_only=True, **inputs)[0]
     torch.cuda.synchronize()
     same = torch.equal(native, padded)
     gap = (native.float() - padded.float()).abs().max().item()
-    times = {False: [], True: []}
-    for i in range(4 * rounds):
-        route = i % 4 in (1, 2)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        forward(route)
-        end.record()
-        end.synchronize()
-        times[route].append(start.elapsed_time(end))
-    native_ms, padded_ms = (statistics.median(times[r]) for r in (False, True))
-    print(f"K4 route A/B {model.cfg.name} (B={LM_BATCH} S={LM_SEQ}, {2 * rounds} forwards "
-          f"each, interleaved): native (Dqk, Dv) {native_ms:.3f} ms (median; "
-          f"{['%.3f' % t for t in times[False]]}), the padded route ({pads.calls} padding copies "
-          f"a forward) {padded_ms:.3f} ms ({['%.3f' % t for t in times[True]]}), "
-          f"{100 * (padded_ms / native_ms - 1):+.2f}%; logits bitwise equal: {same} "
-          f"(max|d| {gap:.4e})")
-    return {"native_ms": native_ms, "padded_ms": padded_ms, "native_runs": times[False],
-            "padded_runs": times[True], "padded_copies_per_forward": pads.calls,
-            "logits_bitwise": same, "logits_max_abs_diff": gap}
+    calls = launches_per_forward(model.cfg)["flash_attention"]
+    print(f"K4 padded-route gate {model.cfg.name} (B={LM_BATCH} S={LM_SEQ}): the native "
+          f"(Dqk, Dv) prefill's logits bitwise the padded route's ({pads.calls} padding copies "
+          f"for {calls} K4 calls): {same} (max|d| {gap:.4e})")
+    require(pads.calls == calls, f"{model.cfg.name}: the padded route made {pads.calls} "
+            f"padding copies in a forward of {calls} K4 calls")
+    require(same, f"{model.cfg.name}: the native (Dqk, Dv) prefill's logits differ from the "
+            f"padded route's by max|d| {gap:.4e}")
+    return {"padded_copies_per_forward": pads.calls, "logits_bitwise": same,
+            "logits_max_abs_diff": gap}
 
 
 def moe_gate(model, params, inputs) -> dict:
@@ -3574,7 +3562,7 @@ def phase_lm_new(dev, arch, model, params, card: str) -> dict:
                 f"{arch}: the control gate would pass a dropped key tile")
         out["control"] = gated
     if arch in K4_NATIVE:
-        out["route_ab"] = route_ab(model, params, inputs)
+        out["padded_route"] = padded_route_gate(model, params, inputs)
     if "mla" in mixers:
         prompt = torch.randint(0, v, (DECODE_BATCH, DECODE_SEQ), generator=gen, device=dev)
         out["decode_err_full_depth"], _, _ = prefill_vs_decode(model, params, prompt,
@@ -4662,7 +4650,7 @@ def main() -> int:
             "launches": native[arch]["launches"]["flash_attention"],
             "launches_per_forward": cfg_per, **row,
             "prefill_activations": native[arch]["k4_activations"],
-            "prefill_route_ab": native[arch]["route_ab"],
+            "prefill_padded_route": native[arch]["padded_route"],
         })
         require(kernels[-1]["launches"] > 0, f"K4's native pair never launched on {arch}")
     t0 = time.perf_counter()

@@ -28,8 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.edge_softmax import NEG, edge_softmax_stats
-from repro_torch.kernels.flash_attention import (FlashAttention, flash_attention,
-                                                 kernel_pair)
+from repro_torch.kernels.flash_attention import FlashAttention, flash_attention
 from repro_torch.kernels.seg_sum import (PackedEdges, edge_dots, needs_grad,
                                          pack_edge_blocks, seg_sum_forward,
                                          seg_sum_na, seg_sum_transposed)
@@ -95,18 +94,6 @@ def attention_k4(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return FlashAttention.apply(q, k, v, causal, window, softcap, scale)
     return flash_attention(q, k, v, causal=causal, window=window, softcap=softcap,
                            scale=scale)
-
-
-def attention_width(dqk: int, dv: int, device) -> int:
-    """The head dim a caller building bf16 q and k itself should give them
-    (zero-filled past ``dqk``) so that ``attention`` copies neither: the q/k
-    head dim K4 runs a ``(dqk, dv)`` bf16 call at on a CUDA device (``dqk``
-    itself for a pair the kernel takes, as MLA's 96 / 64), ``dqk`` on the
-    CPU (whose plain version takes any).  The call then passes ``scale=dqk
-    ** -0.5``."""
-    if torch.device(device).type != "cuda":
-        return dqk
-    return kernel_pair(dqk, dv, torch.bfloat16)[0]
 
 
 def ssd(x: torch.Tensor, a_log: torch.Tensor, b_coef: torch.Tensor,

@@ -161,8 +161,8 @@ def mla_attention(
     heads, plus a small RoPE'd key part ``k_r`` shared across heads.  The
     prefill expands K and V from the latent and runs ``ops.attention`` on
     ``[nope; rope]`` features: q and k at ``head_dim``, v at ``head_dim -
-    rope_dim`` (K4 on a CUDA tensor, through its padded route; q and k are
-    built at the padded width, so only v is copied there).  With
+    rope_dim`` (K4 on a CUDA tensor, which takes that pair as it is in
+    bfloat16 and pads it in float32).  With
     ``cache = {"c_kv": (B, T, r), "k_r": (B, 1, T, rope)}`` (decode) the new
     rows go in at ``cache_pos``, in place, and the queries attend in the
     latent space with ``W_uk`` folded into them (absorbed MLA): the cache
@@ -196,15 +196,10 @@ def mla_attention(
         new_cache = None
         t = c_kv.shape[1]
         kv = (c_kv @ p["w_ukv"]).reshape(b, t, num_heads, 2 * nope).transpose(1, 2)
-        # [q_n; q_r] and [k_n; k_r] written straight into buffers as wide as
-        # K4 runs them (head_dim itself where the kernel takes (head_dim,
-        # nope), zeros past it where it does not), so ops.attention copies
-        # neither; the scale stays head_dim ** -0.5
-        width = ops.attention_width(head_dim, nope, x.device)
-        q_cat = x.new_zeros((b, num_heads, s, width))
-        k_cat = x.new_zeros((b, num_heads, t, width))
-        q_cat[..., :nope], q_cat[..., nope:head_dim] = q_n, q_r
-        k_cat[..., :nope], k_cat[..., nope:head_dim] = kv[..., :nope], k_r
+        # [q_n; q_r] and [k_n; k_r] as the reference concatenates them; the
+        # scale stays head_dim ** -0.5
+        q_cat = torch.cat([q_n, q_r], dim=-1)
+        k_cat = torch.cat([kv[..., :nope], k_r.expand(b, num_heads, t, k_r.shape[-1])], dim=-1)
         o = ops.attention(q_cat, k_cat, kv[..., nope:], causal=causal, scale=scale)
     o = o.transpose(1, 2).reshape(b, s, num_heads * nope)
     return o @ p["wo"], new_cache

@@ -217,7 +217,6 @@ def test_every_config_the_port_runs_has_a_head_dim_k4_takes():
     ``HEAD_DIMS`` the float32 kernel's square pairs of it."""
     torch = pytest.importorskip("torch")
     from repro_torch.configs import ARCHS
-    from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import HEAD_DIMS, NATIVE_PAIRS, kernel_pair
     from repro_torch.models import LM
 
@@ -235,8 +234,6 @@ def test_every_config_the_port_runs_has_a_head_dim_k4_takes():
             runs[name] = kernel_pair(cfg.head_dim, dv, torch.bfloat16)
             assert runs[name] == (cfg.head_dim, dv), (name, runs[name])
             assert runs[name] in PAIRS_CU, (name, cfg.head_dim, dv)
-            # MLA builds q and k at the width the kernel runs: the true head dim
-            assert ops.attention_width(cfg.head_dim, dv, "cuda") == cfg.head_dim
     assert {"smollm-135m", "gemma2-2b", "minitron-4b", "hubert-xlarge",
             "minicpm3-4b"} <= set(runs)
     assert runs["hubert-xlarge"] == (80, 80) and runs["minicpm3-4b"] == (96, 64)

@@ -298,22 +298,21 @@ def test_mla_model_at_minicpm3_head_geometry():
 
 
 def test_mla_prefill_at_k4_width_passes_the_true_scale(monkeypatch):
-    """On a CUDA device MLA builds q and k at the width K4 runs them
-    (``ops.attention_width``: 96 for q/k 96, v 64, a pair the bf16 kernel
-    takes, so nothing is padded) and passes the scale of the true head
-    dim.  A width past the head dim (the padded route's 128, forced here
-    onto the CPU, as a pair the kernel did not take would get) must keep
-    that scale, not 128 ** -0.5: it equals the unpadded prefill and hands
-    ops.attention head_dim ** -0.5."""
+    """MLA hands ``ops.attention`` q and k at the true head dim (96), v at
+    the nope dim (64) and the scale of the true head dim: a pair the bf16
+    kernel takes as it is.  The padded route, which the float32 kernel and
+    any pair the kernel does not take run (``pad_head_dims``, here forced
+    onto the CPU at MLA's own operands), must keep that scale, not 128 **
+    -0.5: it equals the unpadded prefill and the reference's."""
     from repro_torch.kernels import ops
 
-    assert ops.attention_width(96, 64, "cpu") == 96 and ops.attention_width(96, 64, "cuda") == 96
-    assert ops.attention_width(48, 32, "cuda") == padded_head_dim(48, 32) == 64
+    assert fa.kernel_pair(96, 64, torch.bfloat16) == (96, 64)
+    assert fa.kernel_pair(96, 64, torch.float32) == (128, 128)
+    assert fa.kernel_pair(48, 32, torch.bfloat16) == (padded_head_dim(48, 32),) * 2 == (64, 64)
     rng = np.random.default_rng(23)
     p_ref, p_port, xj, xt, kw = _mla_setup(rng, "minicpm3", 40)
     pos = np.arange(40)[None].repeat(2, 0)
     (cj, sj), (ct, st) = _tables(pos, kw["head_dim"])
-    unpadded, _ = layers.mla_attention(p_port, xt, ct, st, **kw)
     seen = []
     attention = ops.attention
 
@@ -321,10 +320,19 @@ def test_mla_prefill_at_k4_width_passes_the_true_scale(monkeypatch):
         seen.append((q.shape[-1], k.shape[-1], v.shape[-1], call.get("scale")))
         return attention(q, k, v, **call)
 
-    monkeypatch.setattr(ops, "attention_width", lambda dqk, dv, device: padded_head_dim(dqk, dv))
     monkeypatch.setattr(ops, "attention", spy)
+    unpadded, _ = layers.mla_attention(p_port, xt, ct, st, **kw)
+    assert seen == [(96, 96, 64, 96 ** -0.5)]
+
+    def padded_route(q, k, v, **call):
+        qp, kp, vp, true_scale, dv = pad_head_dims(q, k, v)
+        assert true_scale == call["scale"]
+        return spy(qp, kp, vp, **call)[..., :dv]
+
+    monkeypatch.setattr(ops, "attention", padded_route)
     padded, _ = layers.mla_attention(p_port, xt, ct, st, **kw)
-    assert seen == [(128, 128, 64, 96 ** -0.5)]
+    assert seen[1:] == [(128, 128, 128, 96 ** -0.5)]
     np.testing.assert_allclose(np32(padded), np32(unpadded), atol=LAYER_TOL)
     want, _ = ref_layers.mla_attention(p_ref, xj, cj, sj, backend="jnp", **kw)
     np.testing.assert_allclose(np32(padded), np32(want), atol=LAYER_TOL)
+    np.testing.assert_allclose(np32(unpadded), np32(want), atol=LAYER_TOL)
