@@ -132,6 +132,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    subsets and whole-graph requests): every request answered, rows within
    1e-4 of the unsharded card forwards.  Printed: event medians of the
    sharded and single-device forwards, with the card's name and limit.
+3f. The segment-sum executor repeats: ``na_executor="jnp"`` on the same
+   full-width ACM, rgcn and rgat: two forwards bitwise equal, two ``loss``
+   gradients (every parameter and feature leaf) bitwise equal, the logits
+   within 1e-4 of the CPU run; printed beside it, whether two forwards
+   repeat with ``index_add_`` (float atomics) in place of ``segment_sum``.
 4. SGB: ACM, IMDB and DBLP at scale 1.0 under the ``ctt`` planner.  The
    host join and the device composer (K3) must give bitwise-equal products
    and equal per-step costs, K3 must launch once per plan step, and on
@@ -219,7 +224,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    last-position logits of a B = 2, S = 256 prefill must match the card's
    own token-by-token decode of the same prompt (no kernel on that path)
    within 5e-2: on the first 2 layers for a stack with SSM mixers (see
-   ``SSM_DECODE_GATE_LAYERS``; the full depth is printed), at full depth
+   ``SSM_DECODE_GATE_LAYERS``; the first 16 layers are printed,
+   ``PRINTED_DECODE_LAYERS``), at full depth
    for an attention stack (gemma2-2b, whose bf16 logits reach 7.6, within
    its own ``DECODE_LOGIT_TOL``).  An attention stack's prefill also runs
    with the float32 plain attention in place of K4 (a control, printed;
@@ -233,11 +239,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    minicpm3-4b (62, MLA), qwen2-vl-7b (28, from ``embeds`` = embedding rows
    and a ``pos3`` grid with distinct temporal, height and width
    components), hubert-xlarge (48, encoder, from random frame
-   ``embeds``) and jamba-v0.1-52b cut to one block-pattern group (8 of its
-   32 layers: the full model's bf16 weights exceed the card's 80 GB).  For
+   ``embeds``), jamba-v0.1-52b cut to one block-pattern group (8 of its
+   32 layers: the full model's bf16 weights exceed the card's 80 GB) and
+   minitron-4b (32, 24 / 8 heads of 128).  For
    each, ``LM.forward(..., last_only=True)`` at B = 4, S = 2048 twice with
    the counters set to 0 just before and read just after: K4 launches once
-   per attention or MLA layer (16, 24, 62, 28, 48, 1) and K5 once per SSM
+   per attention or MLA layer (16, 24, 62, 28, 48, 1, 32) and K5 once per SSM
    layer (jamba: 7), no ``pad_head_dims`` call (every K4 call runs at its
    own head dims; a spy counts them), logits finite and bitwise
    repeatable, the MoE aux finite and positive; one forward profiled, with K4's share of the device
@@ -253,9 +260,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    (jamba's attention layer, hubert's first layer, minicpm3's first MLA
    layer) rerun on its real q, k and v against the float32 plain version
    per element and per 128-row tile, a dropped key tile above the tile
-   gate; minicpm3's absorbed MLA decode against its prefill within 5e-2
-   (``MLA_DECODE_GATE_LAYERS``), a decode without the ``q_r k_r`` term of
-   the logits (a planted fault: the rope key projection zeroed) above it;
+   gate; minicpm3's absorbed MLA decode and minitron's KV-cache decode
+   against their prefills on the first 2 layers (``DECODE_GATE_LAYERS``;
+   printed: minitron's full depth, minicpm3's first 16 layers) within
+   5e-2, or for minitron, whose logits reach
+   6.75 there, within four bf16 steps (``DECODE_LOGIT_TOL``, as gemma2-2b's;
+   its decode against a float32-attention control printed), a planted
+   fault above it
+   (minicpm3: a decode without the ``q_r k_r`` term of the logits, the rope
+   key projection zeroed; minitron: the prefill with a key tile dropped);
    minicpm3's and hubert's prefills with K4 at its native pair bitwise
    equal to the same prefill on the padded route it took before
    (``PaddedRoute``, ``padded_route_gate``); qwen2-vl's forward
@@ -269,16 +282,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    layer (B = 4, 9 / 3 heads of 64, causal) and at gemma2-2b's local layer
    (B = 1, 8 / 4 heads of 256, S = 8192, window 4096, softcap 50, queries
    scaled so the logits reach the cap; its backward runs query tile by
-   query tile), dq, dk and dv against float32 autograd of
-   ``attention_plain`` per element and relative to each tensor's largest
-   entry, with two planted faults (a dk without the GQA group sum; a
-   backward without the softcap's derivative) that must read above the
-   gate; K5's (``SSDScan``) at mamba2-370m's layer, dx, da_log, db and dc
+   query tile), at hubert-xlarge's layer (B = 4, 16 heads of 80, S = 4096,
+   non-causal) and at minicpm3-4b's MLA layer (B = 1, 40 heads, q/k 96 and
+   v 64, causal, scale 96^-0.5), one launch and no padding copy a call,
+   dq, dk and dv against float32 autograd of ``attention_plain`` per
+   element and relative to each tensor's largest entry, with planted
+   faults that must read above the gate (a dk without the GQA group sum
+   where Hq > Hkv; a backward without the softcap's derivative; a causal
+   mask in the non-causal layer's backward; the padded 128's scale in
+   place of a native pair's own); K5's (``SSDScan``) at mamba2-370m's layer, dx, da_log, db and dc
    against float32 autograd of ``ssd_plain``, with a planted fault (the
    inter-chunk state's gradient dropped).  Then card against CPU:
-   smollm-135m, mamba2-370m and granite-moe-1b-a400m cut to 2 layers at
-   full width, one step (B = 2, S = 256) from the same parameters and
-   batch on both: the loss within 2e-3, every gradient leaf within 5e-2 of
+   smollm-135m, mamba2-370m, granite-moe-1b-a400m, hubert-xlarge (from
+   seeded embeddings), gemma2-2b (one local and one global layer) and
+   minicpm3-4b cut to 2 layers at full width, one step (B = 2, S = 256)
+   from the same parameters and batch on both: the loss within 2e-3, every gradient leaf within 5e-2 of
    the leaf's largest entry (of the model's largest gradient entry where
    the card routes some token to other experts than the CPU: near-tied
    gates at random init; the count is printed), every new parameter
@@ -288,13 +306,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    through ``build_train_step`` at a constant lr (``TRAIN_RUNS``):
    smollm-135m (30 layers, batch 8 as 2 microbatches of 4,
    ``remat="full"``, 6 steps on batches ``step % 2``), mamba2-370m (48
-   layers, batch 4, 6 steps) and granite-moe-1b-a400m (24 layers, batch 2,
-   4 steps).  Gates: finite losses that decrease (each step's loss below
+   layers, batch 4, 6 steps), granite-moe-1b-a400m (24 layers, batch 2,
+   4 steps), and, 4 steps each, hubert-xlarge (48 layers, batch 4 of
+   seeded frame embeddings whose rows carry the token ids, K4 at (80, 80)
+   non-causal), gemma2-2b (26 layers, batch 1, K4 at (256, 256) windowed
+   and softcapped) and minicpm3-4b (62 layers, batch 1, K4 at (96, 64));
+   gemma2-2b and minicpm3-4b donate their state to the step
+   (``TRAIN_DONATED``: the card cannot hold it twice).  Before each run the
+   dry run's 1 x 1 estimate of its step must fit the card's free memory.
+   Gates: finite losses that decrease (each step's loss below
    that of the step two before it on the same batch); K4 and K5 launches
    in every step equal to microbatches x 2 x the model's attention or SSM
    layers (counters set to 0 just before each step and read just after:
-   120, 96 and 48); two steps from one state and batch bitwise equal under
-   ``torch.use_deterministic_algorithms(True)``.  On smollm-135m also:
+   120, 96, 48, 96, 52 and 124); two steps from one state and batch bitwise
+   equal under ``torch.use_deterministic_algorithms(True)`` (for a donated
+   state, which does not fit twice, two gradient passes: the loss and every
+   gradient leaf; the update after them is elementwise).  On smollm-135m also:
    ``FaultTolerantRunner`` with checkpoints every 2 steps and a fault
    injected at step 3 restores once and ends its 4 steps bitwise on the
    uninterrupted run's state; 2 microbatches against one batch of 8 (loss
@@ -306,17 +333,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    power limit: step ms (CUDA-event median of the run's steps after the
    first) and tokens/s, the forward / backward / optimizer split, a
    profiled step's device busy share and the shares of K4, K5 and the
-   float32 attention and SSD backward, and peak memory.
+   float32 attention and SSD backward, peak memory, and the first step's
+   peak beside the dry run's estimate.
 10. LM parallelism, on the one card.  (a) Data parallelism: a ``(2, 1)``
    mesh of two ranks on ``cuda:0`` (``make_mesh_for``), each rank's rows
    from ``SyntheticTokens.sharded_batch``, full width, S = 4096, remat
    full: smollm-135m (B = 8 as 2 microbatches), granite-moe-1b-a400m
-   (B = 2, one row a rank) and mamba2-370m (B = 4), one step each from
+   (B = 2, one row a rank; its first 12 of 24 layers, ``DP_DEPTH_CUT``)
+   and mamba2-370m (B = 4), one step each from
    phase 9's seeded state against phase 9's one-rank step on the same
    batch by phase 9's microbatch gate (loss within 1e-4, first moments
    within 2e-2 of each leaf's largest entry); K4 and K5 launches a step
    (counters set to 0 just before it, read just after) equal to ranks x
-   microbatches x 2 x the model's attention or SSM layers (240, 96, 192);
+   microbatches x 2 x the model's attention or SSM layers (240, 48, 192);
    two steps bitwise equal under deterministic algorithms; planted faults
    read in the same run above the gate: rank 1's gradient dropped from the
    rank-order sum (smollm, granite), and, on granite's router moments,
@@ -343,9 +372,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    dependency forward, rows for K1 and K2 over phase 3c's sliced packings,
    rows for K1 and K2 over phase 3d's spliced packing, rows for K1 and
    K2 over phase 3e's largest merged shard stream, K4's and K5's rows with
-   their launches by model, and a row for K4 at its native (Dqk, Dv) pair
-   at each of hubert-xlarge's and minicpm3-4b's layers, with its launches
-   in phase 8b and the padded-route gate; K4's and K5's launches per
+   their launches by model and per train step, and a row for K4 at its
+   native (Dqk, Dv) pair at each of hubert-xlarge's and minicpm3-4b's
+   layers, with its launches in phase 8b and per train step and the
+   padded-route gate; K4's and K5's launches per
    data-parallel step and K4's per CP
    call, phase 10), the card line, and last the contract line ``{"ok":
    true, "device": {...}}``.
@@ -411,15 +441,23 @@ DECODE_BATCH, DECODE_SEQ = 2, 256  # prefill-vs-decode check
 # ::test_mamba2_prefill_decode_gap_at_depth_tracks_the_reference holds the
 # port's gap to the reference's at 8 and 16 layers on the CPU.  Here the gate
 # takes the first 2 layers, the depth of the reference suite's own
-# decode-vs-forward test, and the full depth is measured and printed.
+# decode-vs-forward test, and a deeper cut is measured and printed.
 SSM_DECODE_GATE_LAYERS = 2
+# Depth of the printed (not gated) prefill-vs-decode readings that would be
+# at full depth: the token-by-token decode is host-bound (148 ms a step at
+# minicpm3-4b's 62 layers, 73 at mamba2-370m's 48), and the run must end
+# within its time limit, so these two read their first 16 layers.
+PRINTED_DECODE_LAYERS = {"mamba2-370m": 16, "minicpm3-4b": 16}
 # Prefill-vs-decode tolerance of an attention stack at full depth, where it
 # is not LM_LOGIT_TOL.  The logits are a bf16 product: at gemma2-2b's
 # full-width magnitudes (up to 7.6, a bf16 step of 2^-5) the prefill with
 # the float32 plain attention in place of K4 misses decode by three steps
 # (0.0936, PERF.md section 6) as K4's does; its tolerance is four steps.
 # A planted fault read in the same run must break each stack's tolerance.
-DECODE_LOGIT_TOL = {"gemma2-2b": 4 * 2 ** -5}
+# minitron-4b's logits reach 6.75 at 2 layers (a bf16 step of 2^-5 there):
+# its KV-cache decode misses the prefill by 2.5 steps, as far as a float32-
+# attention control prefill does (PERF.md section 6), within the same four.
+DECODE_LOGIT_TOL = {"gemma2-2b": 4 * 2 ** -5, "minitron-4b": 4 * 2 ** -5}
 K4_SHAPES = [(4, 9, 3, 2048, 64), (4, 9, 3, 4096, 64)]  # B, Hq, Hkv, S = T, Dh
 K4_DH128 = (1, 24, 8, 4096, 128)  # minitron-4b's head layout
 # the head layouts phase 8b's prefills give K4: B, Hq, Hkv, S = T, Dh
@@ -446,7 +484,7 @@ K5_PASSES = ("ssd_chunk_state_kernel", "ssd_cb_kernel", "ssd_state_pass_kernel",
 LM_ARCHS = ("smollm-135m", "mamba2-370m", "gemma2-2b")  # phase 8's full-width models
 # phase 8b's full-width models, each loaded alone and freed before the next
 LM_NEW_ARCHS = ("olmoe-1b-7b", "granite-moe-1b-a400m", "minicpm3-4b", "qwen2-vl-7b",
-                "hubert-xlarge", "jamba-v0.1-52b")
+                "hubert-xlarge", "jamba-v0.1-52b", "minitron-4b")
 # depth cuts: jamba-v0.1-52b's 32 layers hold about 104 GB of bf16 weights,
 # more than the card's 80 GB; one block-pattern group of 8 layers (about
 # 26.5 GB) runs its SSM, attention, MLP and MoE layers
@@ -476,8 +514,11 @@ MOE_TOL = 3e-2  # the MoE layer against its float32 plain version (bf16 einsums)
 # magnitude, and print the full depth beside the SDPA yardstick; the planted
 # fault (a key tile dropped in every K4 call) is read at the gated depth.
 CONTROL_GATE_LAYERS = {"olmoe-1b-7b": 1, "granite-moe-1b-a400m": 1, "minicpm3-4b": 1,
-                       "qwen2-vl-7b": 1}
-MLA_DECODE_GATE_LAYERS = 2  # minicpm3-4b's absorbed decode against its prefill
+                       "qwen2-vl-7b": 1, "minitron-4b": 2}
+# phase 8b's prefill-vs-decode gate, on the first layers (a deeper one printed):
+# minicpm3-4b's absorbed MLA decode and minitron-4b's KV-cache decode
+DECODE_GATE_LAYERS = 2
+DECODE_GATE_ARCHS = ("minitron-4b",)  # beside every MLA stack
 IMDB_TARGETS = ["AMA", "MAM", "MDM"]  # phase 3c's IMDB tenants (target M)
 SERVE_PER_TENANT = 64  # requests a tenant in phase 3c's burst, of 4-16 ids each
 SERVE_WAVES = 8  # the burst arrives in waves, one every SERVE_WAVE_GAP_S
@@ -901,6 +942,67 @@ def phase_model(graph):
         na_ms = sum(r[0] for r in rows if "_rows_kernel" in r[2]) / 1e3
         print(f"profile {m} forward: K1 + K2 device time {na_ms:.3f} ms")
     return launches
+
+
+def phase_jnp_repeat(graph, dev) -> dict:
+    """Phase 3f: the segment-sum executor (``na_executor="jnp"``) repeats
+    bit for bit on the card: rgcn and rgat on full-width ACM, two forwards
+    and two ``loss`` gradients (every parameter and feature leaf), each pair
+    bitwise equal; the logits within LOGIT_ATOL of the CPU's.  Printed
+    beside it (not gated: atomics may happen to land in one order): the
+    same forwards with ``segment_sum`` replaced by the ``index_add_`` it
+    replaced, float atomics on the card."""
+    from repro_torch.api import ExecutorSpec, Session, device_features
+    from repro_torch.core.hgnn import HGNNConfig
+    from repro_torch.core.hgnn import layers
+    from repro_torch.train import (semi_supervised_masks, tree_leaves,
+                                   value_and_grad)
+
+    t0 = time.perf_counter()
+    sess = Session(ExecutorSpec(na_executor="jnp"))
+    cpu = Session(ExecutorSpec(na_executor="jnp", device="cpu"), cache=sess.cache)
+    feats, feats_cpu = device_features(graph, dev), device_features(graph, "cpu")
+    out = {}
+    for m in ("rgcn", "rgat"):
+        cfg = HGNNConfig(model=m, hidden=64, num_layers=3, sf_att_dim=64, target_type="P")
+        c = sess.compile(graph, TARGETS, cfg)
+        params = c.init(SEED)
+        fwd = [c.forward(params, feats) for _ in range(2)]
+        c_cpu = cpu.compile(graph, TARGETS, cfg)
+        err = (fwd[0].cpu() - c_cpu.forward(c_cpu.init(SEED), feats_cpu)).abs().max().item()
+        n = c.num_target
+        labels = torch.from_numpy(np.random.default_rng(SEED).integers(0, 3, n)).to(dev)
+        mask = semi_supervised_masks(n, seed=SEED, device=dev)["train"]
+        runs = [value_and_grad(lambda p, f: c.loss(p, f, labels, mask), params, feats)
+                for _ in range(2)]
+        pairs = list(zip(tree_leaves(runs[0][1]), tree_leaves(runs[1][1])))
+        differ = sum(not torch.equal(a, b) for a, b in pairs)
+        same_fwd = torch.equal(fwd[0], fwd[1])
+        same_loss = torch.equal(runs[0][0], runs[1][0])
+
+        def index_add(x, seg, n_seg):
+            return x.new_zeros((n_seg,) + tuple(x.shape[1:])).index_add_(0, seg, x)
+
+        kept, layers.segment_sum = layers.segment_sum, index_add
+        try:
+            atomics = [c.forward(params, feats) for _ in range(2)]
+        finally:
+            layers.segment_sum = kept
+        print(f"jnp executor {m} (full-width ACM, {n} P vertices): two forwards bitwise "
+              f"equal: {same_fwd}; two loss gradients: loss bitwise equal {same_loss}, "
+              f"{differ} of {len(pairs)} leaves differ; max|card - cpu| logits {err:.3e} "
+              f"(tolerance {LOGIT_ATOL}); with index_add_ (float atomics) in place of "
+              f"segment_sum the two forwards are bitwise equal: "
+              f"{torch.equal(atomics[0], atomics[1])} (max|d| "
+              f"{(atomics[0] - atomics[1]).abs().max().item():.3e}; printed)")
+        require(same_fwd, f"jnp executor {m}: two forwards differ on the card")
+        require(same_loss and differ == 0 and pairs,
+                f"jnp executor {m}: two gradients differ on the card ({differ} leaves)")
+        require(err <= LOGIT_ATOL, f"jnp executor {m}: card logits disagree with the CPU run")
+        out[m] = {"forward_bitwise": same_fwd, "grad_leaves_differ": differ,
+                  "cpu_err": err, "index_add_forward_bitwise": torch.equal(*atomics)}
+    print(f"phase 3f (jnp executor repeat): {time.perf_counter() - t0:.1f} s of wall time")
+    return out
 
 
 def leaf_paths(tree, prefix="") -> list:
@@ -3043,11 +3145,13 @@ def cut_depth(model, params, layers: int):
     return LM(cfg, device=model.device), dict(params, blocks=[cut(b) for b in params["blocks"]])
 
 
-def prefill_vs_decode(model, params, prompt, label: str, decode_params=None):
+def prefill_vs_decode(model, params, prompt, label: str, decode_params=None,
+                      profile: bool = False):
     """max |last-position logits of the prefill - of the token-by-token
     decode| over the real vocab, and the prefill's and the decode's last
     logits; checks that decoding launches no kernel.  ``decode_params``
-    (default ``params``) are the weights the decode runs with."""
+    (default ``params``) are the weights the decode runs with; ``profile``
+    profiles one more decode step."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ssd_scan import ssd_scan
 
@@ -3071,10 +3175,21 @@ def prefill_vs_decode(model, params, prompt, label: str, decode_params=None):
           f"decoding: K4 {flash_attention.launches}, K5 {ssd_scan.launches}")
     require(flash_attention.launches == 0 and ssd_scan.launches == 0,
             "the decode path launched a prefill kernel")
-    if label == "full depth":  # rewrites the last position with the same token
+    if profile:  # rewrites the last position with the same token
         prof_call(f"{cfg.name} decode step B={b}", lambda: model.forward(
             params, prompt[:, -1:], cache=cache, cache_pos=s - 1))
     return err, pre, step[:, 0]
+
+
+def printed_decode(model, params, prompt):
+    """``prefill_vs_decode`` at full depth, profiled, or at
+    ``PRINTED_DECODE_LAYERS`` for the stacks whose full depth is only
+    printed and takes too long."""
+    layers = PRINTED_DECODE_LAYERS.get(model.cfg.name)
+    if layers is None:
+        return prefill_vs_decode(model, params, prompt, "full depth", profile=True)
+    return prefill_vs_decode(*cut_depth(model, params, layers), prompt,
+                             "printed cut", profile=True)
 
 
 def prefill_with(model, params, prompt, attention):
@@ -3189,7 +3304,7 @@ def phase_lm_prefill(dev, models):
         cfg = model.cfg
         prompt = torch.randint(0, cfg.vocab_size, (DECODE_BATCH, DECODE_SEQ),
                                generator=gen, device=dev)
-        err, pre, dec = prefill_vs_decode(model, params, prompt, "full depth")
+        err, pre, dec = printed_decode(model, params, prompt)
         if any(mixer == "ssm" for mixer, _ in cfg.block_pattern):
             err, _, _ = prefill_vs_decode(*cut_depth(model, params, SSM_DECODE_GATE_LAYERS),
                                           prompt, "gated cut")
@@ -3495,7 +3610,7 @@ def phase_lm_new(dev, arch, model, params, card: str) -> dict:
     prefill launches, repeatability and aux; its gates (MoE layer, K4
     against the float32 control, absorbed MLA decode, M-RoPE); a profile."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import attention_plain, flash_attention
     from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.models import layers
 
@@ -3563,21 +3678,35 @@ def phase_lm_new(dev, arch, model, params, card: str) -> dict:
         out["control"] = gated
     if arch in K4_NATIVE:
         out["padded_route"] = padded_route_gate(model, params, inputs)
-    if "mla" in mixers:
+    if "mla" in mixers or arch in DECODE_GATE_ARCHS:
         prompt = torch.randint(0, v, (DECODE_BATCH, DECODE_SEQ), generator=gen, device=dev)
-        out["decode_err_full_depth"], _, _ = prefill_vs_decode(model, params, prompt,
-                                                               "full depth")
-        gated_model, gated_params = cut_depth(model, params, MLA_DECODE_GATE_LAYERS)
-        err, _, _ = prefill_vs_decode(gated_model, gated_params, prompt, "gated cut")
-        fault, _, _ = prefill_vs_decode(gated_model, gated_params, prompt, "planted fault",
-                                        decode_params=without_k_r(gated_params))
-        tol = LM_LOGIT_TOL
-        print(f"absorbed MLA decode {arch}: gated on the first {MLA_DECODE_GATE_LAYERS} layers "
-              f"within {tol}: {err:.4e}; planted fault (the decode's q_r k_r logit term left "
-              f"out) {fault:.4e}, {fault / tol:.1f}x the tolerance; full depth "
-              f"{out['decode_err_full_depth']:.4e} (printed)")
-        require(err <= tol, f"{arch}: prefill and absorbed decode differ by {err}")
-        require(fault > tol, f"{arch}: the decode gate would pass a decode without k_r")
+        out["decode_err_printed"], _, _ = printed_decode(model, params, prompt)
+        gated_model, gated_params = cut_depth(model, params, DECODE_GATE_LAYERS)
+        err, _, dec = prefill_vs_decode(gated_model, gated_params, prompt, "gated cut")
+        if "mla" in mixers:
+            what = "absorbed MLA decode"
+            planted = "the decode's q_r k_r logit term left out"
+            fault, _, _ = prefill_vs_decode(gated_model, gated_params, prompt, "planted fault",
+                                            decode_params=without_k_r(gated_params))
+        else:
+            what = "KV-cache decode"
+            planted = "the prefill with a key tile dropped in every K4 call"
+            fault = (prefill_with(gated_model, gated_params, prompt,
+                                  dropped_tile_attention(every_call=True))[:, :v]
+                     - dec[:, :v]).abs().max().item()
+            control = prefill_with(gated_model, gated_params, prompt,
+                                   attention_plain)[:, :v]
+            out["decode_vs_control"] = (dec[:, :v] - control).abs().max().item()
+            print(f"{what} {arch} (gated cut): max|decode - prefill with the float32 plain "
+                  f"attention in place of K4| = {out['decode_vs_control']:.4e} (printed)")
+        tol = DECODE_LOGIT_TOL.get(arch, LM_LOGIT_TOL)
+        print(f"{what} {arch}: gated on the first {DECODE_GATE_LAYERS} layers "
+              f"within {tol}: {err:.4e}; planted fault ({planted}) {fault:.4e}, "
+              f"{fault / tol:.1f}x the tolerance; "
+              f"{PRINTED_DECODE_LAYERS.get(arch, cfg.num_layers)} layers "
+              f"{out['decode_err_printed']:.4e} (printed)")
+        require(err <= tol, f"{arch}: prefill and {what} differ by {err}")
+        require(fault > tol, f"{arch}: the decode gate would pass a planted fault ({planted})")
         out["decode_err"], out["decode_tol"], out["decode_fault"] = err, tol, fault
     if cfg.mrope_sections is not None:
         toks = torch.randint(0, v, (DECODE_BATCH, DECODE_SEQ), generator=gen, device=dev)
@@ -3631,7 +3760,17 @@ TRAIN_RUNS = {
     "smollm-135m": (8, 2, "full", 6, 3e-4),
     "mamba2-370m": (4, 1, "full", 6, 1e-4),
     "granite-moe-1b-a400m": (2, 1, "full", 4, 3e-5),
+    # K4's native pairs in a real step: hubert (80, 80) non-causal from
+    # embeddings, gemma2 (256, 256) windowed and softcapped, minicpm3's MLA
+    # (96, 64); lr times parameters held near granite's 4e4; 3 steps, so
+    # that the run ends within its time limit
+    "hubert-xlarge": (4, 1, "full", 3, 4e-5),
+    "gemma2-2b": (1, 1, "full", 3, 1.5e-5),
+    "minicpm3-4b": (1, 1, "full", 3, 1e-5),
 }
+# runs whose state (bf16 parameters and float32 moments: 26 and 41 GB) the
+# card cannot hold twice, as a functional update does: their steps donate it
+TRAIN_DONATED = ("gemma2-2b", "minicpm3-4b")
 CARD_CPU_LR = 3e-4  # the card-against-CPU step's rate
 LAUNCH_TRAIN_STEPS = 2  # launch/train.py's main, once
 RESUME_FAULT_STEP, RESUME_CKPT_EVERY = 3, 2
@@ -3670,21 +3809,25 @@ def _bf16_gate(got, want) -> tuple:
 
 
 def _attention_grads_f32(q, k, v, g, causal, window, softcap, straight_through_cap=False,
-                         no_group_sum=False):
-    """float32 autograd of the plain attention at (q, k, v): the gate's
-    reference, and its planted faults (the softcap's derivative dropped;
-    dk and dv of each group's first head alone, no GQA group sum)."""
+                         no_group_sum=False, scale=None):
+    """float32 autograd of the plain attention at (q, k, v) and ``scale``
+    (default Dqk^-0.5): the gate's reference, and its planted faults (the
+    softcap's derivative dropped; dk and dv of each group's first head
+    alone, no GQA group sum; another ``causal`` or ``scale`` than the
+    call's)."""
     from repro_torch.kernels.flash_attention import attention_plain
 
     qf, kf, vf = (t.detach().float().requires_grad_(True) for t in (q, k, v))
     grp = q.shape[1] // k.shape[1]
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
     with torch.enable_grad():
         if not (straight_through_cap or no_group_sum):
-            out = attention_plain(qf, kf, vf, causal=causal, window=window, softcap=softcap)
+            out = attention_plain(qf, kf, vf, causal=causal, window=window, softcap=softcap,
+                                  scale=scale)
             return torch.autograd.grad(out, (qf, kf, vf), g.float())
         kr = kf.repeat_interleave(grp, dim=1)
         vr = vf.repeat_interleave(grp, dim=1)
-        logits = (qf @ kr.transpose(-1, -2)) * q.shape[-1] ** -0.5
+        logits = (qf @ kr.transpose(-1, -2)) * scale
         if softcap is not None:
             capped = softcap * torch.tanh(logits / softcap)
             logits = logits + (capped - logits).detach() if straight_through_cap else capped
@@ -3705,45 +3848,70 @@ def _attention_grads_f32(q, k, v, g, causal, window, softcap, straight_through_c
         dvr.reshape(v.shape[0], v.shape[1], grp, *v.shape[2:]).sum(2)
 
 
-def k4_function_gate(dev, gen, label, b, hq, hkv, s, dh, causal=True, window=None,
-                     softcap=None, q_scale=1.0) -> dict:
-    """K4's autograd Function at one layer: forward through the kernel,
-    dq / dk / dv against float32 autograd of the plain version, planted
-    faults read in the same run, and its backward's time."""
+def k4_function_gate(dev, gen, label, b, hq, hkv, s, dqk, dv=None, causal=True, window=None,
+                     softcap=None, q_scale=1.0, scale=None) -> dict:
+    """K4's autograd Function at one layer, q and k at head dim ``dqk``, v
+    at ``dv`` (default ``dqk``): forward through the kernel (one launch, no
+    padding copy), dq / dk / dv against float32 autograd of the plain
+    version, planted faults read in the same run (the GQA group sum
+    dropped, where Hq > Hkv; the softcap's derivative dropped; a causal
+    mask in a non-causal layer's backward; the padded head dim's scale in
+    place of a native pair's own), and its backward's time."""
     from repro_torch.kernels import flash_attention as fa
 
-    q = _randn(gen, (b, hq, s, dh), dev, torch.bfloat16, scale=q_scale).requires_grad_(True)
-    k = _randn(gen, (b, hkv, s, dh), dev, torch.bfloat16).requires_grad_(True)
-    v = _randn(gen, (b, hkv, s, dh), dev, torch.bfloat16).requires_grad_(True)
-    g = _randn(gen, (b, hq, s, dh), dev, torch.bfloat16)
+    dv = dqk if dv is None else dv
+    q = _randn(gen, (b, hq, s, dqk), dev, torch.bfloat16, scale=q_scale).requires_grad_(True)
+    k = _randn(gen, (b, hkv, s, dqk), dev, torch.bfloat16).requires_grad_(True)
+    v = _randn(gen, (b, hkv, s, dv), dev, torch.bfloat16).requires_grad_(True)
+    g = _randn(gen, (b, hq, s, dv), dev, torch.bfloat16)
     before = fa.flash_attention.launches
-    out = fa.FlashAttention.apply(q, k, v, causal, window, softcap, None)
-    require(fa.flash_attention.launches == before + 1, f"K4 Function {label}: no K4 launch")
+    with PadCalls() as pads:
+        out = fa.FlashAttention.apply(q, k, v, causal, window, softcap, scale)
+    require(fa.flash_attention.launches == before + 1 and pads.calls == 0,
+            f"K4 Function {label}: {fa.flash_attention.launches - before} K4 launches and "
+            f"{pads.calls} padding copies, want 1 and 0")
     got = torch.autograd.grad(out, (q, k, v), g)
-    want = _attention_grads_f32(q, k, v, g, causal, window, softcap)
+    want = _attention_grads_f32(q, k, v, g, causal, window, softcap, scale=scale)
     reads = {n: _bf16_gate(a, w) for n, a, w in zip(("dq", "dk", "dv"), got, want)}
-    faults = {"dk without the GQA group sum": _max_rel(
-        _attention_grads_f32(q, k, v, g, causal, window, softcap, no_group_sum=True)[1],
-        want[1])}
+    del got
+
+    def worst(fault):
+        return max(_max_rel(a, w) for a, w in zip(fault, want))
+
+    faults = {}
+    if hq > hkv:
+        faults["dk without the GQA group sum"] = _max_rel(
+            _attention_grads_f32(q, k, v, g, causal, window, softcap, no_group_sum=True,
+                                 scale=scale)[1], want[1])
     if softcap is not None:
-        faults["softcap derivative dropped"] = max(_max_rel(a, w) for a, w in zip(
+        faults["softcap derivative dropped"] = worst(_attention_grads_f32(
+            q, k, v, g, causal, window, softcap, straight_through_cap=True, scale=scale))
+    if not causal:
+        faults["causal mask applied in the backward"] = worst(_attention_grads_f32(
+            q, k, v, g, True, window, softcap, scale=scale))
+    if (dqk, dv) not in ((d, d) for d in fa.HEAD_DIMS):
+        faults[f"backward at the padded {fa.padded_head_dim(dqk, dv)}'s scale"] = worst(
             _attention_grads_f32(q, k, v, g, causal, window, softcap,
-                                 straight_through_cap=True), want))
+                                 scale=fa.padded_head_dim(dqk, dv) ** -0.5))
     for n, (ratio, rel) in reads.items():
         print(f"K4 Function {label}: {n} per-element error at {ratio:.3f}x its bound "
               f"(2^-8 |ref| + 1e-3 max|ref|), max-relative {rel:.3e} (gate {FN_BF16_MAXREL})")
         require(ratio <= 1.0 and rel <= FN_BF16_MAXREL, f"K4 Function {label}: {n} disagrees")
+    require(faults, f"K4 Function {label}: no planted fault reads this layer")
     for n, rel in faults.items():
         print(f"K4 Function {label}: planted fault ({n}) reads {rel:.3e}, "
               f"{rel / FN_BF16_MAXREL:.1f}x the gate")
         require(rel > FN_BF16_MAXREL, f"K4 Function gate {label} would pass: {n}")
+    del want
     bwd_ms = median_ms(lambda: fa.attention_vjp(q.detach(), k.detach(), v.detach(), g,
-                                                causal, window, softcap), reps=3, warmup=1)
+                                                causal, window, softcap, scale), reps=3, warmup=1)
     fwd_ms = median_ms(lambda: fa.flash_attention(q.detach(), k.detach(), v.detach(),
-                                                  causal, window, softcap), reps=10)
-    print(f"K4 Function {label}: forward (K4) {fwd_ms:.4f} ms, backward (float32 plain "
-          f"recomputed) {bwd_ms:.4f} ms, on {card_line()}")
-    return {"label": label, "max_rel": {n: r[1] for n, r in reads.items()},
+                                                  causal, window, softcap, scale), reps=10)
+    print(f"K4 Function {label} (B={b} Hq={hq} Hkv={hkv} S={s} q/k {dqk} v {dv}, "
+          f"{'causal' if causal else 'non-causal'}): forward (K4) {fwd_ms:.4f} ms, backward "
+          f"(float32 plain recomputed) {bwd_ms:.4f} ms, on {card_line()}")
+    return {"label": label, "pair": [dqk, dv], "causal": causal,
+            "max_rel": {n: r[1] for n, r in reads.items()},
             "faults": faults, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms}
 
 
@@ -3809,33 +3977,52 @@ def card_against_cpu(dev, arch) -> dict:
     """One train step of ``arch`` cut to 2 layers at full width on the card
     and on the CPU from the same parameters and batch: the loss, every
     gradient leaf and every new parameter; the aux term zeroed on the card
-    is the planted fault (granite-moe)."""
+    is the planted fault (granite-moe).  The state is drawn on the card and
+    copied to the CPU.  The card runs ``build_train_step``; the CPU composes
+    the same step (one microbatch, no compression) from the gradients it
+    computed once: ``clip_by_global_norm`` at 1.0, then ``adamw_update``
+    (in place: the same bits; a second CPU pass costs 25 s at gemma2-2b's
+    vocab)."""
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.models import LM
-    from repro_torch.train import SyntheticTokens, tree_map, value_and_grad
+    from repro_torch.train import (SyntheticTokens, adamw_update, clip_by_global_norm,
+                                   tree_map, value_and_grad)
     from repro_torch.train.train_step import build_train_step, init_train_state
 
+    t0 = time.perf_counter()
     cfg = _train_cfg(arch, 2)
     out = {}
     data = SyntheticTokens(cfg.vocab_size, CARD_CPU_SEQ, CARD_CPU_BATCH, seed=SEED)
     tok_np, tgt_np = data.host_batch(0)
-    state_cpu = init_train_state(LM(cfg, device="cpu", remat="full"), SEED)
+    x_cpu = train_input(cfg, tok_np)
+    state0 = init_train_state(LM(cfg, device=dev, remat="full"), SEED)
     routes = {}
-    for device in ("cpu", dev):
+    for device in (dev, "cpu"):
         model = LM(cfg, device=device, remat="full")
-        state = tree_map(lambda t: t.to(device), state_cpu)
-        tok = torch.from_numpy(tok_np).to(device)
+        state = tree_map(lambda t: t.to(device), state0)
+        x = x_cpu.to(device)
         tgt = torch.from_numpy(tgt_np).to(device)
         with _RouteLog() as log:
-            loss, (grads,) = value_and_grad(lambda p: model.loss(p, tok, tgt), state.params)
+            loss, (grads,) = value_and_grad(
+                lambda p: model.loss(p, targets=tgt, **_model_input(x)), state.params)
         routes[str(device)] = log.idx
-        step, _ = build_train_step(model, make_debug_mesh(1, 1, device=device),
-                                   CARD_CPU_BATCH, lr=CARD_CPU_LR)
-        new, metrics = step(state, tok, tgt)
-        out[str(device)] = (loss, grads, new.params, metrics)
+        if device == "cpu":
+            clipped, gnorm = clip_by_global_norm(grads, 1.0)
+            new_params, _ = adamw_update(clipped, state.opt, state.params, CARD_CPU_LR,
+                                         inplace=True)
+            metrics = {"grad_norm": gnorm}
+            del clipped
+        else:
+            step, _ = build_train_step(model, make_debug_mesh(1, 1, device=device),
+                                       CARD_CPU_BATCH, lr=CARD_CPU_LR,
+                                       use_embeds=x.is_floating_point())
+            new, metrics = step(state, x, tgt)
+            new_params = new.params
+        out[str(device)] = (loss, grads, new_params, metrics)
         if device == dev and cfg.num_experts:
             out["fault"] = value_and_grad(
-                lambda p: model.loss(p, tok, tgt, aux_weight=0.0), state.params)
+                lambda p: model.loss(p, targets=tgt, aux_weight=0.0, **_model_input(x)),
+                state.params)
     (l_c, g_c, p_c, m_c), (l_d, g_d, p_d, m_d) = out["cpu"], out[str(dev)]
     loss_err = abs(float(l_c) - float(l_d))
     flips = sum(int((a != b).any(-1).sum()) for a, b in zip(routes["cpu"], routes[str(dev)]))
@@ -3846,8 +4033,10 @@ def card_against_cpu(dev, arch) -> dict:
           + ", ".join(f"{k} {v:.3e}" for k, v in sorted(g_rel.items(), key=lambda kv: -kv[1])[:3])
           + (" (of the model's largest gradient entry)" if flips else ""))
     p_worst = _param_ratio(p_d, p_c)
-    print(f"card vs CPU {arch} (2 layers, full width, B={CARD_CPU_BATCH}, "
-          f"S={CARD_CPU_SEQ}): loss {float(l_d):.6f} vs {float(l_c):.6f} (|diff| "
+    print(f"card vs CPU {arch} (2 layers ({'+'.join(m for m, _ in cfg.block_pattern)}), "
+          f"full width, B={CARD_CPU_BATCH}, S={CARD_CPU_SEQ}, from "
+          f"{'embeddings' if x_cpu.is_floating_point() else 'token ids'}): loss "
+          f"{float(l_d):.6f} vs {float(l_c):.6f} (|diff| "
           f"{loss_err:.2e}, gate {CARD_CPU_LOSS_TOL}); worst gradient leaf {g_worst:.3e} "
           f"of the leaf's largest entry (gate {CARD_CPU_LEAF_RTOL}); new parameters at "
           f"{p_worst:.3f}x their bound (2 lr + 2^-7 max |p|); grad_norm "
@@ -3856,7 +4045,7 @@ def card_against_cpu(dev, arch) -> dict:
     require(g_worst <= CARD_CPU_LEAF_RTOL, f"card and CPU gradients differ for {arch}")
     require(p_worst <= 1.0, f"card and CPU new parameters differ for {arch}")
     row = {"loss_err": loss_err, "grad_max_rel": g_worst, "param_bound_ratio": p_worst,
-           "route_flips": flips}
+           "route_flips": flips, "seconds": time.perf_counter() - t0}
     if "fault" in out:
         fl, (fg,) = out["fault"]
         f_loss = abs(float(fl) - float(l_c))
@@ -3867,7 +4056,49 @@ def card_against_cpu(dev, arch) -> dict:
         require(f_loss > CARD_CPU_LOSS_TOL,
                 f"card-vs-CPU gate would pass a dropped aux term ({arch})")
         row["fault"] = {"loss": f_loss, "grad_max_rel": f_grad}
+    print(f"card vs CPU {arch}: {row['seconds']:.1f} s of wall time")
     return row
+
+
+def train_input(cfg, tok_np) -> torch.Tensor:
+    """A train step's model input on the CPU from ``SyntheticTokens`` ids:
+    the ids; for the audio stub (hubert-xlarge, fed frame embeddings) the
+    rows of a bf16 table drawn from ``SEED`` (vocab x d_model), one per id,
+    so that the frames carry the ids the targets come from."""
+    tok = torch.from_numpy(tok_np).long()
+    if cfg.frontend == "none":
+        return tok
+    table = torch.randn((cfg.vocab_size, cfg.d_model),
+                        generator=torch.Generator().manual_seed(SEED))
+    return table.to(torch.bfloat16)[tok]
+
+
+def _model_input(x) -> dict:
+    """``LM.loss``'s input keywords for token ids or embeddings ``x``."""
+    return {"tokens": None, "embeds": x} if x.is_floating_point() else {"tokens": x}
+
+
+def train_memory_check(cfg, batch: int, mb: int, remat: str) -> dict:
+    """The dry run's 1 x 1 memory estimate of one ``train_4k`` step of
+    ``cfg`` at ``batch`` rows in ``mb`` microbatches, against the card's
+    free memory (``torch.cuda.mem_get_info``): a run the estimate says does
+    not fit fails here."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import SHAPES
+
+    spec = dataclasses.replace(SHAPES["train_4k"], global_batch=batch)
+    require(spec.seq_len == TRAIN_SEQ, f"train_4k is S={spec.seq_len}, not {TRAIN_SEQ}")
+    est = dryrun.memory_estimate(cfg, spec, dryrun.meta_mesh(shape=(1, 1)), mb, remat)
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    need = est["peak_bytes_per_rank_estimate"]
+    print(f"train {cfg.name}: dry-run 1 x 1 estimate of a step {need / 2 ** 30:.2f} GiB "
+          f"(state {est['state_bytes_per_rank_estimate'] / 2 ** 30:.2f}, activations "
+          f"{est['activation_bytes_per_rank_estimate'] / 2 ** 30:.2f}) against "
+          f"{free / 2 ** 30:.2f} GiB free of {total / 2 ** 30:.2f}")
+    require(need <= free, f"{cfg.name}: the estimated step ({need / 2 ** 30:.2f} GiB) does "
+            f"not fit the card's free memory ({free / 2 ** 30:.2f} GiB)")
+    return {"estimate_bytes": need, "free_bytes": free}
 
 
 def _grad_rel(g_d, g_c, model_scale: bool = False) -> dict:
@@ -3877,11 +4108,14 @@ def _grad_rel(g_d, g_c, model_scale: bool = False) -> dict:
     another expert moves the gradient of every leaf upstream of it)."""
     from repro_torch.train import tree_leaves
 
-    model_max = max(x.float().abs().max().item() for x in tree_leaves(g_c))
+    # on the card: exact float32 operations, the CPU's results, faster
+    dev = tree_leaves(g_d)[0].device
+    model_max = max(x.to(dev).float().abs().max().item() for x in tree_leaves(g_c))
     out = {}
     for path, a, b in zip(leaf_paths(g_c), tree_leaves(g_d), tree_leaves(g_c)):
-        err = (a.cpu().float() - b.float()).abs().max().item()
-        scale = model_max if model_scale else b.float().abs().max().item()
+        b32 = b.to(dev).float()
+        err = (a.float() - b32).abs().max().item()
+        scale = model_max if model_scale else b32.abs().max().item()
         out[path] = err / max(scale, 1e-30)
     return out
 
@@ -3922,7 +4156,7 @@ def _param_ratio(new_d, new_c) -> float:
 
     worst = 0.0
     for a, b in zip(tree_leaves(new_d), tree_leaves(new_c)):
-        a32, b32 = a.cpu().float(), b.float()
+        a32, b32 = a.float(), b.to(a.device).float()  # exact operations, on the card
         bound = 2 * CARD_CPU_LR + 2 ** -7 * torch.maximum(a32.abs(), b32.abs())
         worst = max(worst, ((a32 - b32).abs() / bound).max().item())
     return worst
@@ -3935,11 +4169,12 @@ def _state_equal(a, b) -> bool:
 
 
 def train_readings(arch, model, state, step_fn, tok, tgt, microbatches, lr,
-                   step_ms) -> dict:
+                   step_ms, donate=False) -> dict:
     """Readings around the training run's step times (``step_ms``,
     CUDA-event medians): tokens/s, the forward / backward / optimizer
     split, a profiled step (device busy share, K4, K5 and the float32
-    attention / SSD backward's shares) and peak memory."""
+    attention / SSD backward's shares) and peak memory.  With ``donate``
+    the optimizer and the profiled step update ``state`` in place."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ks
     from repro_torch.train import (adamw_update, clip_by_global_norm, tree_map,
@@ -3952,16 +4187,24 @@ def train_readings(arch, model, state, step_fn, tok, tgt, microbatches, lr,
     def forward():
         with torch.enable_grad():
             return model.loss(tree_map(lambda p: p.detach().requires_grad_(True),
-                                       state.params), mtok, mtgt)
+                                       state.params), targets=mtgt, **_model_input(mtok))
+
+    def loss(p):
+        return model.loss(p, targets=mtgt, **_model_input(mtok))
 
     fwd_ms = median_ms(forward, reps=1, warmup=0)
-    fb_ms = median_ms(lambda: value_and_grad(lambda p: model.loss(p, mtok, mtgt),
-                                             state.params), reps=1, warmup=1)
-    _, (grads,) = value_and_grad(lambda p: model.loss(p, mtok, mtgt), state.params)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()  # warm: the training run came first
+    _, (grads,) = value_and_grad(loss, state.params)
+    end.record()
+    end.synchronize()
+    fb_ms = start.elapsed_time(end)
 
     def optimizer():
         gr, _ = clip_by_global_norm(grads, 1.0)
-        return adamw_update(gr, state.opt, state.params, lr)
+        return adamw_update(gr, state.opt, state.params, lr, inplace=donate)
+
+    torch.cuda.empty_cache()  # a 41 GB state leaves little room for fragments
 
     opt_ms = median_ms(optimizer, reps=3, warmup=1)
     del grads
@@ -4000,23 +4243,34 @@ def train_model(dev, arch, ckpt_root) -> dict:
     from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.models import LM
-    from repro_torch.train import SyntheticTokens
+    from repro_torch.train import SyntheticTokens, tree_leaves, value_and_grad
     from repro_torch.train.train_step import build_train_step, init_train_state
 
     t_phase = time.perf_counter()
     batch, mb, remat, steps, lr = TRAIN_RUNS[arch]
     cfg = _train_cfg(arch)
+    donate = arch in TRAIN_DONATED
+    memory = train_memory_check(cfg, batch, mb, remat)
     model = LM(cfg, device=dev, remat=remat)
     mesh = make_debug_mesh(1, 1, device=dev)
-    state0 = init_train_state(model, SEED)
-    step_fn, specs = build_train_step(model, mesh, batch, lr=lr, microbatches=mb)
+    # a donating run keeps no initial state beside its own: it draws it
+    # again from the seed (the init is deterministic) where a gate needs it
+    state0 = None if donate else init_train_state(model, SEED)
+
+    def fresh():
+        return init_train_state(model, SEED) if donate else state0
+
+    step_fn, specs = build_train_step(model, mesh, batch, lr=lr, microbatches=mb,
+                                      use_embeds=cfg.frontend != "none", donate=donate)
     data = SyntheticTokens(cfg.vocab_size, TRAIN_SEQ, batch, seed=SEED)
-    batches = [tuple(torch.from_numpy(a).to(dev) for a in data.host_batch(i)) for i in (0, 1)]
+    batches = [(train_input(cfg, tok).to(dev), torch.from_numpy(tgt).to(dev))
+               for tok, tgt in (data.host_batch(i) for i in (0, 1))]
     per_fwd = launches_per_forward(cfg)
     want = {k: mb * (2 if remat != "none" else 1) * n for k, n in per_fwd.items()}
 
     # the training run: each step's launches (counters set to 0 just
-    # before it, read just after), loss and CUDA-event time
+    # before it, read just after), loss and CUDA-event time; the first
+    # step's peak memory
     losses, counts, times = [], [], []
 
     def counted(state, tok, tgt):
@@ -4032,43 +4286,70 @@ def train_model(dev, arch, ckpt_root) -> dict:
         losses.append(float(m["loss"]))
         return state, m
 
+    state, at_resume = fresh(), None
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    state, at_resume = state0, None
     for i in range(steps):
         state, _ = counted(state, *batches[i % 2])
-        if i == RESUME_FAULT_STEP:  # the state the resume gate's run ends on
+        if i == 0:
+            step_peak = torch.cuda.max_memory_allocated()
+        if arch == "smollm-135m" and i == RESUME_FAULT_STEP:  # where the resume gate ends
             at_resume = state
     del state
     print(f"train {arch} (full width, {cfg.num_layers} layers, B={batch} as {mb} "
-          f"microbatch(es), S={TRAIN_SEQ}, remat={remat}, lr {lr}): losses "
+          f"microbatch(es), S={TRAIN_SEQ}, remat={remat}, lr {lr}"
+          f"{', state donated' if donate else ''}): losses "
           f"{[round(x, 4) for x in losses]}; step ms {[round(t, 1) for t in times]}; "
           f"K4 / K5 launches a step {counts[0]} (expected {want})")
+    print(f"train {arch}: the first step's peak memory {step_peak / 2 ** 30:.2f} GiB "
+          f"({held / 2 ** 30:.2f} GiB held before it) against the dry run's "
+          f"estimate {memory['estimate_bytes'] / 2 ** 30:.2f} GiB (measured / estimate "
+          f"{step_peak / memory['estimate_bytes']:.3f}), on {card_line()}")
     require(all(math.isfinite(x) for x in losses), f"{arch}: non-finite loss {losses}")
-    require(losses[-2] < losses[0] and losses[-1] < losses[1],
+    require(all(losses[i] < losses[i % 2] for i in range(max(2, steps - 2), steps)),
             f"{arch}: the loss did not decrease over the steps {losses}")
     require(all(c == want for c in counts), f"{arch}: launches a step {counts}, expected {want}")
 
-    # bitwise repeat of one step under deterministic algorithms
+    # bitwise repeat under deterministic algorithms: two steps from one
+    # state; a donated state is consumed by its step and does not fit on the
+    # card twice, so there two gradient passes from one state (loss and
+    # every leaf: what a step reduces across threads; its update is
+    # elementwise) are compared
     torch.use_deterministic_algorithms(True)
     try:
-        s1, m1 = step_fn(state0, *batches[0])
-        s2, m2 = step_fn(state0, *batches[0])
+        if donate:
+            state0 = fresh()
+            tok0, tgt0 = batches[0]
+            (l1, (g1,)), (l2, (g2,)) = (value_and_grad(
+                lambda p: model.loss(p, targets=tgt0, **_model_input(tok0)), state0.params)
+                for _ in range(2))
+            same = torch.equal(l1, l2) and all(
+                torch.equal(a, b) for a, b in zip(tree_leaves(g1), tree_leaves(g2)))
+            del g1, g2
+            what = "gradient passes (loss and every leaf)"
+        else:
+            s1, m1 = step_fn(state0, *batches[0])
+            s2, m2 = step_fn(state0, *batches[0])
+            same = _state_equal(s1, s2) and torch.equal(m1["loss"], m2["loss"])
+            del s2
+            what = "steps"
         torch.cuda.synchronize()
     finally:
         torch.use_deterministic_algorithms(False)
-    same = _state_equal(s1, s2) and torch.equal(m1["loss"], m2["loss"])
-    print(f"train {arch}: two steps from one state and batch under "
+    print(f"train {arch}: two {what} from one state and batch under "
           f"torch.use_deterministic_algorithms(True) bitwise equal: {same}")
-    require(same, f"{arch}: two steps from one state differ")
-    del s2
+    require(same, f"{arch}: two {what} from one state differ")
     row = {"losses": losses, "step_ms_each": times, "launches_per_step": counts[0],
-           "expected": want}
+           "expected": want, "lr": lr, "donated": donate,
+           "step_peak_gib": step_peak / 2 ** 30,
+           "dryrun_estimate_gib": memory["estimate_bytes"] / 2 ** 30}
     if arch == "smollm-135m":
         row.update(smollm_gates(dev, model, mesh, state0, at_resume, step_fn, batches,
                                 ckpt_root, (s1, m1)))
-    del s1, at_resume
+    s1 = at_resume = None  # the first step's and the resume gate's states, freed
     row.update(train_readings(arch, model, state0, step_fn, *batches[0], mb, lr,
-                              statistics.median(times[1:])))
+                              statistics.median(times[1:]), donate))
     print(f"phase 9 {arch}: {time.perf_counter() - t_phase:.1f} s of wall time")
     return row
 
@@ -4180,6 +4461,10 @@ def phase_lm_train(dev, card: str) -> dict:
         "gemma2-2b local": k4_function_gate(
             dev, gen, "gemma2-2b local layer", *K4_GEMMA_LOCAL[:5], window=K4_GEMMA_LOCAL[5],
             softcap=K4_GEMMA_LOCAL[6], q_scale=K4_FN_SOFTCAP_Q_SCALE),
+        "hubert-xlarge": k4_function_gate(dev, gen, "hubert-xlarge layer", 4, 16, 16,
+                                          TRAIN_SEQ, 80, 80, causal=False),
+        "minicpm3-4b": k4_function_gate(dev, gen, "minicpm3-4b MLA layer", 1, 40, 40,
+                                        TRAIN_SEQ, 96, 64, scale=96 ** -0.5),
         "mamba2-370m": k5_function_gate(dev, gen, 4, TRAIN_SEQ, 32, 1, 64, 128, 128),
     }
     torch.cuda.empty_cache()
@@ -4207,6 +4492,9 @@ DP_RUNS = {
     "granite-moe-1b-a400m": (2, 1),
     "mamba2-370m": (4, 1),
 }
+# granite-moe's DP step at its first 12 of 24 layers, so that the run ends
+# within its time limit (the rank loop and the MoE aux do not depend on depth)
+DP_DEPTH_CUT = {"granite-moe-1b-a400m": 12}
 DP_RANKS = 2
 DP_LOSS_TOL = 1e-4  # phase 9's microbatch gate: the loss, and first moments
 DP_LEAF_RTOL = MB_LEAF_RTOL  # within 2e-2 of each leaf's largest entry
@@ -4272,7 +4560,7 @@ def dp_model(dev, arch) -> dict:
 
     t0 = time.perf_counter()
     batch, mb = DP_RUNS[arch]
-    cfg = _train_cfg(arch)
+    cfg = _train_cfg(arch, DP_DEPTH_CUT.get(arch))
     model = LM(cfg, device=dev, remat="full")
     state0 = ts.init_train_state(model, SEED)
     data = SyntheticTokens(cfg.vocab_size, TRAIN_SEQ, batch, seed=SEED)
@@ -4315,7 +4603,8 @@ def dp_model(dev, arch) -> dict:
     torch.cuda.empty_cache()
     flips, routes = _route_flips(model, state0.params, tok, DP_RANKS)
     loss_err = abs(float(m1["loss"]) - float(m_one["loss"]))
-    print(f"data parallel {arch} (full width, B={batch} as {mb} microbatch(es), S={TRAIN_SEQ}, "
+    print(f"data parallel {arch} (full width, {cfg.num_layers} layers, B={batch} as {mb} "
+          f"microbatch(es), S={TRAIN_SEQ}, "
           f"{DP_RANKS} ranks on {card0}): loss {float(m1['loss']):.6f} vs the one-rank step's "
           f"{float(m_one['loss']):.6f} (|diff| {loss_err:.2e}, gate {DP_LOSS_TOL}); worst first "
           f"moment {rel:.3e} of its leaf's largest entry (gate {DP_LEAF_RTOL}); K4 / K5 "
@@ -4559,6 +4848,7 @@ def main() -> int:
         k["launches"] = launches[k["name"]]
         require(k["launches"] > 0, f"{k['name']} never launched on the banded path")
     train_launches = phase_train(graph, dblp, dev)
+    phase_jnp_repeat(graph, dev)
     for k in kernels:
         k["launches_train_step"] = {m: c[k["name"]] for m, c in train_launches.items()}
     slice_rows, dep_launches, imdb_layers = phase_serving(graph, dev, card)
@@ -4667,6 +4957,10 @@ def main() -> int:
     k4_row["launches_per_train_step"]["smollm-135m (launch/train.py)"] = {
         "remat": "none", "microbatches": TRAIN_RUNS["smollm-135m"][1],
         "launches": launch_row["k4_launches_per_step_remat_none"]}
+    for arch in k4_native:  # the native pairs' own rows: their models' train steps
+        row = next(k for k in kernels
+                   if k["name"] == f"flash_attention (native (Dqk, Dv), {arch})")
+        row["launches_per_train_step"] = {arch: k4_row["launches_per_train_step"][arch]}
     print(f"phase 9 (LM training): {time.perf_counter() - t0:.1f} s of wall time")
     par = phase_lm_parallel(dev, card, train["models"]["smollm-135m"]["peak_gib"])
     for k in kernels:

@@ -5,8 +5,9 @@ Two NA families live here, as in the JAX package:
 
 * the segment-sum primitives (``na_mean`` / ``edge_softmax_weights`` /
   ``na_attention``) take global ``(src, dst)`` edge index tensors and run
-  plain PyTorch scatters (``index_add_``, ``scatter_reduce``) — the
-  layout-agnostic oracle path, the reference's ``na_executor="jnp"``;
+  plain PyTorch segment ops (``segment_sum``, ``gather``, ``scatter_reduce``
+  "amax") — the layout-agnostic oracle path, the reference's
+  ``na_executor="jnp"``;
 * the banded primitives (``na_mean_banded`` / ``na_attention_banded``)
   consume the restructurer's cached ``PackedEdges`` blocks and run the NA
   kernels (``kernels/seg_sum.py``, ``kernels/edge_softmax.py``) over
@@ -32,8 +33,68 @@ def feature_projection(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> tor
     return x @ w + b
 
 
-def _segment_sum(x: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
-    return x.new_zeros((n,) + tuple(x.shape[1:])).index_add_(0, seg, x)
+def segment_order(seg: torch.Tensor, n: int):
+    """``(order, lengths)`` of the segment ids ``seg`` over ``n`` segments:
+    a stable sort of ``seg`` (each segment's positions in index order) and
+    each segment's length.  Memoised on the ``seg`` tensor, as a packing
+    memoises its views: a graph's edge lists are built once and read by
+    every NA call."""
+    memo = getattr(seg, "_segment_order", None)
+    if memo is None or memo[0] != n:
+        lengths = torch.bincount(seg, minlength=n)
+        if lengths.numel() != n:
+            raise ValueError(f"segment ids reach {lengths.numel() - 1}, beyond {n} segments")
+        memo = (n, torch.sort(seg, stable=True).indices, lengths)
+        seg._segment_order = memo
+    return memo[1], memo[2]
+
+
+class _SegmentSum(torch.autograd.Function):
+    """``out[i] = sum of x[e] over the e with seg[e] == i``, each segment
+    summed in index order (``segment_order``), with no float atomics: on
+    the CPU bitwise ``index_add_``, which adds in index order too; on a CUDA
+    device the same bits from run to run, where ``index_add_`` adds by
+    atomics in whatever order the threads arrive.  Backward: the gather
+    ``g[seg]``."""
+
+    @staticmethod
+    def forward(ctx, x, seg, n):
+        order, lengths = segment_order(seg, n)
+        ctx.save_for_backward(seg)
+        return torch.segment_reduce(x[order], "sum", lengths=lengths, axis=0, unsafe=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        (seg,) = ctx.saved_tensors
+        return gather(g, seg), None, None
+
+
+class _Gather(torch.autograd.Function):
+    """``x[idx]`` whose backward is ``segment_sum`` over ``idx``, not
+    autograd's accumulating ``index_put_``."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.n = x.shape[0]
+        return x[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return segment_sum(g, idx, ctx.n), None
+
+
+def segment_sum(x: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
+    """Rows of ``x`` summed into ``n`` segments by ``seg`` (the reference's
+    ``jax.ops.segment_sum``), deterministic on every device
+    (``_SegmentSum``); differentiable in ``x``."""
+    return _SegmentSum.apply(x, seg, n)
+
+
+def gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]``, differentiable with a deterministic backward (``_Gather``)."""
+    return _Gather.apply(x, idx)
 
 
 def na_mean(
@@ -43,8 +104,8 @@ def na_mean(
     num_dst: int,
 ) -> torch.Tensor:
     """RGCN-style NA: degree-normalized sum of neighbour features."""
-    summed = _segment_sum(h_src[src], dst, num_dst)
-    deg = _segment_sum(torch.ones_like(dst, dtype=torch.float32), dst, num_dst)
+    summed = segment_sum(gather(h_src, src), dst, num_dst)
+    deg = segment_sum(torch.ones_like(dst, dtype=torch.float32), dst, num_dst)
     return summed / torch.clamp(deg, min=1.0)[:, None]
 
 
@@ -57,9 +118,9 @@ def edge_softmax_weights(
     m = logits.new_full((num_dst,), -torch.inf).scatter_reduce(
         0, dst, logits, "amax", include_self=False)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-    ex = torch.exp(logits - m[dst])
-    s = _segment_sum(ex, dst, num_dst)
-    return ex / torch.clamp(s[dst], min=1e-9)
+    ex = torch.exp(logits - gather(m, dst))
+    s = segment_sum(ex, dst, num_dst)
+    return ex / torch.clamp(gather(s, dst), min=1e-9)
 
 
 def na_attention(
@@ -74,12 +135,12 @@ def na_attention(
     leaky_slope: float = 0.2,
 ) -> torch.Tensor:
     """GAT-style NA (RGAT / Simple-HGN): weighted sum with edge softmax."""
-    logits = (h_src @ a_src)[src] + (h_dst @ a_dst)[dst]
+    logits = gather(h_src @ a_src, src) + gather(h_dst @ a_dst, dst)
     if edge_bias is not None:
         logits = logits + edge_bias
     logits = torch.nn.functional.leaky_relu(logits, leaky_slope)
     alpha = edge_softmax_weights(logits, dst, num_dst)
-    return _segment_sum(h_src[src] * alpha[:, None], dst, num_dst)
+    return segment_sum(gather(h_src, src) * alpha[:, None], dst, num_dst)
 
 
 def na_mean_banded(

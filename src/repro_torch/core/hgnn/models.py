@@ -467,13 +467,12 @@ class HGNN:
         (``CompiledHGNN.forward_subset``) unions a queue of small
         node-subset requests into one padded ``node_ids`` tensor, so only
         those rows leave the device.  Row ``i`` equals row
-        ``node_ids[i]`` of :meth:`execute` bit for bit wherever the
-        forward repeats bit for bit (the banded executor on either device;
-        the segment-sum executor on the CPU, as its ``index_add_`` sums by
-        float atomics on a CUDA device): the head runs over every row
-        before the gather, because a GEMM over fewer rows may take another
-        kernel and summation order (the head is ``N x hidden x classes``,
-        a small share of a forward).
+        ``node_ids[i]`` of :meth:`execute` bit for bit, as the forward
+        repeats bit for bit on either executor and device (the segment-sum
+        executor sums each segment in a fixed order, ``layers.segment_sum``):
+        the head runs over every row before the gather, because a GEMM over
+        fewer rows may take another kernel and summation order (the head is
+        ``N x hidden x classes``, a small share of a forward).
         """
         return self.execute(params, features, graphs,
                             na_executor=na_executor)[node_ids]

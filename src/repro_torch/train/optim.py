@@ -3,7 +3,8 @@ tensor functions, computed as the JAX package's ``repro.train.optim``
 computes them (not ``torch.optim.AdamW``): b2 = 0.95, decay only on
 leaves with ndim >= 2, float32 moments, an int32 step counter, and every
 scalar in float32.  Functional: updates return new tensors and a new
-state."""
+state (``adamw_update(..., inplace=True)`` writes them into the old
+state's tensors instead)."""
 from __future__ import annotations
 
 import dataclasses
@@ -70,32 +71,45 @@ def adamw_update(
     b2: float = 0.95,
     eps: float = 1e-8,
     weight_decay: float = 0.1,
+    inplace: bool = False,
 ) -> Tuple[Any, AdamWState]:
     """One AdamW step; returns ``(new params, new state)``.  A ``None``
     gradient counts as zeros (what ``jax.grad`` gives a leaf with no path
     to the loss), so such a leaf's moments decay and it is still
-    weight-decayed."""
+    weight-decayed.  With ``inplace`` each leaf's new parameter and moments
+    are written into ``params``' and ``state``'s own tensors, and those
+    trees are returned (with a new step counter): the same bits, with a few
+    of one leaf's temporaries beside the state, where the functional update
+    (copies of the leaves, updated the same way) holds two whole states."""
     step = state.step + 1
     sf = step.to(torch.float32)
     b1c = 1 - torch.pow(b1, sf)
     b2c = 1 - torch.pow(b2, sf)
 
     def upd(p, g: Optional[torch.Tensor], m, v):
+        # written into p, m and v, with at most three float32 temporaries of
+        # the leaf's size: m = b1 m + (1 - b1) g; v = b2 v + (1 - b2) g^2;
+        # p -= lr (m / b1c / (sqrt(v / b2c) + eps) + wd p)
         g = torch.zeros_like(m) if g is None else g.to(torch.float32)
-        m = b1 * m + (1 - b1) * g
-        v = b2 * v + (1 - b2) * torch.square(g)
-        mhat = m / b1c
-        vhat = v / b2c
+        m.mul_(b1).add_(g * (1 - b1))
+        v.mul_(b2).add_(torch.square(g).mul_(1 - b2))
+        del g
+        delta = m / b1c
+        delta.div_((v / b2c).sqrt_().add_(eps))
         p32 = p.to(torch.float32)
         wd = weight_decay if p.dim() >= 2 else 0.0  # decay matrices only
-        newp = p32 - lr * (mhat / (torch.sqrt(vhat) + eps) + wd * p32)
-        return newp.to(p.dtype), m, v
+        delta.add_(p32 * wd).mul_(lr)
+        p.copy_(p32.sub_(delta))
 
     flat_p, treedef = tree_flatten(params)
     flat_g = flatten_up_to(treedef, grads)
-    out = [upd(p, g, m, v) for p, g, m, v in zip(
-        flat_p, flat_g, tree_leaves(state.mu), tree_leaves(state.nu))]
-    return (tree_unflatten(treedef, [o[0] for o in out]),
-            AdamWState(step=step,
-                       mu=tree_unflatten(treedef, [o[1] for o in out]),
-                       nu=tree_unflatten(treedef, [o[2] for o in out])))
+    flat_m, flat_v = tree_leaves(state.mu), tree_leaves(state.nu)
+    if not inplace:
+        flat_p, flat_m, flat_v = ([t.clone() for t in ts] for ts in (flat_p, flat_m, flat_v))
+    for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
+        upd(p, g, m, v)
+    if inplace:
+        return params, AdamWState(step=step, mu=state.mu, nu=state.nu)
+    return (tree_unflatten(treedef, flat_p),
+            AdamWState(step=step, mu=tree_unflatten(treedef, flat_m),
+                       nu=tree_unflatten(treedef, flat_v)))

@@ -131,7 +131,7 @@ def build_train_step(
     max_grad_norm: float = 1.0,
     use_compression: bool = False,
     use_embeds: bool = False,
-    donate: bool = True,
+    donate: bool = False,
 ) -> Tuple[Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]], TrainState]:
     """Returns ``(step_fn, specs)``; ``step_fn(state, tok, tgt) -> (state,
     {"loss", "grad_norm", "lr"})`` with ``tok`` token ids (B, S), or
@@ -146,8 +146,13 @@ def build_train_step(
     in ``GRAD_ACCUM_DTYPE`` and divided by ``microbatches``; then
     ``clip_by_global_norm(max_grad_norm)``, ``compress_decompress`` with
     ``use_compression``, and ``adamw_update`` at ``lr(state.opt.step)``
-    (or the constant ``lr``).  The step builds new tensors, so ``donate``
-    (the reference's buffer donation) changes nothing here.
+    (or the constant ``lr``).  With ``donate`` (the reference's buffer
+    donation, on by default there) the update writes the new parameters and
+    moments into the state's own tensors (``adamw_update(inplace=True)``):
+    the state passed in is consumed, and the step needs one state's memory
+    where the functional update holds two (a 4B-parameter state is 41 GB).
+    Off by default, since an eager caller may still read the state it
+    passed; the bits are the same either way.
 
     Over a mesh whose data axes ('pod', 'data'; ``data_pspec``) split the
     batch into ``n > 1`` ranks, microbatch ``j`` is still rows ``[j B/mb,
@@ -254,7 +259,8 @@ def build_train_step(
         if use_compression:
             grads, residuals = C.compress_decompress(grads, residuals)
         lr_t = lr(state.opt.step) if callable(lr) else lr
-        new_params, new_opt = adamw_update(grads, state.opt, state.params, lr_t)
+        new_params, new_opt = adamw_update(grads, state.opt, state.params, lr_t,
+                                           inplace=donate)
         return (TrainState(params=new_params, opt=new_opt, residuals=residuals),
                 {"loss": loss, "grad_norm": gnorm,
                  "lr": torch.as_tensor(lr_t, dtype=torch.float32)})

@@ -30,7 +30,9 @@ def tree_flatten(tree: Any) -> Tuple[List[Any], Treedef]:
         leaves.append(x)
         return ("leaf",)
 
-    return leaves, walk(tree)
+    treedef = walk(tree)
+    del walk  # the closure refers to itself: a cycle that would hold the leaves until gc
+    return leaves, treedef
 
 
 def tree_unflatten(treedef: Treedef, leaves: List[Any]) -> Any:
@@ -50,6 +52,7 @@ def tree_unflatten(treedef: Treedef, leaves: List[Any]) -> Any:
         return d[1](**{n: build(c) for n, c in zip(d[2], d[3])})
 
     out = build(treedef)
+    del build  # breaks the closure's cycle, which would hold ``leaves`` until gc
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree holds")
     return out
@@ -88,4 +91,5 @@ def flatten_up_to(treedef: Treedef, tree: Any) -> List[Any]:
                 walk(c, getattr(x, n))
 
     walk(treedef, tree)
+    del walk  # breaks the closure's cycle, which would hold ``out`` until gc
     return out

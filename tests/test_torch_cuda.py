@@ -571,27 +571,34 @@ def test_flash_attention_wrapper_checks_layout_and_scale(cuda_device):
     assert out.shape == (1, 2, 16, 64)
 
 
-# Head dims that are not (d, d) with d in HEAD_DIMS: hubert-xlarge's 80
-# (non-causal) and MLA's q/k at 96 with v at 64 (minicpm3-4b), which bf16
-# runs natively and float32 through the padded route at head dim 128, and
-# (48, 32), padded in both types
+# Head-dim pairs the kernel does not take in their dtype, so the padded
+# route: in float32 hubert-xlarge's 80 (non-causal and causal) and MLA's q/k
+# at 96 with v at 64 (minicpm3-4b), at head dim 128 (bf16 runs them natively:
+# FA_NATIVE_CASES); in bf16 a reduced config's 16 (to 64), 112 (to 128), a
+# DeepSeek-V2-sized MLA pair (192, 128) (to 256) and 32 (to 64); in both a
+# reduced MLA's (48, 32) (to 64)
 FA_PADDED_CASES = [
-    (2, 4, 4, 200, 200, 80, 80, False),
-    (1, 3, 3, 129, 129, 80, 80, True),
-    (2, 4, 4, 200, 200, 96, 64, True),
-    (1, 5, 5, 70, 333, 96, 64, True),
-    (1, 2, 1, 100, 100, 48, 32, False),
+    (torch.float32, 2, 4, 4, 200, 200, 80, 80, False),
+    (torch.float32, 1, 3, 3, 129, 129, 80, 80, True),
+    (torch.float32, 2, 4, 4, 200, 200, 96, 64, True),
+    (torch.float32, 1, 5, 5, 70, 333, 96, 64, True),
+    (torch.float32, 1, 2, 1, 100, 100, 48, 32, False),
+    (torch.bfloat16, 2, 4, 4, 200, 200, 16, 16, False),
+    (torch.bfloat16, 1, 3, 3, 129, 129, 112, 112, True),
+    (torch.bfloat16, 2, 4, 4, 200, 200, 192, 128, True),
+    (torch.bfloat16, 1, 5, 5, 70, 333, 32, 32, True),
+    (torch.bfloat16, 1, 2, 1, 100, 100, 48, 32, False),
 ]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,hq,hkv,s,t,dqk,dv,causal", FA_PADDED_CASES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype,b,hq,hkv,s,t,dqk,dv,causal", FA_PADDED_CASES)
 def test_flash_attention_kernel_padded_head_dims(cuda_device, b, hq, hkv, s, t, dqk, dv,
                                                  causal, dtype):
-    """One K4 launch a call (at the padded head dim where the kernel does
-    not take the pair), at the true scale, the output at v's head dim;
-    against the unpadded float32 plain version."""
+    """One K4 launch a call, at the padded head dim (the pair is not one the
+    kernel takes in this dtype), at the true scale, the output at v's head
+    dim; against the unpadded float32 plain version."""
+    assert fa.kernel_pair(dqk, dv, dtype) != (dqk, dv)
     rng = np.random.default_rng(s * 7 + dqk)
 
     def rand(*shape):
@@ -1040,9 +1047,9 @@ def test_seg_sum_kernel_over_a_dependency_slice(cuda_device, ds, targets, tt):
 def test_subset_forwards_on_the_card(cuda_device, executor, model):
     """Dependency rows on the card within 1e-4 of the CPU's and of the
     card's full forward; head rows bitwise equal to the card's forward
-    rows on the banded executor (the segment-sum executor's ``index_add_``
-    sums by float atomics on the card, so its forward does not repeat bit
-    for bit); a banded dependency forward launches K1 once per layer and
+    rows on both executors (each repeats bit for bit on the card: the
+    segment-sum executor's ``segment_sum`` adds each segment in a fixed
+    order); a banded dependency forward launches K1 once per layer and
     semantic graph."""
     card, cpu, p_card, p_cpu, f_card, f_cpu = _dep_pair(
         cuda_device, "IMDB", ["AMA", "MAM", "MDM"], "M", model, executor)
@@ -1061,10 +1068,39 @@ def test_subset_forwards_on_the_card(cuda_device, executor, model):
                                .cpu().numpy(), atol=1e-4)
     head = card.forward_subset(p_card, f_card, ids)
     rows = full[torch.from_numpy(ids).to(cuda_device)]
-    if executor == "banded":
-        assert torch.equal(head, rows)
-    else:
-        np.testing.assert_allclose(head.cpu().numpy(), rows.cpu().numpy(), atol=1e-5)
+    assert torch.equal(head, rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["rgcn", "rgat"])
+def test_jnp_executor_repeats_bitwise_on_the_card(cuda_device, model):
+    """The segment-sum executor (``na_executor="jnp"``) on full-width ACM:
+    two forwards, and two ``loss`` gradients (every parameter and feature
+    leaf), bitwise equal on the card; the logits within 1e-4 of the CPU's."""
+    from repro_torch.api import ExecutorSpec, Session, device_features
+    from repro_torch.core.hgnn import HGNNConfig
+    from repro_torch.hetero import make_dataset
+    from repro_torch.train import semi_supervised_masks, tree_leaves, value_and_grad
+
+    graph = make_dataset("ACM", seed=0, scale=1.0)
+    cfg = HGNNConfig(model=model, hidden=64, num_layers=3, sf_att_dim=64, target_type="P")
+    targets = ["APA", "PAP", "PSP"]
+    card = Session(ExecutorSpec(na_executor="jnp")).compile(graph, targets, cfg)
+    params, feats = card.init(0), device_features(graph, cuda_device)
+    a, b = card.forward(params, feats), card.forward(params, feats)
+    assert torch.equal(a, b)
+    cpu = Session(ExecutorSpec(na_executor="jnp", device="cpu")).compile(graph, targets, cfg)
+    want = cpu.forward(cpu.init(0), device_features(graph, "cpu"))
+    np.testing.assert_allclose(a.cpu().numpy(), want.numpy(), atol=1e-4)
+    n = card.num_target
+    labels = torch.from_numpy(np.random.default_rng(0).integers(0, 3, n)).to(cuda_device)
+    mask = semi_supervised_masks(n, seed=0, device=cuda_device)["train"]
+    runs = [value_and_grad(lambda p, f: card.loss(p, f, labels, mask), params, feats)
+            for _ in range(2)]
+    (l1, g1), (l2, g2) = runs
+    assert torch.equal(l1, l2)
+    leaves = list(zip(tree_leaves(g1), tree_leaves(g2)))
+    assert leaves and all(torch.equal(x, y) for x, y in leaves)
 
 
 # ----------------------------------------------------------- graph deltas ---

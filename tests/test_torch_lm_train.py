@@ -182,17 +182,18 @@ def test_moe_layer_gradient_matches_the_reference(name):
 
 
 @pytest.mark.parametrize("name", ["smollm-135m", "mamba2-370m", "granite-moe-1b-a400m",
-                                  "minicpm3-4b", "gemma2-2b"])
+                                  "minicpm3-4b", "gemma2-2b", "hubert-xlarge"])
 def test_remat_policies_give_equal_gradients(name):
     """``remat`` "none", "full" (each layer group recomputed) and "dots"
-    (matmul outputs kept) give the same loss and gradients, bit for bit."""
+    (matmul outputs kept) give the same loss and gradients, bit for bit
+    (hubert-xlarge: non-causal, fed ``embeds``)."""
     cfg = configs.reduced(configs.get_config(name))
-    tok, tgt, _ = _inputs(cfg, np.random.default_rng(2))
+    tok, tgt, kw = _inputs(cfg, np.random.default_rng(2))
     out = {}
     for remat in ("none", "full", "dots"):
         model = LM(cfg, device="cpu", remat=remat, ssd_chunk=CHUNK)
         params = model.init(0)
-        out[remat] = _port_value_and_grad(model, params, tok, tgt, {})
+        out[remat] = _port_value_and_grad(model, params, tok, tgt, kw)
     for remat in ("full", "dots"):
         assert torch.equal(out[remat][0], out["none"][0])
         for a, b in zip(tree_leaves(out[remat][1]), tree_leaves(out["none"][1])):
