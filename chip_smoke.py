@@ -224,7 +224,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    last-position logits of a B = 2, S = 256 prefill must match the card's
    own token-by-token decode of the same prompt (no kernel on that path)
    within 5e-2: on the first 2 layers for a stack with SSM mixers (see
-   ``SSM_DECODE_GATE_LAYERS``; the first 16 layers are printed,
+   ``SSM_DECODE_GATE_LAYERS``; the first 8 layers are printed,
    ``PRINTED_DECODE_LAYERS``), at full depth
    for an attention stack (gemma2-2b, whose bf16 logits reach 7.6, within
    its own ``DECODE_LOGIT_TOL``).  An attention stack's prefill also runs
@@ -262,7 +262,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    per element and per 128-row tile, a dropped key tile above the tile
    gate; minicpm3's absorbed MLA decode and minitron's KV-cache decode
    against their prefills on the first 2 layers (``DECODE_GATE_LAYERS``;
-   printed: minitron's full depth, minicpm3's first 16 layers) within
+   printed: minitron's and minicpm3's first 8 layers) within
    5e-2, or for minitron, whose logits reach
    6.75 there, within four bf16 steps (``DECODE_LOGIT_TOL``, as gemma2-2b's;
    its decode against a float32-attention control printed), a planted
@@ -367,7 +367,44 @@ Phases, in order; any failure raises and the script exits non-zero:
    16 x 16 meta mesh, its JSON printed; then its memory estimate on a
    1 x 1 mesh at (a)'s smollm step (B = 8 as 2 x 4, remat full) beside
    that step's measured ``torch.cuda.max_memory_allocated`` and phase 9's.
-11. Report: one JSON line ``{"kernels": [...]}`` (K1 and K2 with their
+11. Long context, the reference's ``prefill_32k``, ``decode_32k`` and
+   zigzag-CP cells (``launch/cells.py::build_cell_fn``), full width, seed 0.
+   ``prefill_32k`` (S = 32,768, ``last_only``) of smollm-135m at the
+   reference's B = 32 and, cut to fit one card, mamba2-370m (8), gemma2-2b
+   (8), minicpm3-4b (4), hubert-xlarge (4, frames carrying the ids) and
+   minitron-4b (4): two forwards each, K4 / K5 launches over both from the
+   block pattern, logits finite and bitwise repeatable, the first forward's
+   peak memory beside the dry run's 1 x 1 estimate, the second's CUDA-event
+   time, profiled (busy share, K4's or K5's share), with its first K4 call
+   captured (gemma2-2b: its first local and first global call) or its
+   first K5 call.  Gates on the captured activations, each with a planted
+   fault read above its limit in the same run: K4 per element and per
+   128-row tile on the rows of ``k4_blocks`` against the float32 plain
+   version of those rows (1/16 of the keys the last rows see dropped,
+   ``dropped_keys``: a tile at S = 2048, as phase 8b drops); K5 against
+   ``ssd_plain`` within K5_TOL (the state carried into the middle chunk
+   zeroed).  Each call's kernel, plain (a row and head at a time), SDPA
+   (where it takes the call) and bound times are printed.  smollm-135m and
+   gemma2-2b also prefill under ``ATTN_IMPL="cp_zigzag"`` on a (1, 16) mesh
+   of ranks on the card: the CP call at the captured operands (32 K4
+   launches, the same row gates, bitwise one K4 call or not), then the CP
+   prefill against the one-call prefill (bitwise or within LM_LOGIT_TOL; K4
+   launches 32 a causal global layer, one a local; a planted fault, the
+   values of each CP call's diagonal key chunk zeroed, above the gate).  ``decode_32k`` for smollm-135m (B = 8), gemma2-2b (4) and
+   minicpm3-4b (4, its first 2 layers): the cache filled with 32,767 tokens
+   in chunks through ``LM.forward(..., cache=, cache_pos=i)`` (no K4
+   launch), token 32,767 decoded, its logits against the K4 prefill's of
+   the same tokens within max(LM_LOGIT_TOL, SDPA-in-K4's-place control) or,
+   for gemma2-2b, DECODE_LOGIT_TOL; a prefill with the values of 1/16 of
+   the keys zeroed in every K4 call above it; fill time, ms a decode step,
+   cache bytes and the fill's peak beside the estimate with the fill's block.
+   Then phase 9's smollm-135m ``train_4k`` step (B = 8 as 2 x 4, remat full)
+   under ``"cp_zigzag"`` and, on tokens and targets permuted by
+   ``zigzag_positions``, ``"cp_zigzag_native"``, both inside ``set_mesh``,
+   against the step with one K4 call a layer: the loss within 1e-4, first
+   moments within 2e-2 of each leaf's largest entry (phase 10's gate), K4 launches
+   a step (2 x 2 x 30 x 32), a planted fault above the gate.
+12. Report: one JSON line ``{"kernels": [...]}`` (K1 and K2 with their
    launches per train step by model, K1 with its launches in one
    dependency forward, rows for K1 and K2 over phase 3c's sliced packings,
    rows for K1 and K2 over phase 3d's spliced packing, rows for K1 and
@@ -377,7 +414,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    layers, with its launches in phase 8b and per train step and the
    padded-route gate; K4's and K5's launches per
    data-parallel step and K4's per CP
-   call, phase 10), the card line, and last the contract line ``{"ok":
+   call, phase 10; phase 11's rows: K4 at 32k in each model, zigzag CP at
+   32k, K5 at 32k), the card line, and last the contract line ``{"ok":
    true, "device": {...}}``.
 
 Needs one CUDA card; exits non-zero without one, or without the repository
@@ -445,9 +483,10 @@ DECODE_BATCH, DECODE_SEQ = 2, 256  # prefill-vs-decode check
 SSM_DECODE_GATE_LAYERS = 2
 # Depth of the printed (not gated) prefill-vs-decode readings that would be
 # at full depth: the token-by-token decode is host-bound (148 ms a step at
-# minicpm3-4b's 62 layers, 73 at mamba2-370m's 48), and the run must end
-# within its time limit, so these two read their first 16 layers.
-PRINTED_DECODE_LAYERS = {"mamba2-370m": 16, "minicpm3-4b": 16}
+# minicpm3-4b's 62 layers, 73 at mamba2-370m's 48, 58 at minitron-4b's 32),
+# and the run must end within its time limit, so these read their first 8
+# layers (16 before phase 11 came in; minitron-4b read its full depth).
+PRINTED_DECODE_LAYERS = {"mamba2-370m": 8, "minicpm3-4b": 8, "minitron-4b": 8}
 # Prefill-vs-decode tolerance of an attention stack at full depth, where it
 # is not LM_LOGIT_TOL.  The logits are a bf16 product: at gemma2-2b's
 # full-width magnitudes (up to 7.6, a bf16 step of 2^-5) the prefill with
@@ -2742,6 +2781,72 @@ def k4_gate_f32(q, k, v, out, lib, window=None, softcap=None):
     return elem, rms, (lib_rms if lib is not None else None), fault_rms
 
 
+def k4_bound(q, k, v, causal, window) -> tuple:
+    """(bound ms, what bounds it, flops, bytes) of one K4 call: the live
+    (query, key) pairs' two products over the bf16 tensor cores' peak, or
+    q, k, v and the output read or written once over HBM."""
+    b, h, s, dqk = q.shape
+    t, dv = k.shape[2], v.shape[3]
+    if not causal:
+        pairs = s * t
+    else:
+        w = window or s  # row i sees min(i + 1, w) keys
+        pairs = w * (w + 1) // 2 + (s - w) * w
+    flops = 2.0 * pairs * (dqk + dv) * h * b
+    nbytes = 2.0 * (q.numel() + k.numel() + v.numel() + b * h * s * dv)
+    t_ops, t_bytes = flops / BF16_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+
+
+def k4_long_call(arch, q, k, v, kw, label: str) -> dict:
+    """K4 at one 32k call of a prefill, on that call's real q, k and v:
+    ``k4_rows_gate`` (gated here), the kernel's event median, the plain
+    version's (``plain_sliced_ms``), SDPA's where it takes the call (no
+    window, no softcap), the bound; and the zigzag CP call over 16 ranks on
+    the card on the same operands where the call takes that route."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    out = flash_attention(q, k, v, **kw)
+    again = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    gate = k4_rows_gate(q, k, v, out, **kw)
+    require(torch.equal(out, again), f"{arch}: K4 not bitwise repeatable at 32k ({label})")
+    causal, window, softcap, scale = kw["causal"], kw["window"], kw["softcap"], kw["scale"]
+    ms = median_ms(lambda: flash_attention(q, k, v, **kw), reps=3, warmup=1)
+    plain_ms = plain_sliced_ms(q, k, v, **kw)
+    lib_ms = None
+    if window is None and softcap is None:
+        lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, scale=scale, enable_gqa=q.shape[1] != k.shape[1]),
+            reps=3, warmup=1)
+    bnd, by, flops, nbytes = k4_bound(q, k, v, causal, window)
+    layout = (f"B={q.shape[0]} Hq={q.shape[1]} Hkv={k.shape[1]} S=T={q.shape[2]} q/k Dh="
+              f"{q.shape[3]} v Dh={v.shape[3]}, {'causal' if causal else 'non-causal'}"
+              + (f", window {window}" if window else "") + (f", softcap {softcap}" if softcap
+                                                           else ""))
+    print(f"K4 prefill_32k {arch} ({label}; {layout}) on its real activations against the "
+          f"float32 plain version on rows {k4_blocks(q.shape[2])}: max|d| {gate['max_abs_err']:.3e}, "
+          f"max|d| / ({K4_BF16_ATOL} + {K4_BF16_RTOL}|ref|) = {gate['f32_elem_ratio']:.3f} (at "
+          f"most 1); largest 128-row tile ||d|| / ||ref|| = {gate['f32_tile_rms']:.3e} (at most "
+          f"{K4_TILE_RMS}); planted fault ({gate['fault_keys']} keys dropped from the last 256 "
+          f"rows) {gate['fault_tile_rms']:.3e}, {gate['fault_tile_rms'] / K4_TILE_RMS:.1f}x the "
+          f"limit; "
+          f"kernel {ms:.4f} ms, plain (a row and head at a time) {plain_ms:.3f} ms, SDPA "
+          f"{_ms(lib_ms)}, bound {bnd:.4f} ms ({by}), {100 * bnd / ms:.1f}% of it, on "
+          f"{card_line()}")
+    require(gate["f32_elem_ratio"] <= 1.0 and gate["f32_tile_rms"] <= K4_TILE_RMS,
+            f"{arch}: K4 disagrees with its float32 plain version at 32k ({label})")
+    require(gate["fault_tile_rms"] > K4_TILE_RMS,
+            f"{arch}: the 32k gate would pass dropped keys ({label})")
+    row = dict(gate, layout=layout, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=bnd, bound_by=by, flops=flops, bytes=nbytes)
+    if arch in LONG_CP_ARCHS and causal and window is None:
+        row["cp"] = cp_long_call(arch, q, k, v, softcap, scale, ms)
+    return row
+
+
 def k4_shape(dev, gen, b, hq, hkv, s, dh, window=None, softcap=None):
     """K4 at one bf16 causal prefill shape (S = T): agreement with the plain
     version and the library call, repeatability, times and bound.  With a
@@ -2794,11 +2899,7 @@ def k4_shape(dev, gen, b, hq, hkv, s, dh, window=None, softcap=None):
     host = host_us(lambda: flash_attention(q, k, v, **kw), reps=4 * reps)
     lib_host = host_us(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), reps=4 * reps)
-    w = window or s  # live (q, k) pairs: row i sees min(i + 1, w) keys
-    live_pairs = w * (w + 1) // 2 + (s - w) * w
-    flops = 4.0 * dh * live_pairs * hq * b
-    nbytes = 2 * (2 * b * hq * s * dh + 2 * b * hkv * s * dh)  # q, o, k, v in bf16
-    t_ops, t_bytes = flops / BF16_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    bnd, by, flops, nbytes = k4_bound(q, k, v, True, window)
     row = {"shape": f"B={b} Hq={hq} Hkv={hkv} S=T={s} Dh={dh} bf16 causal"
                     + ("" if same_fn else f" window={window} softcap={softcap}"),
            "max_abs_err": err, "against": "plain" if ref is not lib else "library",
@@ -2809,9 +2910,7 @@ def k4_shape(dev, gen, b, hq, hkv, s, dh, window=None, softcap=None):
                           "softcap: not the same function, timed as a yardstick"),
            "queued_ms": q_ms, "library_queued_ms": lib_q_ms,
            "host_us_per_call": host, "library_host_us_per_call": lib_host,
-           "bound_ms": max(t_ops, t_bytes),
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "flops": flops, "bytes": nbytes,
+           "bound_ms": bnd, "bound_by": by, "flops": flops, "bytes": nbytes,
            "fp32_cuda_core_ms": flops / FP32_FLOP_PER_S * 1e3}
     print(f"K4 {row['shape']}: max|kernel - {row['against']}| = {err:.3e} (tolerance "
           f"{tol}), |library - plain| = {lib_err:.3e}; run-to-run bitwise equal; "
@@ -2944,10 +3043,7 @@ def k4_native_shape(dev, gen, arch, b, h, s, dqk, dv, causal):
     lib_ms = median_ms(sdpa)
     lib_q_ms = queued_ms(sdpa)
     backend = sdpa_backend(q, k, v, causal)
-    pairs = s * (s + 1) // 2 if causal else s * s
-    flops = 2.0 * pairs * (dqk + dv) * h * b  # q k^T and p v at the true head dims
-    nbytes = 2 * b * h * s * (2 * dqk + 2 * dv)  # q, k (Dqk) and v, o (Dv) in bf16
-    t_ops, t_bytes = flops / BF16_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    bnd, by, flops, nbytes = k4_bound(q, k, v, causal, None)  # at the true head dims
     row = {"shape": f"{label}, bf16 {'causal' if causal else 'non-causal'}, native",
            "max_abs_err": err, "f32_tile_rms": rms, "fault_scale_tile_rms": scale_rms,
            "fault_drop_tile_rms": drop_rms, "junk_columns_bitwise": True,
@@ -2960,9 +3056,7 @@ def k4_native_shape(dev, gen, arch, b, h, s, dqk, dv, causal):
            "library_ms": lib_ms, "library_queued_ms": lib_q_ms, "library_err": lib_err,
            "library_fn": f"scaled_dot_product_attention at the true head dims "
                          f"({'is_causal' if causal else 'no mask'}), backend {backend}",
-           "bound_ms": max(t_ops, t_bytes),
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "flops": flops, "bytes": nbytes}
+           "bound_ms": bnd, "bound_by": by, "flops": flops, "bytes": nbytes}
     print(f"K4 {label}: native kernel {ms:.4f} ms, queue full {q_ms:.4f} ms; the padded route "
           f"it replaced (to {dp}) {padded_ms:.4f} ms, queue full {padded_q_ms:.4f} ms (padding "
           f"copies {pad_ms:.4f} / {pad_q_ms:.4f}, the kernel alone on padded operands "
@@ -3453,6 +3547,53 @@ def without_k_r(params) -> dict:
     return dict(params, blocks=[block(b) for b in params["blocks"]])
 
 
+class K4Capture:
+    """While open, keeps clones of the q, k, v and keywords of K4 calls
+    ``indices`` (in call order) of the ``ops.flash_attention`` calls made."""
+
+    def __init__(self, indices):
+        self.indices, self.seen, self.calls = tuple(indices), {}, 0
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self.ops, self.kernel = ops, ops.flash_attention
+
+        def capture(q, k, v, causal=True, window=None, softcap=None, scale=None):
+            if self.calls in self.indices:
+                self.seen[self.calls] = (q.clone(), k.clone(), v.clone(), dict(
+                    causal=causal, window=window, softcap=softcap, scale=scale))
+            self.calls += 1
+            return self.kernel(q, k, v, causal=causal, window=window, softcap=softcap,
+                               scale=scale)
+
+        ops.flash_attention = capture
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention = self.kernel
+
+
+class SSDCapture:
+    """While open, keeps clones of the first ``ops.ssd_scan`` call's operands."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self.ops, self.kernel, self.seen = ops, ops.ssd_scan, None
+
+        def capture(x, a, b, c, chunk=64):
+            if self.seen is None:
+                self.seen = (x.clone(), a.clone(), b.clone(), c.clone(), chunk)
+            return self.kernel(x, a, b, c, chunk=chunk)
+
+        ops.ssd_scan = capture
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.ssd_scan = self.kernel
+
+
 def k4_at_activations(model, params, inputs) -> dict:
     """K4's first call of a full-width prefill rerun on that call's own q,
     k and v (the first attention or MLA layer's real activations, at the
@@ -3463,25 +3604,12 @@ def k4_at_activations(model, params, inputs) -> dict:
     run) must break the tile gate.  The layer's attention output is read
     before the residual stream dilutes it, as hubert's N(0, 1) frames do in
     its logits."""
-    from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import (flash_attention, kernel_info,
                                                      kernel_pair)
 
-    seen = []
-    kernel = ops.flash_attention
-
-    def capture(q, k, v, causal=True, window=None, softcap=None, scale=None):
-        if not seen:
-            seen.append((q.clone(), k.clone(), v.clone(),
-                         dict(causal=causal, window=window, softcap=softcap, scale=scale)))
-        return kernel(q, k, v, causal=causal, window=window, softcap=softcap, scale=scale)
-
-    ops.flash_attention = capture
-    try:
+    with K4Capture((0,)) as cap:
         model.forward(params, last_only=True, **inputs)
-    finally:
-        ops.flash_attention = kernel
-    q, k, v, kw = seen[0]
+    q, k, v, kw = cap.seen[0]
     name = model.cfg.name
     require(kw["window"] is None and kw["softcap"] is None,
             f"{name}: the activation gate takes no window or softcap")
@@ -4063,14 +4191,12 @@ def card_against_cpu(dev, arch) -> dict:
 def train_input(cfg, tok_np) -> torch.Tensor:
     """A train step's model input on the CPU from ``SyntheticTokens`` ids:
     the ids; for the audio stub (hubert-xlarge, fed frame embeddings) the
-    rows of a bf16 table drawn from ``SEED`` (vocab x d_model), one per id,
-    so that the frames carry the ids the targets come from."""
+    frames ``launch/cells.py::frame_embeddings`` draws from ``SEED``, one
+    row an id, so that the frames carry the ids the targets come from."""
+    from repro_torch.launch.cells import frame_embeddings
+
     tok = torch.from_numpy(tok_np).long()
-    if cfg.frontend == "none":
-        return tok
-    table = torch.randn((cfg.vocab_size, cfg.d_model),
-                        generator=torch.Generator().manual_seed(SEED))
-    return table.to(torch.bfloat16)[tok]
+    return tok if cfg.frontend == "none" else frame_embeddings(cfg, tok, SEED)
 
 
 def _model_input(x) -> dict:
@@ -4801,6 +4927,607 @@ def phase_lm_parallel(dev, card: str, phase9_peak_gib) -> dict:
     return {"dp": dp, "cp": cp_row, "dryrun": dry}
 
 
+
+# --------------------------------------------------------- phase 11 ----
+LONG_SEQ = 32768  # prefill_32k and decode_32k (models/config.py:133-134)
+# arch -> prefill_32k's batch on one card: the reference's 32 where the dry
+# run's 1 x 1 estimate fits it (smollm-135m: 22.8 GiB), cut elsewhere
+LONG_PREFILL = {"smollm-135m": 32, "mamba2-370m": 8, "gemma2-2b": 8, "minicpm3-4b": 4,
+                "hubert-xlarge": 4, "minitron-4b": 4}
+# the K4 calls of a prefill gated at their real activations (call order):
+# gemma2-2b's first local (window 4096, softcap) and first global layer
+LONG_K4_CALLS = {"gemma2-2b": (0, 1)}
+LONG_CP_ARCHS = ("smollm-135m", "gemma2-2b")  # their causal global layers take CP at 32k
+# arch -> (batch, fill chunk, layers): decode_32k against the K4 prefill of
+# the same 32,768 tokens.  minicpm3-4b's absorbed decode is gated on its
+# first 2 layers, as phase 8b gates it (its bf16 paths drift apart with
+# depth): a fill reads the whole 32k cache at every chunk, and at 62 layers
+# the fill alone would take over a minute.  Its chunks are 512 so that the
+# (B, H, chunk, T) logits of 40 heads stay near 5 GB.
+LONG_DECODE = {"smollm-135m": (8, 2048, None), "gemma2-2b": (4, 2048, None),
+               "minicpm3-4b": (4, 512, 2)}
+# The 32k gates' planted faults drop 1/16 of the keys their last rows see, the
+# share phase 8b's one key tile is at S = 2048: at 32k one tile is 1/256 of a
+# row's keys and moved smollm-135m's last logits by 3.7e-2, inside the bf16
+# gap between its decode and its prefill (3.5e-2, on one H100; PERF.md section 6)
+LONG_FAULT_SHARE = 16
+CP_TRAIN_LOSS_TOL = 1e-4  # the CP step's loss against the one-call step's
+# ... and its first moments against the one-call step's, phase 10's gate for
+# a step computed over other partitions of the same work: the leaves are
+# bf16, and the chunk calls' float32 attention (forward and backward) sums in
+# another order than one call's, which flips roundings of bf16 activations
+# and gradients by a step (2^-8 to 2^-7 of an entry; 5.9e-3 of the largest
+# entry at reduced width on the CPU, tests/test_torch_long_context.py), above
+# phase 9's Function gate (FN_BF16_MAXREL), which is printed beside it
+CP_TRAIN_LEAF_RTOL = MB_LEAF_RTOL
+
+
+def dropped_keys(s: int, rows: int, bk: int, causal=True, window=None) -> slice:
+    """The keys a 32k gate's planted fault drops from the last ``rows``
+    query rows (of S = T = ``s``): ``1 / LONG_FAULT_SHARE`` of the keys
+    every one of them sees, whole tiles of ``bk`` keys, from their middle."""
+    first = s - rows
+    lo = max(0, s - window) if window is not None else 0
+    hi = first + 1 if causal else s  # keys below hi: seen by every last row
+    span = max(bk, (hi - lo) // LONG_FAULT_SHARE // bk * bk)
+    d0 = max(lo, ((lo + hi) // 2 - span // 2) // bk * bk)
+    return slice(d0, d0 + span)
+
+
+def k4_rows_gate(q, k, v, out, causal=True, window=None, softcap=None, scale=None) -> dict:
+    """K4's output ``out`` of one call at S = T on the query rows of
+    ``k4_blocks`` against the float32 plain version of those rows over all
+    of k and v (``plain_rows``; a whole (S, T) block does not fit at 32k),
+    per element and per 128-row tile, and a planted fault in the same run:
+    the last 256 rows without ``dropped_keys``."""
+    from repro_torch.kernels.flash_attention import kernel_info, kernel_pair
+
+    s = q.shape[2]
+    kw = dict(window=window, softcap=softcap, causal=causal, scale=scale)
+    elem = rms = err = 0.0
+    for a, r in k4_blocks(s):
+        ref = plain_rows(q[:, :, a:a + r], k, v, a, **kw)
+        got = out[:, :, a:a + r].float()
+        err = max(err, (got - ref).abs().max().item())
+        elem = max(elem, ((got - ref).abs() / (K4_BF16_ATOL + K4_BF16_RTOL * ref.abs()))
+                   .max().item())
+        rms = max(rms, tile_rms(got, ref).max().item())
+        del ref
+    bk = kernel_info(*kernel_pair(q.shape[3], v.shape[3], q.dtype))["block_k"]
+    first = s - 256
+    drop = dropped_keys(s, 256, bk, causal, window)
+    qb = q[:, :, first:]
+    fault = tile_rms(plain_rows(qb, k, v, first, drop=drop, **kw),
+                     plain_rows(qb, k, v, first, **kw)).max().item()
+    return {"max_abs_err": err, "f32_elem_ratio": elem, "f32_tile_rms": rms,
+            "fault_tile_rms": fault, "fault_keys": drop.stop - drop.start}
+
+
+def plain_sliced_ms(q, k, v, causal=True, window=None, softcap=None, scale=None) -> float:
+    """CUDA-event ms of K4's plain version over the whole call, one (batch
+    row, query head) at a time: a (1, 1, S, T) float32 block fits the card
+    where the call's (B, H, S, T) block does not.  One pass, after one warm
+    slice."""
+    from repro_torch.kernels.flash_attention import attention_plain
+
+    g = q.shape[1] // k.shape[1]
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+
+    def run(bh):
+        b, h = bh
+        attention_plain(q[b:b + 1, h:h + 1], k[b:b + 1, h // g:h // g + 1],
+                        v[b:b + 1, h // g:h // g + 1], **kw)
+
+    run((0, 0))
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for b in range(q.shape[0]):
+        for h in range(q.shape[1]):
+            run((b, h))
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def _cp_mesh16():
+    from repro_torch.launch.mesh import make_mesh_for
+
+    return make_mesh_for([torch.device("cuda", 0)] * CP_SHARDS, shard_axes=("data", "model"),
+                         shape=(1, CP_SHARDS))
+
+
+def cp_long_call(arch, q, k, v, softcap, scale, k4_ms) -> dict:
+    """``cp_zigzag_attention`` over 16 ranks on the card at a 32k call's
+    operands: K4 launches (32), its rows against the float32 plain version
+    (``k4_rows_gate``), bitwise one K4 call or not, its event median beside
+    one K4 call's."""
+    from repro_torch.kernels.cp_attention import cp_zigzag_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    mesh = _cp_mesh16()
+
+    def call():
+        return cp_zigzag_attention(q, k, v, softcap=softcap, scale=scale, p_shards=CP_SHARDS,
+                                   mesh=mesh)
+
+    before = flash_attention.launches
+    out = call()
+    launches = flash_attention.launches - before
+    whole = flash_attention(q, k, v, causal=True, softcap=softcap, scale=scale)
+    torch.cuda.synchronize()
+    gate = k4_rows_gate(q, k, v, out, softcap=softcap, scale=scale)
+    same = torch.equal(out, whole)
+    ms = median_ms(call, reps=3, warmup=1)
+    print(f"CP prefill_32k {arch}: {CP_SHARDS} ranks on the card, {launches} K4 launches a "
+          f"call (want {2 * CP_SHARDS}); against the float32 plain version elem "
+          f"{gate['f32_elem_ratio']:.3f}, tile {gate['f32_tile_rms']:.3e}; bitwise one K4 "
+          f"call: {same}; {ms:.4f} ms a call against one K4 call's {k4_ms:.4f} ms, on "
+          f"{card_line()}")
+    require(launches == 2 * CP_SHARDS, f"{arch}: CP at 32k launched K4 {launches} times")
+    require(gate["f32_elem_ratio"] <= 1.0 and gate["f32_tile_rms"] <= K4_TILE_RMS,
+            f"{arch}: CP at 32k disagrees with the float32 plain version")
+    return dict(gate, k4_launches_per_call=launches, bitwise_one_k4_call=same, ms=ms)
+
+
+def cp_fault_attention(s: int):
+    """``ops.attention_k4`` with a planted fault for CP's chunk calls: each
+    chunk call reads the values of its own last key chunk (the diagonal
+    block of its rows) as zeros."""
+    from repro_torch.kernels import ops
+
+    real = ops.attention_k4
+    c = s // (2 * CP_SHARDS)
+
+    def call(q, k, v, causal=True, window=None, softcap=None, scale=None):
+        if q.shape[2] == c:
+            v = torch.cat([v[:, :, :-c], torch.zeros_like(v[:, :, -c:])], 2)
+        return real(q, k, v, causal=causal, window=window, softcap=softcap, scale=scale)
+
+    return call
+
+
+class AttnRoute:
+    """While open: ``ops.ATTN_IMPL = impl`` under ``set_mesh(mesh)``, and
+    with ``fault`` CP's chunk calls through ``cp_fault_attention``; all put
+    back on exit."""
+
+    def __init__(self, impl, mesh, fault_seq=None):
+        self.impl, self.mesh, self.fault_seq = impl, mesh, fault_seq
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        from repro_torch.launch.mesh import set_mesh
+
+        self.ops, self.saved = ops, (ops.ATTN_IMPL, ops.attention_k4)
+        self.ctx = set_mesh(self.mesh)
+        self.ctx.__enter__()
+        ops.ATTN_IMPL = self.impl
+        if self.fault_seq is not None:
+            ops.attention_k4 = cp_fault_attention(self.fault_seq)
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.ATTN_IMPL, self.ops.attention_k4 = self.saved
+        self.ctx.__exit__(*exc)
+
+
+def cp_launches_per_forward(cfg, s: int) -> int:
+    """K4 launches of one forward under a CP route at sequence ``s``:
+    2 x 16 for each causal layer without a window, one for any other."""
+    calls = 0
+    for mixer, _ in cfg.block_pattern:
+        if mixer in ("attn", "mla"):
+            calls += 2 * CP_SHARDS if cfg.causal and s * s > 2048 * 2048 else 1
+        elif mixer == "local":
+            calls += 1
+    return cfg.num_groups * calls
+
+
+def cp_prefill_gate(arch, model, params, inputs, base) -> dict:
+    """The 32k prefill under ``ATTN_IMPL="cp_zigzag"`` on a (1, 16) mesh of
+    ranks on the card against the same prefill with one K4 call a layer
+    (``base``, its logits): bitwise or within LM_LOGIT_TOL, K4 launches
+    from the block pattern, and a planted fault above the gate."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    s = LONG_SEQ
+    mesh = _cp_mesh16()
+    v = model.cfg.vocab_size
+    flash_attention.launches = 0
+    with AttnRoute("cp_zigzag", mesh):
+        t0 = time.perf_counter()
+        routed = model.forward(params, last_only=True, **inputs)[0]
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+    launches = flash_attention.launches
+    with AttnRoute("cp_zigzag", mesh, fault_seq=s):
+        fault = model.forward(params, last_only=True, **inputs)[0]
+    torch.cuda.synchronize()
+    want = cp_launches_per_forward(model.cfg, s)
+    err = (routed[..., :v] - base[..., :v]).abs().max().item()
+    fault_err = (fault[..., :v] - base[..., :v]).abs().max().item()
+    same = torch.equal(routed, base)
+    print(f"CP prefill_32k {arch} under ATTN_IMPL='cp_zigzag' ({CP_SHARDS} ranks on the card): "
+          f"K4 launches {launches} (want {want}); last logits bitwise the one-call prefill's: "
+          f"{same}, max|d| {err:.3e} (gate {LM_LOGIT_TOL}); planted fault (each CP call's "
+          f"diagonal key chunk's values zeroed) {fault_err:.3e}, "
+          f"{fault_err / LM_LOGIT_TOL:.1f}x the gate; {sec * 1e3:.1f} ms (host clock, one "
+          f"forward)")
+    require(launches == want, f"{arch}: the CP prefill launched K4 {launches} times")
+    require(same or err <= LM_LOGIT_TOL, f"{arch}: the CP prefill misses one K4 call's")
+    require(fault_err > LM_LOGIT_TOL, f"{arch}: the CP prefill gate would pass a fault")
+    return {"k4_launches": launches, "bitwise": same, "err": err, "fault_err": fault_err,
+            "forward_ms_host": sec * 1e3}
+
+
+def k5_long_gate(x, a, b, c, chunk) -> dict:
+    """K5 at mamba2's first SSM layer's 32k activations against
+    ``ssd_plain`` (K5_TOL), a planted fault (the state carried into the
+    middle chunk zeroed: the plain version of the second half alone), the
+    kernel's and the plain version's event medians and the bound."""
+    from repro_torch.kernels.ssd_scan import ssd_plain, ssd_scan
+
+    y = ssd_scan(x, a, b, c, chunk=chunk)
+    again = ssd_scan(x, a, b, c, chunk=chunk)
+    plain = ssd_plain(x, a, b, c, chunk=chunk)
+    s = x.shape[1]
+    half = s // chunk // 2 * chunk
+    fault = ssd_plain(x[:, half:], a[:, half:], b[:, half:], c[:, half:], chunk=chunk)
+    torch.cuda.synchronize()
+    err = (y - plain).abs().max().item()
+    fault_err = (fault - plain[:, half:]).abs().max().item()
+    del fault, plain
+    require(torch.equal(y, again), "K5 not bitwise repeatable at 32k")
+    ms = median_ms(lambda: ssd_scan(x, a, b, c, chunk=chunk), reps=3, warmup=1)
+    plain_ms = median_ms(lambda: ssd_plain(x, a, b, c, chunk=chunk), reps=1, warmup=0)
+    bsz, _, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    nc = s // chunk
+    live = chunk * (chunk + 1) // 2
+    flops = bsz * h * nc * (2.0 * live * p + 4.0 * chunk * p * n) + bsz * g * nc * 2.0 * live * n
+    nbytes = 4 * (2 * bsz * s * h * p + bsz * s * h + 2 * bsz * s * g * n)
+    t_ops = K5_TF32_PRODUCTS * flops / TF32_FLOP_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bnd = max(t_ops, t_bytes)
+    print(f"K5 prefill_32k mamba2-370m layer 0 at its real activations (B={bsz} S={s} H={h} "
+          f"G={g} P={p} N={n} chunk {chunk}: {nc} chunks): max|kernel - plain| {err:.3e} "
+          f"(tolerance {K5_TOL}); planted fault (the state carried into chunk {half // chunk} "
+          f"zeroed) {fault_err:.3e}, {fault_err / K5_TOL:.1f}x the tolerance; kernel {ms:.4f} "
+          f"ms, plain {plain_ms:.3f} ms, bound {bnd:.4f} ms ("
+          f"{'operations' if t_ops >= t_bytes else 'bytes'}), on {card_line()}")
+    require(err <= K5_TOL, f"K5 disagrees with its plain version at 32k: {err}")
+    require(fault_err > K5_TOL, "the K5 32k gate would pass a zeroed carried state")
+    return {"layout": f"B={bsz} S={s} H={h} G={g} P={p} N={n} chunk={chunk} f32",
+            "max_abs_err": err, "fault_err": fault_err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bnd,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+def long_prefill(dev, arch, card: str) -> tuple:
+    """``prefill_32k`` of one full-width model at ``LONG_PREFILL``'s batch,
+    built by ``launch/cells.py::build_cell_fn``: two forwards (the first
+    read for its peak memory against the dry run's estimate, the second
+    timed with CUDA events, profiled and compared bit for bit, with the
+    first K4 calls, or the first K5 call, captured), launches over both from
+    the block pattern; the K4 / K5 gates on the captured
+    activations; for ``LONG_CP_ARCHS`` the CP prefill.  Returns the reading
+    and ``(fn, args)`` for the decode phase."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.cells import build_cell_fn
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models.config import SHAPES
+
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    batch = LONG_PREFILL[arch]
+    spec = dataclasses.replace(SHAPES["prefill_32k"], global_batch=batch)
+    require(spec.seq_len == LONG_SEQ, f"prefill_32k is S={spec.seq_len}")
+    mesh = make_mesh_for([dev], shard_axes=("data", "model"), shape=(1, 1))
+    fn, args = build_cell_fn(cfg, spec, mesh, seed=SEED)
+    model, (params, tok) = fn.model, args
+    inputs = {"tokens": None, "embeds": tok} if cfg.frontend != "none" else {"tokens": tok}
+    est = dryrun.memory_estimate(cfg, spec, dryrun.meta_mesh(shape=(1, 1)), 1)
+    torch.cuda.synchronize()
+    flash_attention.launches = ssd_scan.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    first = fn(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    calls = LONG_K4_CALLS.get(arch, (0,)) if launches_per_forward(cfg)["flash_attention"] else ()
+    timed = []
+
+    def second_forward():  # CUDA events inside the profile: the device is busy throughout
+        start.record()
+        timed.append(fn(*args))
+        end.record()
+
+    with K4Capture(calls) as k4cap, SSDCapture() as k5cap:
+        prof = spanned_profile(f"{arch} prefill_32k B={batch}", second_forward, [], warm=False)
+    end.synchronize()
+    ms = start.elapsed_time(end)
+    second = timed.pop()
+    counts = {"flash_attention": flash_attention.launches, "ssd_scan": ssd_scan.launches}
+    per = launches_per_forward(cfg)
+    v = cfg.vocab_size
+    require(all(counts[k] == 2 * n for k, n in per.items()),
+            f"{arch}: prefill_32k launches {counts}, want twice {per}")
+    require(bool(torch.isfinite(first[..., :v]).all()), f"{arch}: non-finite 32k logits")
+    require(first.shape == (batch, 1, first.shape[-1]), f"{arch}: logits {tuple(first.shape)}")
+    require(torch.equal(first, second), f"{arch}: 32k logits differ between forwards")
+    del second
+    share = {"k4": prof["k4_ms"] / prof["busy_ms"] if prof["busy_ms"] else None,
+             "k5": prof["k5_ms"] / prof["busy_ms"] if prof["busy_ms"] else None}
+    kernel, kernel_ms, kernel_n = (("K4", prof["k4_ms"], per["flash_attention"])
+                                   if per["flash_attention"] else
+                                   ("K5", prof["k5_ms"], per["ssd_scan"]))
+    print(f"prefill_32k {arch} (full width, {cfg.num_layers} layers, B={batch}"
+          f"{'' if batch == 32 else ' (the reference 32 cut to fit one card)'}, S={LONG_SEQ}, "
+          f"from {'frames' if cfg.frontend != 'none' else 'token ids'}): launches over 2 "
+          f"forwards {counts}; logits {tuple(first.shape)} finite and bitwise repeatable, "
+          f"max|logit| {first[..., :v].abs().max().item():.4f}; the second forward {ms:.1f} ms "
+          f"(CUDA events), {batch * LONG_SEQ / ms * 1e3:.0f} tokens/s, profiled: busy "
+          f"{prof['busy_ms']:.1f} of {prof['wall_ms']:.1f} ms, {kernel} {kernel_ms:.1f} ms of it "
+          f"({100 * kernel_ms / max(prof['busy_ms'], 1e-9):.1f} %) over {kernel_n} launches a "
+          f"forward; first forward's peak "
+          f"{peak / 2 ** 30:.2f} GiB against the dry run's 1 x 1 estimate "
+          f"{est['peak_hbm_gib_estimate']:.2f} GiB ({card})")
+    out = {"batch": batch, "launches": counts, "per_forward": per, "ms": ms,
+           "profile": prof, "share": share, "peak_bytes": peak,
+           "estimate_bytes": est["peak_bytes_per_rank_estimate"], "k4": {}}
+    for i in calls:
+        q, k, vv, kw = k4cap.seen[i]
+        label = f"K4 call {i}" + (f", window {kw['window']}" if kw["window"] else "")
+        out["k4"][i] = k4_long_call(arch, q, k, vv, kw, label)
+        del q, k, vv
+    if k5cap.seen is not None:
+        out["k5"] = k5_long_gate(*k5cap.seen)
+    del k4cap, k5cap
+    torch.cuda.empty_cache()
+    if arch in LONG_CP_ARCHS:
+        out["cp_prefill"] = cp_prefill_gate(arch, model, params, inputs, first)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 11 prefill_32k {arch}: {out['seconds']:.1f} s of wall time")
+    return out, model, params
+
+
+def zeroed_values_attention():
+    """K4 with a planted fault in every call: the values of 1 /
+    LONG_FAULT_SHARE of the keys, from the middle of the sequence, read as
+    zeros, for every query row that sees them.  A decode gate's fault must
+    reach the last position through the layers: at 32k the last 256 rows of
+    every call without 1/16 of their keys moved smollm-135m's and
+    minicpm3-4b's last logits by 4.3e-2 and 4.7e-2, inside 5e-2 (on one
+    H100; PERF.md section 6)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    def attention(q, k, v, causal=True, window=None, softcap=None, scale=None):
+        t = k.shape[2]
+        span = t // LONG_FAULT_SHARE
+        d0 = t // 2 - span // 2
+        v = torch.cat([v[:, :, :d0], torch.zeros_like(v[:, :, d0:d0 + span]),
+                       v[:, :, d0 + span:]], 2)
+        return flash_attention(q, k, v, causal=causal, window=window, softcap=softcap,
+                               scale=scale)
+
+    return attention
+
+
+def long_decode(dev, arch, model, params, card: str) -> dict:
+    """``decode_32k``: the cache (``init_cache(B, 32768)``) filled with the
+    first 32,767 tokens of a ``SyntheticTokens`` batch in chunks through
+    ``LM.forward(tokens[:, i:i + c], cache=cache, cache_pos=i)`` (no K4
+    call), then token 32,767 decoded, against the K4 prefill's
+    ``last_only`` logits of the same 32,768 tokens; the tolerance from a
+    control in the same run (SDPA in K4's place, or DECODE_LOGIT_TOL where
+    SDPA takes no window or softcap); a prefill through
+    ``zeroed_values_attention`` must break it."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.cells import input_specs
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models.config import SHAPES
+    from repro_torch.train import SyntheticTokens
+
+    t_phase = time.perf_counter()
+    batch, chunk, layers = LONG_DECODE[arch]
+    if layers is not None:
+        model, params = cut_depth(model, params, layers)
+    cfg = model.cfg
+    spec = dataclasses.replace(SHAPES["decode_32k"], global_batch=batch)
+    s = spec.seq_len
+    mesh = make_mesh_for([dev], shard_axes=("data", "model"), shape=(1, 1))
+    ins = input_specs(cfg, spec, mesh, model=model, seed=SEED)
+    cache, pos = ins["cache"], ins["cache_pos"]
+    tok_np, _ = SyntheticTokens(cfg.vocab_size, s, batch, seed=SEED).host_batch(0)
+    tokens = torch.from_numpy(np.ascontiguousarray(tok_np)).to(dev)
+    require(torch.equal(tokens[:, -1:], ins["tokens"]), f"{arch}: decode token mismatch")
+    cache_bytes = sum(t.numel() * t.element_size() for c in cache for t in c.values())
+    est = dryrun.memory_estimate(cfg, spec, dryrun.meta_mesh(shape=(1, 1)), 1,
+                                 fill_chunk=chunk)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    for i in range(0, pos, chunk):
+        model.forward(params, tokens[:, i:min(i + chunk, pos)], cache=cache, cache_pos=i)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    dec = model.forward(params, ins["tokens"], cache=cache, cache_pos=pos)[0][:, 0]
+    torch.cuda.synchronize()
+    require(flash_attention.launches == 0, f"{arch}: the cached path launched K4")
+    step_ms = median_ms(lambda: model.forward(params, ins["tokens"], cache=cache,
+                                              cache_pos=pos), reps=3, warmup=1)
+    v = cfg.vocab_size
+    dec = dec[:, :v]
+    del cache, ins
+    torch.cuda.empty_cache()
+    pre = model.forward(params, tokens, last_only=True)[0][:, 0, :v]
+    err = (dec - pre).abs().max().item()
+    fault = (prefill_with(model, params, tokens, zeroed_values_attention())[:, :v]
+             - dec).abs().max().item()
+    if arch in DECODE_LOGIT_TOL:
+        control, tol = None, DECODE_LOGIT_TOL[arch]
+        what = f"four bf16 steps at its logits ({tol}; SDPA takes no window or softcap)"
+    else:
+        control = (prefill_with(model, params, tokens, sdpa_attention)[:, :v]
+                   - dec).abs().max().item()
+        tol = max(LM_LOGIT_TOL, control)
+        what = (f"max({LM_LOGIT_TOL}, the SDPA control's {control:.4e}) = {tol:.4e}")
+    torch.cuda.synchronize()
+    print(f"decode_32k {arch} ({cfg.num_layers} layers{'' if layers is None else ' (gated cut)'}"
+          f", B={batch}): cache {cache_bytes / 1e9:.3f} GB filled with {pos} tokens in chunks "
+          f"of {chunk} in {fill_s:.2f} s (no K4 launch); decode step at 32k {step_ms:.2f} ms "
+          f"(CUDA events); max|decode - K4 prefill| of the last logits {err:.4e}, tolerance "
+          f"{what}; planted fault (the values of 1/{LONG_FAULT_SHARE} of the keys zeroed in "
+          f"every K4 call) {fault:.4e}, {fault / tol:.1f}x; max|logit| "
+          f"{pre.abs().max().item():.4f}; fill peak {peak / 2 ** 30:.2f} GiB against the dry "
+          f"run's 1 x 1 estimate with the fill's block {est['peak_hbm_gib_estimate']:.2f} GiB "
+          f"({card}); {time.perf_counter() - t_phase:.1f} s of wall time")
+    require(err <= tol, f"{arch}: decode_32k misses the K4 prefill by {err} (tolerance {tol})")
+    require(fault > tol, f"{arch}: the decode_32k gate would pass zeroed values")
+    return {"batch": batch, "fill_chunk": chunk, "layers": cfg.num_layers, "fill_s": fill_s,
+            "decode_step_ms": step_ms, "cache_bytes": cache_bytes, "err": err, "tol": tol,
+            "sdpa_control": control, "fault": fault, "peak_bytes": peak,
+            "estimate_bytes": est["peak_bytes_per_rank_estimate"]}
+
+
+def cp_train_step(dev) -> dict:
+    """Phase 9's smollm-135m ``train_4k`` step (B = 8 as 2 x 4, remat full)
+    under ``ATTN_IMPL="cp_zigzag"`` on a (1, 16) mesh of ranks on the card
+    (the whole step inside ``set_mesh``: the remat recompute reads the route
+    when the backward runs) against the same step with one K4 call a layer:
+    the loss within CP_TRAIN_LOSS_TOL, the first moments (0.1 x the clipped
+    gradient) within CP_TRAIN_LEAF_RTOL of each leaf's largest entry, K4
+    launches (forward and recompute, 32 a layer); the same in
+    ``"cp_zigzag_native"`` on tokens and targets permuted by
+    ``zigzag_positions`` (a mean loss over the same tokens); a planted fault
+    (each CP call's diagonal key chunk's values zeroed) above the gate."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.cp_attention import zigzag_positions
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import LM
+    from repro_torch.train import SyntheticTokens
+    from repro_torch.train import train_step as ts
+
+    t0 = time.perf_counter()
+    arch = "smollm-135m"
+    batch, mb, remat, _, lr = TRAIN_RUNS[arch]
+    cfg = get_config(arch)
+    model = LM(cfg, device=dev, remat=remat)
+    mesh = _cp_mesh16()
+    state0 = ts.init_train_state(model, SEED)
+    tok, tgt = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in SyntheticTokens(cfg.vocab_size, TRAIN_SEQ, batch, seed=SEED).host_batch(0))
+    step, _ = ts.build_train_step(model, mesh, batch, lr=lr, microbatches=mb)
+    flash_attention.launches = 0
+    out = []
+    one_ms = _event_ms(lambda: out.append(step(state0, tok, tgt)))
+    (one, m_one), = out
+    one_launches = flash_attention.launches
+    pos = torch.from_numpy(zigzag_positions(TRAIN_SEQ, CP_SHARDS)).to(dev)
+    want = 2 * mb * cp_launches_per_forward(cfg, TRAIN_SEQ)
+    rows = {}
+    for mode, t, g in (("cp_zigzag", tok, tgt), ("cp_zigzag_native", tok[:, pos], tgt[:, pos])):
+        with AttnRoute(mode, mesh):
+            flash_attention.launches = 0
+            out = []
+            ms = _event_ms(lambda: out.append(step(state0, t, g)))
+            (new, m), = out
+            launches = flash_attention.launches
+        loss_err = abs(float(m["loss"]) - float(m_one["loss"]))
+        rel = _mu_rel(new, one.opt.mu)
+        rows[mode] = {"loss": float(m["loss"]), "loss_err": loss_err, "grad_max_rel": rel,
+                      "k4_launches": launches, "step_ms": ms}
+        print(f"CP train_4k {arch} ({mode}, B={batch} as {mb} x {batch // mb}, remat {remat}, "
+              f"{CP_SHARDS} ranks on the card): loss {float(m['loss']):.6f} vs one K4 call a "
+              f"layer {float(m_one['loss']):.6f} (|diff| {loss_err:.2e}, gate "
+              f"{CP_TRAIN_LOSS_TOL}); worst first moment {rel:.3e} of its leaf's largest entry "
+              f"(gate {CP_TRAIN_LEAF_RTOL}; {rel / FN_BF16_MAXREL:.2f}x phase 9's Function gate "
+              f"{FN_BF16_MAXREL}); K4 launches a step {launches} (want {want}; one call "
+              f"a layer: {one_launches}); step {ms:.1f} ms against {one_ms:.1f} ms (CUDA "
+              f"events, one each, on {card_line()})")
+        require(launches == want, f"CP train step ({mode}) launched K4 {launches} times")
+        require(loss_err <= CP_TRAIN_LOSS_TOL, f"CP train step ({mode}): the loss misses")
+        require(rel <= CP_TRAIN_LEAF_RTOL, f"CP train step ({mode}): gradients miss")
+        del new
+    with AttnRoute("cp_zigzag", mesh, fault_seq=TRAIN_SEQ):
+        bad, m_bad = step(state0, tok, tgt)
+    fault = _mu_rel(bad, one.opt.mu)
+    print(f"CP train_4k {arch}: planted fault (each CP call's diagonal key chunk's values "
+          f"zeroed) reads {fault:.3e}, {fault / CP_TRAIN_LEAF_RTOL:.1f}x the gate; loss "
+          f"|diff| {abs(float(m_bad['loss']) - float(m_one['loss'])):.2e}; "
+          f"{time.perf_counter() - t0:.1f} s of wall time")
+    require(fault > CP_TRAIN_LEAF_RTOL, "the CP train gate would pass a zeroed key chunk")
+    require(abs(rows["cp_zigzag_native"]["loss"] - rows["cp_zigzag"]["loss"])
+            <= CP_TRAIN_LOSS_TOL, "the native mode's loss is not the plain mode's")
+    del bad, one, state0
+    torch.cuda.empty_cache()
+    return {"one_call_k4_launches": one_launches, "one_call_step_ms": one_ms,
+            "modes": rows, "fault": fault}
+
+
+def phase_long_context(dev, card: str) -> dict:
+    """Phase 11: the reference's long-context cells on the card."""
+    t_phase = time.perf_counter()
+    prefill, decode = {}, {}
+    for arch in LONG_PREFILL:
+        prefill[arch], model, params = long_prefill(dev, arch, card)
+        if arch in LONG_DECODE:
+            decode[arch] = long_decode(dev, arch, model, params, card)
+        del model, params
+        torch.cuda.empty_cache()
+    train = cp_train_step(dev)
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s of wall time, on {card}")
+    return {"prefill": prefill, "decode": decode, "cp_train": train}
+
+
+def long_context_rows(long: dict) -> list:
+    """The kernels line's rows of phase 11: K4 at 32k in each model (its
+    launches over the two counted forwards), K5 at 32k, and zigzag CP at
+    32k (its launches in the CP prefill)."""
+    rows = []
+    fa = {"route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
+          "replaces": "src/repro/kernels/flash_attention.py:30"}
+    for arch, r in long["prefill"].items():
+        for i, call in r["k4"].items():
+            rows.append(dict(fa, name=f"flash_attention (prefill_32k, {arch}, call {i})",
+                             launches=r["launches"]["flash_attention"],
+                             **{k: call[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                     "bound_ms", "bound_by", "library_ms",
+                                                     "layout", "f32_tile_rms",
+                                                     "fault_tile_rms")},
+                             prefill_ms=r["ms"], k4_share=r["share"]["k4"]))
+            if "cp" in call:
+                cp = call["cp"]
+                rows.append(dict(fa, name=f"flash_attention (zigzag CP, prefill_32k, {arch})",
+                                 wrapper="src/repro_torch/kernels/cp_attention.py",
+                                 launches=r["cp_prefill"]["k4_launches"],
+                                 max_abs_err=cp["max_abs_err"], ms=cp["ms"],
+                                 plain_ms=call["plain_ms"], bound_ms=call["bound_ms"],
+                                 bound_by=call["bound_by"], library_ms=call["library_ms"],
+                                 layout=call["layout"] + f", {CP_SHARDS} ranks",
+                                 bitwise_one_k4_call=cp["bitwise_one_k4_call"],
+                                 launches_per_cp_train_step={
+                                     m: x["k4_launches"]
+                                     for m, x in long["cp_train"]["modes"].items()}))
+        if "k5" in r:
+            k5 = r["k5"]
+            rows.append({"name": f"ssd_scan (prefill_32k, {arch})", "route": "cuda",
+                         "source": "src/repro_torch/csrc/ssd_scan.cu",
+                         "replaces": "src/repro/kernels/ssd_scan.py:29",
+                         "launches": r["launches"]["ssd_scan"],
+                         **{k: k5[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms", "layout")},
+                         "prefill_ms": r["ms"], "k5_share": r["share"]["k5"]})
+    return rows
+
 def _leaves(tree) -> list:
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -4974,6 +5701,10 @@ def main() -> int:
     k4_row["launches_per_cp_call"] = {"ranks": CP_SHARDS,
                                       "launches": par["cp"]["k4_launches_per_call"]}
     k4_row["cp"] = par["cp"]
+    long = phase_long_context(dev, card)
+    for row in long_context_rows(long):
+        require(row["launches"] > 0, f"{row['name']} never launched on its 32k path")
+        kernels.append(row)
     for k in kernels:
         k["kernel_ms"] = k["ms"]
     print(json.dumps({"kernels": kernels}))

@@ -84,6 +84,31 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return attention_k4(q, k, v, causal, window, softcap, scale)
 
 
+def replaying_route(fn):
+    """``fn`` run, whenever it is called, under the attention route in force
+    now: ``ATTN_IMPL`` and the ambient mesh (``launch.mesh.get_mesh``).  A
+    remat recompute (``models/lm.py``) calls its layer group again in the
+    backward, which autograd runs on a thread of its own for a CUDA device,
+    where the ambient mesh of the forward's thread is not set, and after a
+    caller may have put ``ATTN_IMPL`` back; the recompute must take its
+    forward's route (the reference traces the route once, into both)."""
+    from repro_torch.launch.mesh import get_mesh, set_mesh
+
+    impl, mesh = ATTN_IMPL, get_mesh()
+
+    def run(*args, **kwargs):
+        global ATTN_IMPL
+        saved = ATTN_IMPL
+        ATTN_IMPL = impl
+        try:
+            with set_mesh(mesh):
+                return fn(*args, **kwargs)
+        finally:
+            ATTN_IMPL = saved
+
+    return run
+
+
 def attention_k4(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  causal: bool = True, window: Optional[int] = None,
                  softcap: Optional[float] = None,

@@ -51,16 +51,18 @@ import json
 import math
 import os
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import ARCHS, cells, get_config
+from repro_torch.kernels import ops
+from repro_torch.launch.cells import _microbatches
 from repro_torch.launch.mesh import Mesh, make_mesh_for, set_mesh
 from repro_torch.models.config import SHAPES, ArchConfig, ShapeSpec
-from repro_torch.models.lm import LM, init_params, padded_vocab
+from repro_torch.models.lm import SSD_CHUNK, LM, init_params, padded_vocab
 from repro_torch.train import train_step as _ts
 from repro_torch.train._lm_pspecs import param_pspecs
 from repro_torch.train.hgnn_step import value_and_grad
@@ -84,14 +86,6 @@ def meta_mesh(multi_pod: bool = False, shape=MESH_SHAPE) -> Mesh:
     axes = (("pod",) if multi_pod else ()) + ("data", "model")
     return make_mesh_for([torch.device("meta")] * math.prod(shape), shard_axes=axes,
                          shape=shape)
-
-
-def _microbatches(cfg: ArchConfig, spec: ShapeSpec, mesh: Mesh) -> int:
-    """One batch row per data shard per microbatch (bounds activations +
-    full-vocab logits independently of model size)."""
-    dp_total = int(np.prod([mesh.shape[a] for a in ("pod", "data")
-                            if a in mesh.axis_names]))
-    return max(1, spec.global_batch // dp_total)
 
 
 # ------------------------------------------------------------ analysis ----
@@ -174,8 +168,38 @@ def state_bytes_per_rank(cfg: ArchConfig, mesh: Mesh) -> Dict[str, float]:
     return {"params": p, "moments": 8.0 * n, "grad_accumulator": acc * n}
 
 
+def ssd_workspace_bytes(cfg: ArchConfig, rows: int, seq: int, chunk: int = SSD_CHUNK) -> float:
+    """Bytes of the scratch K5's wrapper allocates for one SSM layer's call
+    (``csrc/ssd_scan.cu::ssd_scan_scratch``), float32: the cumulative decay
+    (B, H, S), every chunk's end state (B, H, S / chunk, P, N) and each
+    group's C Bᵀ block (B, G, S / chunk, chunk², chunk rounded up to 32);
+    0 without SSM layers."""
+    if not any(mixer == "ssm" for mixer, _ in cfg.block_pattern):
+        return 0.0
+    h, g = cfg.ssm_heads, cfg.ssm_groups
+    nc, lp = seq // chunk, -(-chunk // 32) * 32
+    return 4.0 * rows * (h * seq + h * nc * cfg.ssm_head_dim * cfg.ssm_state
+                         + g * nc * lp * lp)
+
+
+def _token_bytes(cfg: ArchConfig) -> float:
+    """Activation bytes a token holds inside one layer of the prefill:
+    bf16 tensors of the residual stream, attention and FFN widths (12 d + 3
+    d_ff), or for a stack with SSM layers, where more is the mixer's: its
+    bf16 input projection (2 d_inner + 2 G N + H) and six float32 (d_inner)
+    tensors live around K5's call (the conv output, the scan's input and
+    output, the gate, the gated norm's input and output)."""
+    dense = (12 * cfg.d_model + 3 * max(cfg.d_ff, cfg.moe_d_ff)) * 2.0
+    if not any(mixer == "ssm" for mixer, _ in cfg.block_pattern):
+        return dense
+    di = cfg.d_inner
+    proj = 2 * di + 2 * cfg.ssm_groups * cfg.ssm_state + cfg.ssm_heads
+    return max(dense, 2.0 * proj + 4.0 * 6 * di)
+
+
 def memory_estimate(cfg: ArchConfig, spec: ShapeSpec, mesh: Mesh, mb: int,
-                    remat: str = "full") -> Dict[str, Any]:
+                    remat: str = "full", fill_chunk: Optional[int] = None
+                    ) -> Dict[str, Any]:
     """Per-rank memory of a cell, an analytic estimate of what the port
     allocates (no allocator runs on ``meta``).
 
@@ -185,13 +209,18 @@ def memory_estimate(cfg: ArchConfig, spec: ShapeSpec, mesh: Mesh, mb: int,
     the backward, whichever is larger of: the float32 logits block of the
     loss's backward (the log-softmax output, its gradient and the logits'
     gradient, 12 bytes a logit, vocab-parallel over 'model'), the one-hot
-    (tokens, vocab) block of the embedding's gradient (bf16), and one query
+    (tokens, vocab) block of the embedding's gradient (bf16), one query
     tile of the float32 attention backward (logits, probabilities and their
-    gradients, 16 bytes a pair; ``flash_attention.VJP_TILE_ELEMS``).
+    gradients, 16 bytes a pair; ``flash_attention.VJP_TILE_ELEMS``) and
+    K5's scratch (``ssd_workspace_bytes`` at the LM's chunk).
     Prefill and decode: the parameters and the cache (``init_cache``'s, over
-    the chips), a layer's activations
-    and, for decode, the attention's float32 (query, key) block over the
-    cache (prefill's K4 forms none)."""
+    the chips), a layer's activations (``_token_bytes`` a token), K5's
+    scratch (prefill) and, for decode, the attention's (query, key) block
+    over the cache, 12 bytes a pair (prefill's K4 forms none).  A decode step takes one query a
+    sequence; ``fill_chunk`` estimates instead a cached forward of that many
+    tokens a sequence, as a chunked fill of the cache runs (``LM.forward(
+    tokens[:, i:i + c], cache=..., cache_pos=i)``): its activations and its
+    (B, Hkv, g, c, T) block."""
     from repro_torch.kernels.flash_attention import VJP_TILE_ELEMS
 
     chips = int(np.prod(list(mesh.shape.values())))
@@ -210,18 +239,24 @@ def memory_estimate(cfg: ArchConfig, spec: ShapeSpec, mesh: Mesh, mb: int,
                  else cfg.num_layers * t * (12 * d + 3 * max(cfg.d_ff, cfg.moe_d_ff)) * 2.0)
         tile_rows = s if s * s <= VJP_TILE_ELEMS else max(1, VJP_TILE_ELEMS // s)
         transient = max(12.0 * t * vp / msize, 2.0 * t * vp,
-                        16.0 * rows * heads * tile_rows * s if cfg.num_heads else 0.0)
+                        16.0 * rows * heads * tile_rows * s if cfg.num_heads else 0.0,
+                        ssd_workspace_bytes(cfg, rows, s))
         state = st["params"] + st["moments"] + st["grad_accumulator"]
         act = st["params"] + saved + transient  # a microbatch's gradients + activations
     else:
         b = rows
-        t = b * (s if spec.kind == "prefill" else 1)
+        if spec.kind == "decode" and fill_chunk is not None:
+            out["fill_chunk"] = fill_chunk
+        queries = s if spec.kind == "prefill" else (fill_chunk or 1)
+        t = b * queries
         cache = _cache_bytes(cfg, spec) / chips if spec.kind == "decode" else 0.0
-        # decode's attention over the cache forms (B, H, 1, T) float32 logits
+        # decode's attention over the cache forms (B, H, queries, T) logits
         # and probabilities; prefill's K4 forms no (S, T) block
-        attn = 4.0 * 3 * b * heads * s if cfg.num_heads and spec.kind == "decode" else 0.0
+        attn = (4.0 * 3 * b * heads * queries * s
+                if cfg.num_heads and spec.kind == "decode" else 0.0)
+        k5 = ssd_workspace_bytes(cfg, b, s) if spec.kind == "prefill" else 0.0
         state = st["params"] + cache
-        act = t * (12 * d + 3 * max(cfg.d_ff, cfg.moe_d_ff)) * 2.0 + attn
+        act = t * _token_bytes(cfg) + attn + k5
     peak = state + act
     out.update({"state_bytes_per_rank_estimate": state,
                 "activation_bytes_per_rank_estimate": act,
@@ -343,64 +378,94 @@ def _cache_bytes(cfg: ArchConfig, spec: ShapeSpec) -> float:
     return float(sum(_nbytes(x) for c in cache for x in c.values()))
 
 
-def roofline_cell(arch: str, shape: str, calibrate: bool = True) -> Dict[str, Any]:
-    """One cell on the 16 x 16 meta mesh: the memory estimate (``proof``)
-    and, with ``calibrate``, the counted FLOPs and the roofline terms, under
-    the ambient mesh (``set_mesh``).  ``variant`` keeps the reference's key
-    with its default, no variant."""
+def roofline_cell(arch: str, shape: str, calibrate: bool = True,
+                  skip_proof: bool = False, mesh: Optional[Mesh] = None,
+                  microbatches: Optional[int] = None,
+                  attn_impl: Optional[str] = None,
+                  grad_accum_dtype: Optional[str] = None) -> Dict[str, Any]:
+    """One cell on ``mesh`` (default the 16 x 16 meta mesh): the memory
+    estimate (``proof``, unless ``skip_proof``) and, with ``calibrate``,
+    the counted FLOPs and the roofline terms, under the ambient mesh
+    (``set_mesh``).  The reference's variants: ``microbatches`` (default one
+    batch row per data shard), ``attn_impl`` (``ops.ATTN_IMPL``, e.g.
+    ``"cp_zigzag"``) and ``grad_accum_dtype``
+    (``train_step.GRAD_ACCUM_DTYPE``), echoed under ``variant`` by the
+    reference's keys.  Unlike the reference, which leaves the two module
+    settings set after the call (``dryrun.py:337-340``), the call puts them
+    back: a caller's later attention calls keep their route."""
     cfg = get_config(arch)
     spec = SHAPES[shape]
-    mesh = meta_mesh()
+    mesh = mesh if mesh is not None else meta_mesh()
     chips = int(np.prod(list(mesh.shape.values())))
     res: Dict[str, Any] = {"arch": arch, "shape": shape,
                            "mesh": "x".join(map(str, mesh.devices.shape)),
                            "chips": chips,
-                           "variant": {"microbatches": None, "attn_impl": None,
-                                       "grad_accum_dtype": None}}
-    mb = _microbatches(cfg, spec, mesh) if spec.kind == "train" else 1
-    with set_mesh(mesh):
-        res["proof"] = memory_estimate(cfg, spec, mesh, mb)
-        if calibrate:
-            b_mb = max(1, spec.global_batch // mb)
-            pts = {}
-            for g in (1, 2):
-                t0 = time.time()
-                pts[g] = {"flops": count_flops(cfg, spec, g, b_mb),
-                          "count_s": round(time.time() - t0, 3)}
-            G = cfg.num_groups
-
-            def lin(a, b_):
-                return a + (G - 1) * (b_ - a)
-
-            flops = lin(pts[1]["flops"], pts[2]["flops"]) * mb / chips
-            if spec.kind == "train":
-                flops += _analytic_adamw(cfg)["flops"] / chips
-            res["calibration"] = {"g1": pts[1], "g2": pts[2], "microbatch_factor": mb}
-            coll = collective_bytes_analytic(cfg, spec, mesh, mb)
-            coll_total = sum(coll.values())
-            cache_bytes = _cache_bytes(cfg, spec) if spec.kind == "decode" else 0.0
-            mem = analytic_hbm_bytes(cfg, spec, mesh, mb, cache_bytes)
-            roof = {
-                "flops_per_chip": flops,
-                "hbm_bytes_per_chip_analytic": mem,
-                "collective_bytes_per_chip_analytic": coll_total,
-                "collectives_analytic": coll,
-                "t_compute_s": flops / PEAK_FLOPS,
-                "t_memory_s": mem / HBM_BW,
-                "t_collective_s": coll_total / NVLINK_BW,
-            }
-            roof["dominant"] = max(("t_compute_s", "t_memory_s", "t_collective_s"),
-                                   key=lambda k: roof[k])
-            nd = cfg.active_param_count()
-            tokens = spec.global_batch * (spec.seq_len if spec.kind != "decode" else 1)
-            model_flops = (6 if spec.kind == "train" else 2) * nd * tokens
-            roof["model_flops_global"] = float(model_flops)
-            roof["model_vs_counted"] = float(model_flops / max(flops * chips, 1.0))
-            t_dom = max(roof[k] for k in ("t_compute_s", "t_memory_s", "t_collective_s"))
-            roof["roofline_fraction"] = float(
-                (model_flops / chips / PEAK_FLOPS) / max(t_dom, 1e-12))
-            res["roofline"] = roof
+                           "variant": {"microbatches": microbatches, "attn_impl": attn_impl,
+                                       "grad_accum_dtype": grad_accum_dtype}}
+    if spec.kind == "train":
+        mb = microbatches if microbatches is not None else _microbatches(cfg, spec, mesh)
+    else:
+        mb = 1
+    saved = ops.ATTN_IMPL, _ts.GRAD_ACCUM_DTYPE
+    try:
+        if attn_impl is not None:
+            ops.ATTN_IMPL = attn_impl
+        if grad_accum_dtype is not None:
+            _ts.GRAD_ACCUM_DTYPE = grad_accum_dtype
+        with set_mesh(mesh):
+            _roofline_terms(res, cfg, spec, mesh, mb, calibrate, skip_proof)
+    finally:
+        ops.ATTN_IMPL, _ts.GRAD_ACCUM_DTYPE = saved
     return res
+
+
+def _roofline_terms(res: Dict[str, Any], cfg: ArchConfig, spec: ShapeSpec, mesh: Mesh,
+                    mb: int, calibrate: bool, skip_proof: bool) -> None:
+    """``roofline_cell``'s ``proof``, ``calibration`` and ``roofline``
+    entries, written into ``res``."""
+    chips = res["chips"]
+    if not skip_proof:
+        res["proof"] = memory_estimate(cfg, spec, mesh, mb)
+    if calibrate:
+        b_mb = max(1, spec.global_batch // mb)
+        pts = {}
+        for g in (1, 2):
+            t0 = time.time()
+            pts[g] = {"flops": count_flops(cfg, spec, g, b_mb),
+                      "count_s": round(time.time() - t0, 3)}
+        G = cfg.num_groups
+
+        def lin(a, b_):
+            return a + (G - 1) * (b_ - a)
+
+        flops = lin(pts[1]["flops"], pts[2]["flops"]) * mb / chips
+        if spec.kind == "train":
+            flops += _analytic_adamw(cfg)["flops"] / chips
+        res["calibration"] = {"g1": pts[1], "g2": pts[2], "microbatch_factor": mb}
+        coll = collective_bytes_analytic(cfg, spec, mesh, mb)
+        coll_total = sum(coll.values())
+        cache_bytes = _cache_bytes(cfg, spec) if spec.kind == "decode" else 0.0
+        mem = analytic_hbm_bytes(cfg, spec, mesh, mb, cache_bytes)
+        roof = {
+            "flops_per_chip": flops,
+            "hbm_bytes_per_chip_analytic": mem,
+            "collective_bytes_per_chip_analytic": coll_total,
+            "collectives_analytic": coll,
+            "t_compute_s": flops / PEAK_FLOPS,
+            "t_memory_s": mem / HBM_BW,
+            "t_collective_s": coll_total / NVLINK_BW,
+        }
+        roof["dominant"] = max(("t_compute_s", "t_memory_s", "t_collective_s"),
+                               key=lambda k: roof[k])
+        nd = cfg.active_param_count()
+        tokens = spec.global_batch * (spec.seq_len if spec.kind != "decode" else 1)
+        model_flops = (6 if spec.kind == "train" else 2) * nd * tokens
+        roof["model_flops_global"] = float(model_flops)
+        roof["model_vs_counted"] = float(model_flops / max(flops * chips, 1.0))
+        t_dom = max(roof[k] for k in ("t_compute_s", "t_memory_s", "t_collective_s"))
+        roof["roofline_fraction"] = float(
+            (model_flops / chips / PEAK_FLOPS) / max(t_dom, 1e-12))
+        res["roofline"] = roof
 
 
 def proof_only(arch: str, shape: str, multi_pod: bool) -> Dict[str, Any]:

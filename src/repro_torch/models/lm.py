@@ -42,6 +42,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 
 MIXERS = ("attn", "local", "mla", "ssm")
+SSD_CHUNK = 128  # the SSD scan's chunk, the reference's LM default
 FFNS = ("mlp", "gelu_mlp", "moe", "none")
 REMATS = ("none", "full", "dots")
 
@@ -307,7 +308,7 @@ class LM:
     """
 
     def __init__(self, cfg: ArchConfig, device="cuda", remat: str = "full",
-                 ssd_chunk: int = 128):
+                 ssd_chunk: int = SSD_CHUNK):
         if torch.device(device).type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"LM device={device!r} but no CUDA device is "
                                "available (pass device='cpu' to run on the CPU)")
@@ -395,6 +396,8 @@ class LM:
                   if cache is not None else [None] * n)
         body = self._group_fn(cos, sin, cache_pos)
         remat = self.remat if train and cache is None else "none"
+        if remat != "none":  # the backward's recompute takes this forward's route
+            body = ops.replaying_route(body)
         terms = []
         for g in range(n):
             if remat == "none":

@@ -1589,3 +1589,77 @@ def test_cp_zigzag_attention_on_sixteen_ranks_of_the_card(cuda_device, native):
         got = got[:, :, torch.argsort(pos)]
     err = (got.float() - want).abs()
     assert bool((err <= 4e-3 + 2 ** -6 * want.abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["cp_zigzag", "cp_zigzag_native"])
+def test_cp_train_step_on_the_card_matches_the_one_call_step(cuda_device, mode):
+    """A reduced smollm-135m ``train_4k`` step (B = 2 as 2 x 1, S = 4096,
+    remat full) on the card under a CP route over a (1, 16) mesh of ranks
+    on the card, inside ``set_mesh`` (the remat recompute reads the route in
+    the backward), against the step with one K4 call a layer: the loss
+    within 1e-4, first moments within 2e-2 of each leaf's largest entry
+    (bf16 leaves; ``chip_smoke.py``'s CP_TRAIN_LEAF_RTOL), K4 launched 2 x 2
+    x 32 a layer; the native mode on tokens and targets permuted by
+    ``zigzag_positions``."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cp_attention import zigzag_positions
+    from repro_torch.kernels.flash_attention import flash_attention as k4
+    from repro_torch.launch.mesh import make_mesh_for, set_mesh
+    from repro_torch.models.lm import LM
+    from repro_torch.train import SyntheticTokens, tree_leaves
+    from repro_torch.train.train_step import build_train_step, init_train_state
+
+    s = 4096
+    cfg = configs.reduced(configs.get_config("smollm-135m"))
+    model = LM(cfg, device=cuda_device, remat="full")
+    state = init_train_state(model, 0)
+    mesh = make_mesh_for([cuda_device] * 16, shard_axes=("data", "model"), shape=(1, 16))
+    step, _ = build_train_step(model, mesh, 2, microbatches=2)
+    tok, tgt = (torch.from_numpy(a).to(cuda_device) for a in
+                SyntheticTokens(cfg.vocab_size, s, 2).host_batch(0))
+    one, m1 = step(state, tok, tgt)
+    if mode == "cp_zigzag_native":
+        pos = torch.from_numpy(zigzag_positions(s, 16)).to(cuda_device)
+        tok, tgt = tok[:, pos], tgt[:, pos]
+    impl = ops.ATTN_IMPL
+    k4_0 = k4.launches
+    with set_mesh(mesh):
+        ops.ATTN_IMPL = mode
+        try:
+            cp, m2 = step(state, tok, tgt)
+        finally:
+            ops.ATTN_IMPL = impl
+    assert k4.launches - k4_0 == 2 * 2 * 32 * cfg.num_layers
+    assert abs(float(m1["loss"]) - float(m2["loss"])) <= 1e-4
+    for a, b in zip(tree_leaves(one.opt.mu), tree_leaves(cp.opt.mu)):
+        assert float((b - a).abs().max()) <= 2e-2 * max(float(a.abs().max()), 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["smollm-135m", "gemma2-2b", "minicpm3-4b"])
+def test_chunk_filled_decode_matches_the_prefill_on_the_card(cuda_device, name):
+    """Reduced models on the card, B = 2, S = 4096: the cache filled with
+    the first 4,095 tokens in chunks of 512 through the cached forward (no
+    K4 launch), then token 4,095 decoded, within 5e-2 of the K4 prefill's
+    last logits of the same tokens."""
+    from repro_torch import configs
+    from repro_torch.models.lm import LM
+    from repro_torch.train import SyntheticTokens
+
+    s, chunk = 4096, 512
+    cfg = configs.reduced(configs.get_config(name))
+    model = LM(cfg, device=cuda_device)
+    params = model.init(0)
+    tok = torch.from_numpy(SyntheticTokens(cfg.vocab_size, s, 2).host_batch(0)[0]).to(
+        cuda_device)
+    cache = model.init_cache(2, s)
+    k4_0 = fa.flash_attention.launches
+    for i in range(0, s - 1, chunk):
+        model.forward(params, tok[:, i:min(i + chunk, s - 1)], cache=cache, cache_pos=i)
+    dec = model.forward(params, tok[:, s - 1:], cache=cache, cache_pos=s - 1)[0]
+    assert fa.flash_attention.launches == k4_0
+    pre = model.forward(params, tok, last_only=True)[0]
+    v = cfg.vocab_size
+    assert float((dec - pre)[..., :v].abs().max()) <= 5e-2
