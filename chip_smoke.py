@@ -2941,7 +2941,8 @@ def sdpa_backend(q, k, v, causal: bool) -> str:
     choose = getattr(torch, "_fused_sdp_choice", None)
     if choose is None:
         return "not measured (no backend chooser in this PyTorch)"
-    pick = choose(q, k, v, is_causal=causal)
+    # a GQA call names enable_gqa, as the timed call passes it
+    pick = choose(q, k, v, is_causal=causal, enable_gqa=q.shape[1] != k.shape[1])
     return next((name for name, b in SDPBackend.__members__.items() if int(b) == pick),
                 str(pick))
 
@@ -3228,14 +3229,20 @@ def cut_depth(model, params, layers: int):
     """The model cut to its first ``layers`` layers, rounded up to whole
     block-pattern groups, on the full model's weights (views of the stacked
     groups)."""
+    return group_slice(model, params, 0, -(-layers // len(model.cfg.block_pattern)))
+
+
+def group_slice(model, params, start: int, stop: int):
+    """The model cut to its block-pattern groups ``start`` to ``stop`` on the
+    full model's weights (views of the stacked groups)."""
     from repro_torch.models import LM
 
-    groups = -(-layers // len(model.cfg.block_pattern))
-
     def cut(tree):
-        return {k: cut(v) for k, v in tree.items()} if isinstance(tree, dict) else tree[:groups]
+        return ({k: cut(v) for k, v in tree.items()} if isinstance(tree, dict)
+                else tree[start:stop])
 
-    cfg = dataclasses.replace(model.cfg, num_layers=groups * len(model.cfg.block_pattern))
+    cfg = dataclasses.replace(model.cfg,
+                              num_layers=(stop - start) * len(model.cfg.block_pattern))
     return LM(cfg, device=model.device), dict(params, blocks=[cut(b) for b in params["blocks"]])
 
 
@@ -5161,24 +5168,36 @@ def cp_prefill_gate(arch, model, params, inputs, base) -> dict:
             "forward_ms_host": sec * 1e3}
 
 
-def k5_long_gate(x, a, b, c, chunk) -> dict:
-    """K5 at mamba2's first SSM layer's 32k activations against
-    ``ssd_plain`` (K5_TOL), a planted fault (the state carried into the
-    middle chunk zeroed: the plain version of the second half alone), the
-    kernel's and the plain version's event medians and the bound."""
+def k5_long_gate(x, a, b, c, chunk, cell: str = "prefill_32k") -> dict:
+    """K5 at mamba2's first SSM layer's activations of a long prefill
+    (``cell``) against ``ssd_plain`` (K5_TOL), over all of y and, printed on
+    their own lines, over the upper half of the heads (whose chunk states lie
+    past the middle of the state scratch: past byte 2^31 at S = 524,288) and
+    over the second half of the chunks; a planted fault (the state carried
+    into the middle chunk zeroed: the plain version of the second half
+    alone), the kernel's and the plain version's event medians and the
+    bound."""
     from repro_torch.kernels.ssd_scan import ssd_plain, ssd_scan
 
     y = ssd_scan(x, a, b, c, chunk=chunk)
     again = ssd_scan(x, a, b, c, chunk=chunk)
     plain = ssd_plain(x, a, b, c, chunk=chunk)
-    s = x.shape[1]
+    s, h = x.shape[1], x.shape[2]
     half = s // chunk // 2 * chunk
     fault = ssd_plain(x[:, half:], a[:, half:], b[:, half:], c[:, half:], chunk=chunk)
     torch.cuda.synchronize()
     err = (y - plain).abs().max().item()
+    err_heads = (y[:, :, h // 2:] - plain[:, :, h // 2:]).abs().max().item()
+    err_chunks = (y[:, half:] - plain[:, half:]).abs().max().item()
     fault_err = (fault - plain[:, half:]).abs().max().item()
     del fault, plain
-    require(torch.equal(y, again), "K5 not bitwise repeatable at 32k")
+    scratch = x.shape[0] * h * (s // chunk) * x.shape[3] * b.shape[3] * 4
+    print(f"K5 {cell}: heads {h // 2}-{h - 1} alone (their chunk states from byte "
+          f"{scratch // 2:,} of the {scratch:,}-byte state scratch on): max|kernel - plain| "
+          f"{err_heads:.3e} (tolerance {K5_TOL})")
+    print(f"K5 {cell}: chunks {half // chunk}-{s // chunk - 1} alone: max|kernel - plain| "
+          f"{err_chunks:.3e} (tolerance {K5_TOL})")
+    require(torch.equal(y, again), f"K5 not bitwise repeatable at {cell}")
     ms = median_ms(lambda: ssd_scan(x, a, b, c, chunk=chunk), reps=3, warmup=1)
     plain_ms = median_ms(lambda: ssd_plain(x, a, b, c, chunk=chunk), reps=1, warmup=0)
     bsz, _, h, p = x.shape
@@ -5190,30 +5209,31 @@ def k5_long_gate(x, a, b, c, chunk) -> dict:
     t_ops = K5_TF32_PRODUCTS * flops / TF32_FLOP_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bnd = max(t_ops, t_bytes)
-    print(f"K5 prefill_32k mamba2-370m layer 0 at its real activations (B={bsz} S={s} H={h} "
+    print(f"K5 {cell} mamba2-370m layer 0 at its real activations (B={bsz} S={s} H={h} "
           f"G={g} P={p} N={n} chunk {chunk}: {nc} chunks): max|kernel - plain| {err:.3e} "
           f"(tolerance {K5_TOL}); planted fault (the state carried into chunk {half // chunk} "
           f"zeroed) {fault_err:.3e}, {fault_err / K5_TOL:.1f}x the tolerance; kernel {ms:.4f} "
           f"ms, plain {plain_ms:.3f} ms, bound {bnd:.4f} ms ("
           f"{'operations' if t_ops >= t_bytes else 'bytes'}), on {card_line()}")
-    require(err <= K5_TOL, f"K5 disagrees with its plain version at 32k: {err}")
-    require(fault_err > K5_TOL, "the K5 32k gate would pass a zeroed carried state")
+    require(err <= K5_TOL, f"K5 disagrees with its plain version at {cell}: {err}")
+    require(fault_err > K5_TOL, f"the K5 {cell} gate would pass a zeroed carried state")
     return {"layout": f"B={bsz} S={s} H={h} G={g} P={p} N={n} chunk={chunk} f32",
-            "max_abs_err": err, "fault_err": fault_err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "upper_heads_err": err_heads, "second_half_chunks_err": err_chunks,
+            "fault_err": fault_err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": None, "bound_ms": bnd,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flops": flops, "bytes": nbytes}
 
 
-def long_prefill(dev, arch, card: str) -> tuple:
-    """``prefill_32k`` of one full-width model at ``LONG_PREFILL``'s batch,
-    built by ``launch/cells.py::build_cell_fn``: two forwards (the first
-    read for its peak memory against the dry run's estimate, the second
-    timed with CUDA events, profiled and compared bit for bit, with the
-    first K4 calls, or the first K5 call, captured), launches over both from
-    the block pattern; the K4 / K5 gates on the captured
-    activations; for ``LONG_CP_ARCHS`` the CP prefill.  Returns the reading
-    and ``(fn, args)`` for the decode phase."""
+def long_prefill(dev, arch, card: str, spec=None) -> tuple:
+    """``prefill_32k`` of one full-width model at ``LONG_PREFILL``'s batch
+    (or the prefill ``spec``), built by ``launch/cells.py::build_cell_fn``:
+    two forwards (the first read for its peak memory against the dry run's
+    estimate, the second timed with CUDA events, profiled and compared bit
+    for bit, with the first K4 calls, or the first K5 call, captured),
+    launches over both from the block pattern; the K4 / K5 gates on the
+    captured activations; for ``LONG_CP_ARCHS`` the CP prefill.  Returns the
+    reading, the model and its parameters for the decode phase."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ssd_scan import ssd_scan
@@ -5224,9 +5244,13 @@ def long_prefill(dev, arch, card: str) -> tuple:
 
     t_phase = time.perf_counter()
     cfg = get_config(arch)
-    batch = LONG_PREFILL[arch]
-    spec = dataclasses.replace(SHAPES["prefill_32k"], global_batch=batch)
-    require(spec.seq_len == LONG_SEQ, f"prefill_32k is S={spec.seq_len}")
+    if spec is None:
+        spec = dataclasses.replace(SHAPES["prefill_32k"], global_batch=LONG_PREFILL[arch])
+        require(spec.seq_len == LONG_SEQ, f"prefill_32k is S={spec.seq_len}")
+    require(spec.kind == "prefill", f"{spec.name} is a {spec.kind} cell")
+    batch, seq = spec.global_batch, spec.seq_len
+    cell = spec.name if spec.name == "prefill_32k" else f"{spec.name} prefill"
+    full_batch = SHAPES[spec.name].global_batch
     mesh = make_mesh_for([dev], shard_axes=("data", "model"), shape=(1, 1))
     fn, args = build_cell_fn(cfg, spec, mesh, seed=SEED)
     model, (params, tok) = fn.model, args
@@ -5248,7 +5272,7 @@ def long_prefill(dev, arch, card: str) -> tuple:
         end.record()
 
     with K4Capture(calls) as k4cap, SSDCapture() as k5cap:
-        prof = spanned_profile(f"{arch} prefill_32k B={batch}", second_forward, [], warm=False)
+        prof = spanned_profile(f"{arch} {cell} B={batch}", second_forward, [], warm=False)
     end.synchronize()
     ms = start.elapsed_time(end)
     second = timed.pop()
@@ -5256,22 +5280,23 @@ def long_prefill(dev, arch, card: str) -> tuple:
     per = launches_per_forward(cfg)
     v = cfg.vocab_size
     require(all(counts[k] == 2 * n for k, n in per.items()),
-            f"{arch}: prefill_32k launches {counts}, want twice {per}")
-    require(bool(torch.isfinite(first[..., :v]).all()), f"{arch}: non-finite 32k logits")
+            f"{arch}: {cell} launches {counts}, want twice {per}")
+    require(bool(torch.isfinite(first[..., :v]).all()), f"{arch}: non-finite {cell} logits")
     require(first.shape == (batch, 1, first.shape[-1]), f"{arch}: logits {tuple(first.shape)}")
-    require(torch.equal(first, second), f"{arch}: 32k logits differ between forwards")
+    require(torch.equal(first, second), f"{arch}: {cell} logits differ between forwards")
     del second
     share = {"k4": prof["k4_ms"] / prof["busy_ms"] if prof["busy_ms"] else None,
              "k5": prof["k5_ms"] / prof["busy_ms"] if prof["busy_ms"] else None}
     kernel, kernel_ms, kernel_n = (("K4", prof["k4_ms"], per["flash_attention"])
                                    if per["flash_attention"] else
                                    ("K5", prof["k5_ms"], per["ssd_scan"]))
-    print(f"prefill_32k {arch} (full width, {cfg.num_layers} layers, B={batch}"
-          f"{'' if batch == 32 else ' (the reference 32 cut to fit one card)'}, S={LONG_SEQ}, "
+    print(f"{cell} {arch} (full width, {cfg.num_layers} layers, B={batch}"
+          f"{'' if batch == full_batch else f' (the reference {full_batch} cut to fit one card)'}"
+          f", S={seq}, "
           f"from {'frames' if cfg.frontend != 'none' else 'token ids'}): launches over 2 "
           f"forwards {counts}; logits {tuple(first.shape)} finite and bitwise repeatable, "
           f"max|logit| {first[..., :v].abs().max().item():.4f}; the second forward {ms:.1f} ms "
-          f"(CUDA events), {batch * LONG_SEQ / ms * 1e3:.0f} tokens/s, profiled: busy "
+          f"(CUDA events), {batch * seq / ms * 1e3:.0f} tokens/s, profiled: busy "
           f"{prof['busy_ms']:.1f} of {prof['wall_ms']:.1f} ms, {kernel} {kernel_ms:.1f} ms of it "
           f"({100 * kernel_ms / max(prof['busy_ms'], 1e-9):.1f} %) over {kernel_n} launches a "
           f"forward; first forward's peak "
@@ -5286,13 +5311,13 @@ def long_prefill(dev, arch, card: str) -> tuple:
         out["k4"][i] = k4_long_call(arch, q, k, vv, kw, label)
         del q, k, vv
     if k5cap.seen is not None:
-        out["k5"] = k5_long_gate(*k5cap.seen)
+        out["k5"] = k5_long_gate(*k5cap.seen, cell=cell)
     del k4cap, k5cap
     torch.cuda.empty_cache()
     if arch in LONG_CP_ARCHS:
         out["cp_prefill"] = cp_prefill_gate(arch, model, params, inputs, first)
     out["seconds"] = time.perf_counter() - t_phase
-    print(f"phase 11 prefill_32k {arch}: {out['seconds']:.1f} s of wall time")
+    print(f"{cell} {arch}: {out['seconds']:.1f} s of wall time")
     return out, model, params
 
 
@@ -5528,6 +5553,598 @@ def long_context_rows(long: dict) -> list:
                          "prefill_ms": r["ms"], "k5_share": r["share"]["k5"]})
     return rows
 
+
+# --------------------------------------------------------- phase 12 ----
+LONG_500K = 524288  # SHAPES["long_500k"]: B = 1, kind decode (models/config.py:135)
+# K4 at jamba's attention layer with S = T = 524,288: B, Hq, Hkv, Dh (bf16,
+# causal); the heads and the first rows of the 128-row query tiles gated
+# against the float32 plain version.  q and the output, (B, S, H, Dh)
+# buffers seen as (B, H, S, Dh) as the layer gives them, hold 2^31 elements:
+# row 262,144 starts at byte 2^31 and head 31's last row ends at byte 2^32.
+# The plain version is timed over the whole rows of the same heads, a block
+# of K4_500K_PLAIN_ROWS rows at a time (one head's (S, T) float32 block
+# would take 1.1 TB; all 32 heads, about 180 s)
+K4_500K = (1, 32, 8, 128)
+K4_500K_HEADS = (0, 31)
+K4_500K_TILES = (0, LONG_500K // 2, LONG_500K - 128)
+K4_500K_PLAIN_ROWS = 4096
+
+
+def decode_attention_limit(max_logit: float) -> float:
+    """The per-head limit on the cached step's bf16 attention output against
+    a float32 plain attention over the same q and cache, ``||o - ref|| /
+    ||ref||`` (and ``max|o - ref|`` over the head's largest ``|ref|``): the
+    step forms its logits in bf16 as the reference's does, so each logit
+    is rounded twice (the product, then the scaled product; ``2^-9 |l|``
+    each) and the probabilities and the output once each (``2^-9`` each).
+    tests/test_torch_long_500k.py holds the same step on the CPU to it."""
+    return 2.0 ** -8 * (2.0 + max_logit)
+
+
+class DecodeAttentionCapture:
+    """While open, ``models.layers.decode_attention`` (the cached step's
+    attention) keeps each call's q, cache tensors, scale and output."""
+
+    def __enter__(self):
+        from repro_torch.models import layers
+
+        self.layers, self.real, self.seen = layers, layers.decode_attention, []
+
+        def capture(q, k_cache, v_cache, cache_pos, **kw):
+            o = self.real(q, k_cache, v_cache, cache_pos, **kw)
+            self.seen.append((q.clone(), k_cache, v_cache, cache_pos, kw, o.clone()))
+            return o
+
+        layers.decode_attention = capture
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.decode_attention = self.real
+
+
+def seed_states(cache, gen, kv_scale=None) -> dict:
+    """Fill a decode cache in place with seeded values (the reference's cell
+    decodes against zeros, which cannot show that a step reads its cache):
+    k and v at every position but the step's own (the last), N(0, 1) times
+    ``kv_scale``'s ``(k, v)`` scales, in bf16; conv states N(0, 1) in bf16 and
+    SSM states N(0, 1) in float32.  Returns the scales used."""
+    used = {}
+    for entry in cache:
+        for key, leaf in entry.items():
+            if key in ("k", "v"):
+                scale = kv_scale[key]
+                body = leaf[..., :-1, :]
+                for g in range(body.shape[0]):  # a group at a time: float32 drafts stay small
+                    body[g].copy_(torch.randn(body[g].shape, generator=gen, device=leaf.device)
+                                  * scale)
+            else:
+                scale = 1.0
+                leaf.copy_(torch.randn(leaf.shape, generator=gen, device=leaf.device))
+            used[key] = scale
+    return used
+
+
+def clone_cache(cache) -> list:
+    return [{k: v.clone() for k, v in entry.items()} for entry in cache]
+
+
+def caches_equal(a, b) -> bool:
+    return all(torch.equal(x[k], y[k]) for x, y in zip(a, b) for k in x)
+
+
+# A1's per-group limit: each layer group of the step, fed the CPU's own input
+# hidden state and state, against the CPU's group, as ``||d|| / ||ref||`` of
+# the group's increment (its output minus its input) and of each new state
+# leaf.  The increment passes through about four bf16 roundings (in_proj,
+# the gated output, the norm, out_proj), each 2^-9 of an entry, and the two
+# devices sum their matmuls in other orders: four bf16 steps, 2^-6, hold
+# that with room.  A state carried wrong moves the increment (zeroed: by
+# about its own size) or the new state (scaled by 15/16: by 1/16 of it).
+SSM_GROUP_REL = 2.0 ** -6
+# ... and its 48-layer gate: the card's gap to the CPU over the whole step
+# at most twice the gap the card's own per-group differences make when the
+# CPU step replays them (each added to its group's output), or LM_LOGIT_TOL
+SSM_REPLAY_FACTOR = 2.0
+
+
+def traced_step(model, params, cache, pos, tok=None, embeds=None, replay=None):
+    """One cached step of ``model`` with each block-pattern group's body
+    traced: ``(logits, [(input, output)] per group)``, the hidden states in
+    bf16.  ``replay`` (a float32 tensor per group) is added to each group's
+    output before the next group reads it."""
+    body_of, seen = model._group_fn, []
+
+    def group_fn(cos, sin, cache_pos):
+        body = body_of(cos, sin, cache_pos)
+
+        def traced(x, gp, gc):
+            y, terms = body(x, gp, gc)
+            if replay is not None:
+                y = (y.float() + replay[len(seen)].to(y.device)).to(y.dtype)
+            seen.append((x.clone(), y.clone()))
+            return y, terms
+
+        return traced
+
+    model._group_fn = group_fn
+    try:
+        logits = model.forward(params, tok, embeds=embeds, cache=cache, cache_pos=pos)[0]
+    finally:
+        del model._group_fn
+    return logits, seen
+
+
+def _rel(got, want) -> float:
+    want = want.float()
+    return ((got.float() - want).norm() / want.norm()).item()
+
+
+def depth_witness(model, params, cpu, params_cpu, tok, host, pos) -> dict:
+    """A1's witness at full depth, a step of ``model`` (on the card) against
+    the same step of ``cpu`` (on the CPU) from the state ``host``.  Each
+    group alone: the card's group fed the CPU's input hidden state and the
+    group's state, against the CPU's group (``SSM_GROUP_REL``, on the
+    increment and on each new state leaf), and as planted faults the deepest
+    group from its SSM state zeroed and scaled by 15/16 (a decay 1/16 too
+    strong).  Then the CPU step replaying the card's per-group output
+    differences: the gap those make over the whole depth, which the card's
+    own gap is held to (``SSM_REPLAY_FACTOR``)."""
+    dev = model.device
+    c_cpu = clone_cache(host)
+    want, seen = traced_step(cpu, params_cpu, c_cpu, pos, tok=tok.cpu())
+    inc_rel, state_rel, delta = [], [], []
+    for g, (x, y) in enumerate(seen):
+        one, p_one = group_slice(model, params, g, g + 1)
+        state = [{k: t[g:g + 1].to(dev, copy=True) for k, t in e.items()} for e in host]
+        (_, y_d), = traced_step(one, p_one, state, pos, embeds=x.to(dev))[1]
+        y_d = y_d.cpu()
+        inc_rel.append(_rel(y_d.float() - x.float(), y.float() - x.float()))
+        state_rel.append(max(_rel(a[k].cpu(), b[k][g:g + 1])
+                             for a, b in zip(state, c_cpu) for k in a))
+        delta.append(y_d.float() - y.float())
+    last = len(seen) - 1
+    one, p_one = group_slice(model, params, last, last + 1)
+    x, y = seen[last]
+    faults = {}
+    for name, scale in (("zero", 0.0), ("decayed", 15 / 16)):
+        bad = [{k: t[last:last + 1].to(dev) * scale if k == "ssm" else
+                t[last:last + 1].to(dev, copy=True) for k, t in e.items()} for e in host]
+        (_, y_f), = traced_step(one, p_one, bad, pos, embeds=x.to(dev))[1]
+        faults[name] = max(_rel(y_f.cpu().float() - x.float(), y.float() - x.float()),
+                           *(_rel(a[k].cpu(), b[k][last:last + 1])
+                             for a, b in zip(bad, c_cpu) for k in a))
+    replayed = traced_step(cpu, params_cpu, clone_cache(host), pos, tok=tok.cpu(),
+                           replay=delta)[0]
+    return {"want": want, "inc_rel": inc_rel, "state_rel": state_rel, "faults": faults,
+            "replayed": replayed}
+
+
+def long_500k_mamba2(dev, card: str) -> dict:
+    """A1: mamba2-370m's ``long_500k`` cell, whole (48 layers), as
+    ``build_cell_fn`` builds it: one token at ``cache_pos`` = 524,287.  Its
+    cache is the conv and SSM state, O(1) in S.  The cell as built (a zero
+    state) runs once; then from a seeded state (``seed_states``): two steps
+    from copies of the state bitwise equal (logits and state), no K4 or K5
+    launch, the step's time and its peak beside the dry run's estimate of
+    the cell.  Card against CPU, the same step from the same parameters and
+    state: gated at the first ``SSM_DECODE_GATE_LAYERS`` layers within
+    LM_LOGIT_TOL, as phase 9's ``card_against_cpu`` cuts its models (the two
+    devices' bf16 roundings drift apart with depth); the planted fault, the
+    cut step from a zero state, must read above it.  At all 48 layers
+    (``depth_witness``): each group alone against the CPU's from the same
+    input and state within ``SSM_GROUP_REL``, the deepest from a faulty state
+    as the planted faults; the whole step within ``SSM_REPLAY_FACTOR`` times the gap
+    the CPU step makes replaying the card's per-group differences (or
+    LM_LOGIT_TOL)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.cells import build_cell_fn
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import LM
+    from repro_torch.models.config import SHAPES
+    from repro_torch.train import tree_map
+
+    t0 = time.perf_counter()
+    arch = "mamba2-370m"
+    cfg = get_config(arch)
+    spec = SHAPES["long_500k"]
+    mesh = make_mesh_for([dev], shard_axes=("data", "model"), shape=(1, 1))
+    fn, (params, tok, cache, pos) = build_cell_fn(cfg, spec, mesh, seed=SEED)
+    model = fn.model
+    require(pos == LONG_500K - 1 and tuple(tok.shape) == (1, 1), f"long_500k: pos {pos}")
+    est = dryrun.memory_estimate(cfg, spec, dryrun.meta_mesh(shape=(1, 1)), 1)
+    v = cfg.vocab_size
+    flash_attention.launches = ssd_scan.launches = 0
+    zero = fn(params, tok, cache, pos)[0][..., :v]  # the reference's cell: a zero state
+    require(bool(torch.isfinite(zero).all()) and zero.shape == (1, 1, v),
+            f"{arch}: long_500k logits {tuple(zero.shape)}")
+    del cache, zero
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    seeded = model.init_cache(1, spec.seq_len)
+    seed_states(seeded, gen)
+    host = tree_map(lambda t: t.to("cpu", copy=True), seeded)  # the state the other steps start from
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    one = fn(params, tok, seeded, pos)[0][..., :v]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    again = tree_map(lambda t: t.to(dev, copy=True), host)
+    two = fn(params, tok, again, pos)[0][..., :v]
+    torch.cuda.synchronize()
+    require(flash_attention.launches == 0 and ssd_scan.launches == 0,
+            f"{arch}: the long_500k step launched a kernel")
+    require(bool(torch.isfinite(one).all()), f"{arch}: non-finite long_500k logits")
+    same = torch.equal(one, two) and caches_equal(seeded, again)
+    step_ms = median_ms(lambda: fn(params, tok, again, pos), reps=3, warmup=1)
+    del again, two
+    params_cpu = tree_map(lambda t: t.cpu(), params)
+    cpu = LM(cfg, device="cpu")
+    wit = depth_witness(model, params, cpu, params_cpu, tok, host, pos)
+    whole = (one.cpu() - wit["want"][..., :v]).abs().max().item()
+    replay = (wit["replayed"][..., :v] - wit["want"][..., :v]).abs().max().item()
+    to_replay = (one.cpu() - wit["replayed"][..., :v]).abs().max().item()
+    whole_tol = max(LM_LOGIT_TOL, SSM_REPLAY_FACTOR * replay)
+    group_rel = max(max(wit["inc_rel"]), max(wit["state_rel"]))
+    gfault = min(wit["faults"].values())
+    # the gate: the same step cut to its first layers, on both devices
+    layers = SSM_DECODE_GATE_LAYERS
+    cut_d, p_d = cut_depth(model, params, layers)
+    cut_c, p_c = cut_depth(cpu, params_cpu, layers)
+    groups = cut_d.cfg.num_groups
+
+    def first_groups(c, device):
+        return [{k: x[:groups].clone().to(device) for k, x in e.items()} for e in c]
+
+    c_cpu = first_groups(host, "cpu")
+    want = cut_c.forward(p_c, tok.cpu(), cache=c_cpu, cache_pos=pos)[0][..., :v]
+    c_dev = first_groups(host, dev)
+    got = cut_d.forward(p_d, tok, cache=c_dev, cache_pos=pos)[0][..., :v].cpu()
+    zero_cut = [{k: torch.zeros_like(x) for k, x in e.items()} for e in c_dev]
+    fault = (cut_d.forward(p_d, tok, cache=zero_cut, cache_pos=pos)[0][..., :v].cpu()
+             - want).abs().max().item()
+    err = (got - want).abs().max().item()
+    ssm_err = max((a["ssm"].cpu() - b["ssm"]).abs().max().item() for a, b in zip(c_dev, c_cpu))
+    cache_bytes = sum(t.numel() * t.element_size() for e in seeded for t in e.values())
+    param_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"long_500k {arch} ({cfg.num_layers} layers, full width, B=1, one token at "
+          f"cache_pos {pos}; cache {cache_bytes / 1e6:.2f} MB, O(1) in S): the cell as built "
+          f"(a zero state) and steps from a seeded state launch no K4 or K5; two steps from "
+          f"one state bitwise equal: {same}; step {step_ms:.3f} ms (CUDA events); peak "
+          f"{peak / 2 ** 20:.3f} MiB ({(peak - base) / 2 ** 20:.3f} MiB over the "
+          f"{base / 2 ** 20:.3f} MiB allocated before the step: parameters "
+          f"{param_bytes / 2 ** 20:.3f}, state {cache_bytes / 2 ** 20:.3f}) against the dry "
+          f"run's 1 x 1 estimate {est['peak_bytes_per_rank_estimate'] / 2 ** 20:.3f} MiB "
+          f"({card})")
+    print(f"long_500k {arch} card against CPU from the seeded state: at its first {layers} "
+          f"layers {err:.4e} (gate {LM_LOGIT_TOL}), SSM state {ssm_err:.3e}; planted fault (a "
+          f"zero state) {fault:.4e}, {fault / LM_LOGIT_TOL:.1f}x the gate")
+    print(f"long_500k {arch} each of its {len(wit['inc_rel'])} groups alone from the CPU's "
+          f"input and state: ||d|| / ||ref|| of the increment largest "
+          f"{max(wit['inc_rel']):.3e} (group {wit['inc_rel'].index(max(wit['inc_rel']))}), "
+          f"median {statistics.median(wit['inc_rel']):.3e}; of the new state largest "
+          f"{max(wit['state_rel']):.3e} (limit {SSM_GROUP_REL:.4e}); planted faults in the "
+          f"deepest group, its SSM state zeroed {wit['faults']['zero']:.3e} and scaled by "
+          f"15/16 {wit['faults']['decayed']:.3e}, {gfault / SSM_GROUP_REL:.1f}x the limit "
+          f"or more; per group "
+          + " ".join(f"{r:.2e}" for r in wit["inc_rel"]))
+    print(f"long_500k {arch} at all {cfg.num_layers} layers: card against CPU {whole:.4e}; "
+          f"the CPU step replaying the card's per-group differences against the CPU step "
+          f"{replay:.4e}; gate max({LM_LOGIT_TOL}, {SSM_REPLAY_FACTOR} x that) = "
+          f"{whole_tol:.4e}; the card against that replay {to_replay:.4e} (printed); "
+          f"{sum(r == 0 for r in wit['inc_rel'])} of {len(wit['inc_rel'])} groups bitwise "
+          f"the CPU's (max|logit| {one.abs().max().item():.4f}); "
+          f"{time.perf_counter() - t0:.1f} s of wall time")
+    require(err <= LM_LOGIT_TOL, f"{arch}: the long_500k step misses the CPU's by {err}")
+    require(same, f"{arch}: two long_500k steps from one state differ")
+    require(fault > LM_LOGIT_TOL, f"{arch}: the long_500k gate would pass a zero state")
+    require(group_rel <= SSM_GROUP_REL,
+            f"{arch}: a long_500k group misses the CPU's by {group_rel}")
+    require(gfault > SSM_GROUP_REL, f"{arch}: the per-group gate would pass a faulty state")
+    require(whole <= whole_tol, f"{arch}: the 48-layer long_500k step misses the CPU's by "
+            f"{whole}, over {whole_tol}")
+    return {"layers": cfg.num_layers, "gate_layers": layers, "err": err, "ssm_err": ssm_err,
+            "err_all_layers": whole, "replay_err": replay, "all_layers_tol": whole_tol,
+            "card_to_replay": to_replay,
+            "group_inc_rel": wit["inc_rel"], "group_state_rel": wit["state_rel"],
+            "group_faults": wit["faults"], "fault": fault, "bitwise": same, "step_ms": step_ms,
+            "peak_bytes": peak, "before_step_bytes": base,
+            "estimate_bytes": est["peak_bytes_per_rank_estimate"], "cache_bytes": cache_bytes}
+
+
+def _f32_decode(q, k, v, scale):
+    """float32 attention of the one query row at the last position over the
+    whole cache (every key seen), by kv-head group (``plain_rows`` repeats
+    the cache over the query heads: 17 GB at jamba's 524,288 keys).  The
+    output (B, Hq, 1, Dv) and the largest |logit|."""
+    b, hq, s, dh = q.shape
+    hkv = k.shape[1]
+    logits = torch.einsum("bkgsd,bktd->bkgst", q.float().reshape(b, hkv, hq // hkv, s, dh),
+                          k.float()) * scale
+    out = torch.einsum("bkgst,bktd->bkgsd", torch.softmax(logits, -1), v.float())
+    return out.reshape(b, hq, s, v.shape[-1]), logits.abs().max().item()
+
+
+def long_500k_jamba(dev, card: str) -> dict:
+    """A2: jamba-v0.1-52b's ``long_500k`` step at one 8-layer group (phase
+    8b's cut), built by ``build_cell_fn``: k and v (1, 8, 524,288, 128) bf16
+    filled at positions 0..524,286 with seeded values at the scale of the
+    layer's real k and v (read from a 2,048-token prefill of the same
+    model), the SSM and conv states seeded (``seed_states``).  The attention
+    layer's output at the step (captured with its q) against a float32
+    plain attention over the same cache, per element and per head
+    (``decode_attention_limit``); the planted fault, the same step's
+    attention with the values of 1 / LONG_FAULT_SHARE of the keys zeroed,
+    must read above it.  Two steps from copies of the cache bitwise equal,
+    logits finite, no K4 or K5 launch; the step's time and its peak beside
+    the dry run's estimate for the cut config."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.cells import build_cell_fn
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import layers
+    from repro_torch.models.config import SHAPES
+    from repro_torch.train import SyntheticTokens, tree_map
+
+    t0 = time.perf_counter()
+    arch = "jamba-v0.1-52b"
+    cfg = dataclasses.replace(get_config(arch), num_layers=LM_DEPTH_CUT[arch])
+    spec = SHAPES["long_500k"]
+    mesh = make_mesh_for([dev], shard_axes=("data", "model"), shape=(1, 1))
+    fn, (params, tok, cache, pos) = build_cell_fn(cfg, spec, mesh, seed=SEED)
+    model = fn.model
+    est = dryrun.memory_estimate(cfg, spec, dryrun.meta_mesh(shape=(1, 1)), 1)
+    prompt = torch.from_numpy(np.ascontiguousarray(
+        SyntheticTokens(cfg.vocab_size, LM_SEQ, 1, seed=SEED).host_batch(0)[0])).to(dev)
+    with K4Capture((0,)) as cap:
+        model.forward(params, prompt, last_only=True)
+    q0, k0, v0, _ = cap.seen[0]
+    scales = {"q": q0.float().std().item(), "k": k0.float().std().item(),
+              "v": v0.float().std().item()}
+    del cap, q0, k0, v0
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    seed_states(cache, gen, kv_scale=scales)
+    spare = tree_map(lambda t: t.to("cpu", copy=True), cache)  # on the host: the step's peak is its own
+    v = cfg.vocab_size
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    flash_attention.launches = ssd_scan.launches = 0
+    with DecodeAttentionCapture() as att:
+        one = fn(params, tok, cache, pos)[0][..., :v]
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    spare = tree_map(lambda t: t.to(dev, copy=True), spare)
+    two = fn(params, tok, spare, pos)[0][..., :v]
+    torch.cuda.synchronize()
+    require(flash_attention.launches == 0 and ssd_scan.launches == 0,
+            f"{arch}: the long_500k step launched a kernel")
+    same = torch.equal(one, two) and caches_equal(cache, spare)
+    del spare
+    (q, kc, vc, cpos, kw, o), = att.seen
+    require(kc.shape[2] == LONG_500K and int(cpos) == pos, f"{arch}: cache {tuple(kc.shape)}")
+    ref, max_logit = _f32_decode(q, kc, vc, kw["scale"])
+    limit = decode_attention_limit(max_logit)
+    rms = tile_rms(o, ref).flatten()  # one row a head: its tile is the head
+    elem = ((o.float() - ref).abs().amax((-1, -2)) / ref.abs().amax((-1, -2))).flatten()
+    span = LONG_500K // LONG_FAULT_SHARE
+    drop = slice(LONG_500K // 2 - span // 2, LONG_500K // 2 - span // 2 + span)
+    zeroed = vc.clone()
+    zeroed[:, :, drop] = 0
+    bad = layers.decode_attention(q, kc, zeroed, cpos, **kw)
+    fault = tile_rms(bad, ref).max().item()
+    del zeroed, bad
+    step_ms = median_ms(lambda: fn(params, tok, cache, pos), reps=3, warmup=1)
+    require(bool(torch.isfinite(one).all()) and one.shape == (1, 1, v),
+            f"{arch}: long_500k logits {tuple(one.shape)}")
+    kv_bytes = 2 * kc.numel() * kc.element_size()
+    print(f"long_500k {arch} (one group of {cfg.num_layers} layers, full width, B=1, one token "
+          f"at cache_pos {pos}): k and v {tuple(kc.shape)} bf16 ({kv_bytes / 1e9:.3f} GB) filled "
+          f"at positions 0..{pos - 1} with N(0, 1) x the layer's real k and v scales "
+          f"{scales['k']:.4f}, {scales['v']:.4f} (its q: {scales['q']:.4f}; a {LM_SEQ}-token "
+          f"prefill), conv and SSM states N(0, 1); no K4 or K5 launch")
+    print(f"long_500k {arch} attention at the step against a float32 plain attention over the "
+          f"same {LONG_500K} keys: largest head ||d|| / ||ref|| {rms.max().item():.3e}, largest "
+          f"max|d| / max|ref| {elem.max().item():.3e} (limit 2^-8 (2 + max|logit| "
+          f"{max_logit:.3f}) = {limit:.3e}); per head rms "
+          + " ".join(f"{x:.2e}" for x in rms.tolist())
+          + f"; planted fault (the values of 1/{LONG_FAULT_SHARE} of the keys zeroed) "
+          f"{fault:.3e}, {fault / limit:.1f}x the limit; two steps bitwise equal: {same}; "
+          f"max|logit| {one.abs().max().item():.4f}; step {step_ms:.3f} ms (CUDA events); "
+          f"step peak {peak / 2 ** 20:.3f} MiB ({(peak - base) / 2 ** 20:.3f} MiB over the "
+          f"{base / 2 ** 20:.3f} MiB allocated before it) against the dry run's 1 x 1 estimate "
+          f"{est['peak_bytes_per_rank_estimate'] / 2 ** 20:.3f} MiB ({card}); "
+          f"{time.perf_counter() - t0:.1f} s of wall time")
+    require(rms.max().item() <= limit and elem.max().item() <= limit,
+            f"{arch}: the long_500k attention misses the float32 plain version")
+    require(fault > limit, f"{arch}: the long_500k attention gate would pass zeroed values")
+    require(same, f"{arch}: two long_500k steps from one cache differ")
+    return {"layers": cfg.num_layers, "kv_scales": scales, "head_rms": rms.max().item(),
+            "elem": elem.max().item(), "limit": limit, "max_logit": max_logit,
+            "fault": fault, "bitwise": same, "step_ms": step_ms, "peak_bytes": peak,
+            "before_step_bytes": base, "estimate_bytes": est["peak_bytes_per_rank_estimate"],
+            "kv_bytes": kv_bytes}
+
+
+def k4_500k(dev, card: str) -> dict:
+    """C: K4 at jamba's attention layer with S = T = 524,288 (the call a
+    500k prompt's prefill makes there; ``K4_500K``), on seeded q, k and v
+    drawn as (B, S, H, Dh) bf16 buffers and seen as (B, H, S, Dh), the
+    layer's layout.  Three launches, counted: a warm one whose output is
+    gated and two timed by CUDA events whose outputs must equal it bit for
+    bit.  The gate: the tiles ``K4_500K_TILES`` of heads ``K4_500K_HEADS``
+    against the float32 plain version (``plain_rows`` over the keys up to
+    each tile's last row), per element and per tile; the planted fault drops
+    1/16 of the keys the middle and the last tile see (``dropped_keys``; the
+    first tile's rows share one key).  Beside it the plain version's time
+    over those heads' whole rows, SDPA's where it takes the call, and the
+    bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (attention_plain, flash_attention,
+                                                     kernel_info, kernel_pair)
+
+    t0 = time.perf_counter()
+    b, hq, hkv, dh = K4_500K
+    s = LONG_500K
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def draw(heads):
+        return torch.randn((b, s, heads, dh), generator=gen, device=dev,
+                           dtype=torch.bfloat16).transpose(1, 2)
+
+    q, k, v = draw(hq), draw(hkv), draw(hkv)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    out = flash_attention(q, k, v, causal=True)
+    times, same = [], True
+    for _ in range(2):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        again = flash_attention(q, k, v, causal=True)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        same = same and torch.equal(out, again)
+        del again
+    launches = flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    ms = statistics.median(times)
+    g = hq // hkv
+    bk = kernel_info(*kernel_pair(dh, dh, q.dtype))["block_k"]
+    err = elem = rms = 0.0
+    fault = math.inf
+    readings = []
+    for h in K4_500K_HEADS:
+        kv = slice(h // g, h // g + 1)
+        for first in K4_500K_TILES:
+            last = first + 128
+            qb, kb, vb = q[:, h:h + 1, first:last], k[:, kv, :last], v[:, kv, :last]
+            ref = plain_rows(qb, kb, vb, first)
+            got = out[:, h:h + 1, first:last].float()
+            e = (got - ref).abs().max().item()
+            r = tile_rms(got, ref).max().item()
+            el = ((got - ref).abs() / (K4_BF16_ATOL + K4_BF16_RTOL * ref.abs())).max().item()
+            err, rms, elem = max(err, e), max(rms, r), max(elem, el)
+            row = {"head": h, "first_row": first, "max_abs_err": e, "tile_rms": r,
+                   "elem_ratio": el, "q_byte": (first * hq + h) * dh * 2}
+            if first > 0:
+                drop = dropped_keys(last, 128, bk)
+                row["fault_tile_rms"] = tile_rms(plain_rows(qb, kb, vb, first, drop=drop),
+                                                 ref).max().item()
+                fault = min(fault, row["fault_tile_rms"])
+            readings.append(row)
+            del ref, got
+    plain_ms = 0.0
+    rows = K4_500K_PLAIN_ROWS
+    for h in K4_500K_HEADS:
+        kv = slice(h // g, h // g + 1)
+
+        def plain_head():
+            for a in range(0, s, rows):
+                attention_plain(q[:, h:h + 1, a:a + rows].float(), k[:, kv, :a + rows].float(),
+                                v[:, kv, :a + rows].float(), causal=True)
+
+        plain_ms += _event_ms(plain_head)
+    lib_ms, backend = None, sdpa_backend(q, k, v, True)
+    try:
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+        sdpa()
+        lib_ms = _event_ms(sdpa)
+    except RuntimeError as exc:  # a yardstick only: a refusal is reported, not gated
+        backend = f"refused ({str(exc).splitlines()[0][:120]})"
+    bnd, by, flops, nbytes = k4_bound(q, k, v, True, None)
+    layout = (f"B={b} Hq={hq} Hkv={hkv} S=T={s} Dh={dh} bf16 causal, (B, S, H, Dh) buffers "
+              f"seen as (B, H, S, Dh)")
+    for r in readings:
+        print(f"K4 long_500k head {r['head']} rows {r['first_row']}-{r['first_row'] + 127} "
+              f"(q from byte {r['q_byte']:,}): max|d| {r['max_abs_err']:.3e}, elem "
+              f"{r['elem_ratio']:.3f} (at most 1), tile ||d|| / ||ref|| {r['tile_rms']:.3e} "
+              f"(at most {K4_TILE_RMS})"
+              + (f"; planted fault (1/{LONG_FAULT_SHARE} of the keys these rows see dropped) "
+                 f"{r['fault_tile_rms']:.3e}" if "fault_tile_rms" in r else ""))
+    print(f"K4 long_500k ({layout}): {launches} launches, outputs bitwise equal: {same}; kernel "
+          f"{ms:.1f} ms (CUDA events, two calls after a warm one: "
+          + ", ".join(f"{t:.1f}" for t in times)
+          + f"), bound {bnd:.1f} ms ({by}), {100 * bnd / ms:.1f}% of it; plain (heads "
+          f"{K4_500K_HEADS} of {hq}, {rows} rows at a time) {plain_ms:.1f} ms; SDPA "
+          f"({backend}) {_ms(lib_ms)}; peak {peak / 2 ** 30:.2f} GiB (q, k, v and two outputs "
+          f"{(3 * q.numel() + k.numel() + v.numel()) * 2 / 2 ** 30:.2f} GiB; no dry-run cell "
+          f"holds one kernel call) ({card}); "
+          f"{time.perf_counter() - t0:.1f} s of wall time")
+    require(launches == 3, f"K4 long_500k launched {launches} times")
+    require(same, "K4 not bitwise repeatable at S = 524,288")
+    require(elem <= 1.0 and rms <= K4_TILE_RMS, "K4 disagrees with its float32 plain version at "
+            "S = 524,288")
+    require(fault > K4_TILE_RMS, "the K4 long_500k gate would pass dropped keys")
+    return {"layout": layout, "launches": launches, "max_abs_err": err, "f32_elem_ratio": elem,
+            "f32_tile_rms": rms, "fault_tile_rms": fault, "tiles": readings, "ms": ms,
+            "times_ms": times, "plain_ms": plain_ms, "plain_heads": list(K4_500K_HEADS),
+            "library_ms": lib_ms, "library_backend": backend, "bound_ms": bnd,
+            "bound_by": by, "flops": flops, "bytes": nbytes, "peak_bytes": peak}
+
+
+def phase_long_500k(dev, card: str) -> dict:
+    """Phase 12: the reference's ``long_500k`` cell on the card, and the two
+    kernel calls a 500k context needs: mamba2-370m's step (A1) and its
+    524,288-token prefill through K5 (B), jamba's group against a seeded
+    524,288 cache (A2), K4 at S = 524,288 (C).  Each model is freed before
+    the next."""
+    from repro_torch.models.config import SHAPES
+
+    t0 = time.perf_counter()
+    # the cuBLAS workspaces of the earlier phases' streams (32 MiB each) stay
+    # allocated; released here, the peaks below hold this phase's own (the
+    # dry run counts one stream's)
+    held = torch.cuda.memory_allocated()
+    torch._C._cuda_clearCublasWorkspaces()
+    print(f"phase 12: released {(held - torch.cuda.memory_allocated()) / 2 ** 20:.3f} MiB of "
+          f"cuBLAS workspaces held by earlier phases")
+    out = {"mamba2": long_500k_mamba2(dev, card)}
+    torch.cuda.empty_cache()
+    spec = dataclasses.replace(SHAPES["long_500k"], kind="prefill")
+    out["prefill"], model, params = long_prefill(dev, "mamba2-370m", card, spec=spec)
+    del model, params
+    torch.cuda.empty_cache()
+    out["jamba"] = long_500k_jamba(dev, card)
+    torch.cuda.empty_cache()
+    out["k4"] = k4_500k(dev, card)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 12: {out['seconds']:.1f} s of wall time, on {card}")
+    return out
+
+
+def long_500k_rows(long: dict) -> list:
+    """The kernels line's rows of phase 12: K5 at 524,288 (its launches over
+    the two counted prefills) and K4 at S = 524,288 (its three counted
+    launches)."""
+    pre, k4 = long["prefill"], long["k4"]
+    k5 = pre["k5"]
+    return [
+        {"name": "ssd_scan (long_500k prefill, mamba2-370m)", "route": "cuda",
+         "source": "src/repro_torch/csrc/ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd_scan.py:29",
+         "launches": pre["launches"]["ssd_scan"],
+         **{k: k5[k] for k in ("max_abs_err", "upper_heads_err", "second_half_chunks_err",
+                               "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                               "layout")},
+         "prefill_ms": pre["ms"], "k5_share": pre["share"]["k5"]},
+        {"name": "flash_attention (long_500k, jamba-v0.1-52b's attention layer)",
+         "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:30",
+         **{k: k4[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "plain_heads",
+                               "bound_ms", "bound_by", "library_ms", "library_backend",
+                               "layout", "f32_tile_rms", "fault_tile_rms")}},
+    ]
+
+
 def _leaves(tree) -> list:
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -5704,6 +6321,9 @@ def main() -> int:
     long = phase_long_context(dev, card)
     for row in long_context_rows(long):
         require(row["launches"] > 0, f"{row['name']} never launched on its 32k path")
+        kernels.append(row)
+    for row in long_500k_rows(phase_long_500k(dev, card)):
+        require(row["launches"] > 0, f"{row['name']} never launched on its 524,288 path")
         kernels.append(row)
     for k in kernels:
         k["kernel_ms"] = k["ms"]

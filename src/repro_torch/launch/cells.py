@@ -93,8 +93,9 @@ def input_specs(cfg: Union[str, ArchConfig], spec: Union[str, ShapeSpec], mesh: 
         else:
             out["tokens"] = tok
         out["targets"] = tgt
-    else:  # decode: one new token against a seq_len cache
-        out["tokens"] = tok[:, s - 1:]
+    else:  # decode: one new token against a seq_len cache (a copy: a view
+        # would hold the whole (B, S) batch of ids on the device)
+        out["tokens"] = tok[:, s - 1:].clone()
         m = model if model is not None else LM(cfg, device=dev)
         out["cache"] = m.init_cache(b, s)
         out["cache_specs"] = cache_pspecs(cfg, out["cache"], mesh, b)

@@ -182,6 +182,35 @@ def ssd_workspace_bytes(cfg: ArchConfig, rows: int, seq: int, chunk: int = SSD_C
                          + g * nc * lp * lp)
 
 
+# PyTorch's cuBLAS workspace on an H100 (sm_90) when CUBLAS_WORKSPACE_CONFIG
+# is unset: 8 chunks of 4,096 KiB, taken from the caching allocator by a
+# stream's first GEMM and held after it
+CUBLAS_WORKSPACE_DEFAULT = 8 * 4096 * 1024
+
+
+def cublas_workspace_bytes() -> int:
+    """Bytes of the cuBLAS workspace a stream holds once it has run a GEMM:
+    the ``:SIZE:COUNT`` pairs of ``CUBLAS_WORKSPACE_CONFIG`` (SIZE in KiB;
+    ``chip_smoke.py`` sets ``:4096:8``), else PyTorch's default on sm_90."""
+    conf = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    if not conf:
+        return CUBLAS_WORKSPACE_DEFAULT
+    vals = [int(x) for x in conf.split(":") if x]
+    return sum(vals[i] * vals[i + 1] for i in range(0, len(vals) - 1, 2)) * 1024
+
+
+def _ssm_step_bytes(cfg: ArchConfig, rows: int, decode: bool) -> float:
+    """float32 bytes an SSM stack's inference step holds beyond its
+    activations: the mixer's output projection cast to float32 (``y @
+    w_out.float()``, d_inner x d_model) and, in a decode step, the one-step
+    recurrence's (B, H, P, N) temporaries (the update, the decayed state and
+    the new state); 0 without SSM layers."""
+    if not any(mixer == "ssm" for mixer, _ in cfg.block_pattern):
+        return 0.0
+    state = rows * cfg.ssm_heads * cfg.ssm_head_dim * cfg.ssm_state if decode else 0
+    return 4.0 * (cfg.d_inner * cfg.d_model + 3 * state)
+
+
 def _token_bytes(cfg: ArchConfig) -> float:
     """Activation bytes a token holds inside one layer of the prefill:
     bf16 tensors of the residual stream, attention and FFN widths (12 d + 3
@@ -215,8 +244,11 @@ def memory_estimate(cfg: ArchConfig, spec: ShapeSpec, mesh: Mesh, mb: int,
     K5's scratch (``ssd_workspace_bytes`` at the LM's chunk).
     Prefill and decode: the parameters and the cache (``init_cache``'s, over
     the chips), a layer's activations (``_token_bytes`` a token), K5's
-    scratch (prefill) and, for decode, the attention's (query, key) block
-    over the cache, 12 bytes a pair (prefill's K4 forms none).  A decode step takes one query a
+    scratch (prefill), for decode the attention's (query, key) block over
+    the cache, 12 bytes a pair (prefill's K4 forms none), the logits of
+    the rows returned (10 bytes a padded-vocab entry), the cuBLAS workspace
+    (``cublas_workspace_bytes``) and an SSM stack's float32 step terms
+    (``_ssm_step_bytes``).  A decode step takes one query a
     sequence; ``fill_chunk`` estimates instead a cached forward of that many
     tokens a sequence, as a chunked fill of the cache runs (``LM.forward(
     tokens[:, i:i + c], cache=..., cache_pos=i)``): its activations and its
@@ -255,8 +287,12 @@ def memory_estimate(cfg: ArchConfig, spec: ShapeSpec, mesh: Mesh, mb: int,
         attn = (4.0 * 3 * b * heads * queries * s
                 if cfg.num_heads and spec.kind == "decode" else 0.0)
         k5 = ssd_workspace_bytes(cfg, b, s) if spec.kind == "prefill" else 0.0
+        # the logits of the rows returned (a prefill's last, a decode step's
+        # queries): the bf16 product, its float32 cast and the vocab mask's copy
+        logits = 10.0 * b * (1 if spec.kind == "prefill" else queries) * vp
+        fixed = cublas_workspace_bytes() + _ssm_step_bytes(cfg, b, spec.kind == "decode")
         state = st["params"] + cache
-        act = t * _token_bytes(cfg) + attn + k5
+        act = t * _token_bytes(cfg) + attn + k5 + logits + fixed
     peak = state + act
     out.update({"state_bytes_per_rank_estimate": state,
                 "activation_bytes_per_rank_estimate": act,

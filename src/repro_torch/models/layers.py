@@ -87,6 +87,32 @@ def write_at(buf: torch.Tensor, new: torch.Tensor, pos, dim: int = 2) -> torch.T
 
 
 # ------------------------------------------------------------ attention ----
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, cache_pos,
+                     *, window: Optional[int] = None, softcap: Optional[float] = None,
+                     scale: float) -> torch.Tensor:
+    """The cached branch of ``gqa_attention``: the queries ``q`` (B, Hq, S,
+    Dh) at positions ``cache_pos`` on attend over the whole cache (B, Hkv, T,
+    Dh), keys past a query's position (or outside its window) masked, in
+    the reference's dtypes (the cache's: bf16 logits and probabilities), one
+    einsum over the heads' groups that never repeats the cache.  Returns (B,
+    Hq, S, Dv)."""
+    b, hq, s, dh = q.shape
+    hkv, t = k_cache.shape[1], k_cache.shape[2]
+    kpos = torch.arange(t, device=q.device)[None, :]
+    qpos = (int(cache_pos) + torch.arange(s, device=q.device))[:, None]
+    mask = kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    qg = q.reshape(b, hkv, hq // hkv, s, dh)
+    logits = torch.einsum("bkgsd,bktd->bkgst", qg, k_cache) * scale
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    logits = logits.masked_fill(~mask, -1e30)
+    prob = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bkgst,bktd->bkgsd", prob, v_cache)
+    return o.reshape(b, hq, s, v_cache.shape[-1])
+
+
 def gqa_attention(
     p: Dict[str, torch.Tensor],
     x: torch.Tensor,  # (B, S, D)
@@ -114,23 +140,9 @@ def gqa_attention(
     if cache is not None:
         k_cache = write_at(cache["k"], k.to(cache["k"].dtype), cache_pos)
         v_cache = write_at(cache["v"], v.to(cache["v"].dtype), cache_pos)
-        t = k_cache.shape[2]
-        kpos = torch.arange(t, device=x.device)[None, :]
-        qpos = (int(cache_pos) + torch.arange(s, device=x.device))[:, None]
-        mask = kpos <= qpos
-        if window is not None:
-            mask &= kpos > qpos - window
         scale = q_scale if q_scale is not None else head_dim ** -0.5
-        g = num_heads // num_kv_heads
-        # grouped einsum: no (B, Hq, T, dh) repeat of the cache
-        qg = q.reshape(b, num_kv_heads, g, s, head_dim)
-        logits = torch.einsum("bkgsd,bktd->bkgst", qg, k_cache) * scale
-        if softcap is not None:
-            logits = softcap * torch.tanh(logits / softcap)
-        logits = logits.masked_fill(~mask, -1e30)
-        prob = torch.softmax(logits, dim=-1)
-        o = torch.einsum("bkgst,bktd->bkgsd", prob, v_cache)
-        o = o.reshape(b, num_heads, s, head_dim)
+        o = decode_attention(q, k_cache, v_cache, cache_pos, window=window, softcap=softcap,
+                             scale=scale)
         new_cache = {"k": k_cache, "v": v_cache}
     else:
         if q_scale is not None:

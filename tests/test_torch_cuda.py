@@ -1663,3 +1663,101 @@ def test_chunk_filled_decode_matches_the_prefill_on_the_card(cuda_device, name):
     pre = model.forward(params, tok, last_only=True)[0]
     v = cfg.vocab_size
     assert float((dec - pre)[..., :v].abs().max()) <= 5e-2
+
+
+# The shortest sequence at 32 heads whose data pass byte 2^31: one query tile
+# (and one SSD chunk) of 128 rows beyond 262,144, which puts q and K4's
+# output, and K5's x, y and chunk-state scratch, past byte 2^31 at their end.
+PAST_2_31 = 262_144 + 128
+
+
+@pytest.mark.cuda
+def test_k5_past_byte_2_31_matches_plain_on_sampled_heads_and_chunks(cuda_device):
+    """K5 at B = 1, S = 262,272 (2,049 chunks of 128), 32 heads of 64, state
+    128, one group: x and y (2.15 GB each) and the chunk states of the
+    scratch (2.15 GB) end past byte 2^31 (head 31's from chunk 2,017 on).
+    Heads 0, 16 and 31 against ``ssd_plain`` on those heads within 3e-4,
+    over every chunk and over the last chunk alone; bitwise repeatable."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    b, s, h, p, n, chunk = 1, PAST_2_31, 32, 64, 128, 128
+    x = torch.randn((b, s, h, p), generator=gen, device=cuda_device)
+    a = -torch.rand((b, s, h), generator=gen, device=cuda_device) * 0.1
+    bm = torch.randn((b, s, 1, n), generator=gen, device=cuda_device) * 0.3
+    cm = torch.randn((b, s, 1, n), generator=gen, device=cuda_device) * 0.3
+    assert x.numel() * 4 > 2 ** 31 and h * (s // chunk) * p * n * 4 > 2 ** 31
+    before = ssd_scan.launches
+    y = ssd_scan(x, a, bm, cm, chunk=chunk)
+    again = ssd_scan(x, a, bm, cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 2 and torch.equal(y, again)
+    heads = [0, 16, 31]
+    want = ssd_plain(x[:, :, heads].contiguous(), a[:, :, heads].contiguous(), bm, cm,
+                     chunk=chunk)
+    err = (y[:, :, heads] - want).abs()
+    assert float(err.max()) <= 3e-4
+    assert float(err[:, -chunk:].max()) <= 3e-4 and float(want[:, -chunk:].abs().max()) > 0
+
+
+# K4's bf16 output against its float32 plain version on a 128-row query
+# tile, as chip_smoke.py gates it: per element |d| <= 4e-3 + 2^-6 |ref|, and
+# per tile ||d|| / ||ref|| <= 1e-2.  Past 2^18 keys the softmax is nearly
+# flat and an entry is about sqrt(e / T) = 3e-3, under the per-element
+# floor, so there the tile's relative error is the gate: bf16 rounding reads
+# about 2e-3 of it, a tile missing 1/16 of its keys about 0.25.
+K4_ATOL, K4_RTOL, K4_TILE_RMS = 4e-3, 2 ** -6, 1e-2
+
+
+def _k4_tile_passes(got, ref):
+    d = got.float() - ref
+    return (bool((d.abs() <= K4_ATOL + K4_RTOL * ref.abs()).all())
+            and float(d.norm() / ref.norm()) <= K4_TILE_RMS)
+
+
+@pytest.mark.cuda
+def test_k4_past_byte_2_31_matches_plain_on_sampled_tiles(cuda_device):
+    """K4 at B = 1, S = T = 262,272, 32 / 8 heads of 128, causal, bf16, q, k
+    and v (B, S, H, Dh) buffers seen as (B, H, S, Dh), as jamba's attention
+    layer gives them: q and the output (2.15 GB each) end past byte 2^31,
+    their last query tile wholly.  The first, middle and last 128-row tiles
+    of heads 0 and 31 against the float32 plain version (each tile over the
+    keys up to its last row: exact for a causal call) per element and per
+    tile (``_k4_tile_passes``); bitwise repeatable.  Planted faults the same
+    gate must reject on the middle and last tiles: the tile zeroed, the rows
+    of the other head of the same kv group, and the tile's output without
+    1/16 of the keys it sees (from their middle)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    b, hq, hkv, s, dh = 1, 32, 8, PAST_2_31, 128
+
+    def rand(heads):
+        return torch.randn((b, s, heads, dh), generator=gen, device=cuda_device).to(
+            torch.bfloat16).transpose(1, 2)
+
+    q, k, v = rand(hq), rand(hkv), rand(hkv)
+    assert q.numel() * 2 > 2 ** 31
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=True)
+    again = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2 and torch.equal(out, again)
+    assert out.stride() == q.stride()
+    g = hq // hkv
+    for head, other in ((0, 1), (hq - 1, hq - 2)):
+        kv = slice(head // g, head // g + 1)
+        for first in (0, s // 2, s - 128):
+            last = first + 128
+            qt = q[:, head:head + 1, first:last].float()
+            kt, vt = k[:, kv, :last].float(), v[:, kv, :last].float()
+            want = attention_plain(qt, kt, vt, causal=True)
+            assert _k4_tile_passes(out[:, head:head + 1, first:last], want), (head, first)
+            if first == 0:
+                continue
+            # 1/16 of the keys every row of the tile sees, from their middle:
+            # cut out, the causal limits (aligned to the last key) still hold
+            span = (first + 1) // 16
+            lo = (first + 1) // 2 - span // 2
+            kd, vd = (torch.cat([x[:, :, :lo], x[:, :, lo + span:]], dim=2) for x in (kt, vt))
+            faults = {"zeroed": torch.zeros_like(want),
+                      "other head": out[:, other:other + 1, first:last],
+                      "keys dropped": attention_plain(qt, kd, vd, causal=True)}
+            for name, bad in faults.items():
+                assert not _k4_tile_passes(bad, want), (head, first, name)

@@ -410,14 +410,18 @@ def test_roofline_cell_takes_the_reference_variants_and_puts_the_settings_back()
     assert (ops.ATTN_IMPL, ts.GRAD_ACCUM_DTYPE) == before
 
 
-def test_memory_estimate_counts_k5_scratch_and_the_fill_block_by_hand():
+def test_memory_estimate_counts_k5_scratch_and_the_fill_block_by_hand(monkeypatch):
     """mamba2-370m's prefill at B = 8, S = 32,768 (32 heads of 64, state
     128, one group, chunk 128: 256 chunks) counts K5's scratch, 4 bytes x 8
-    x (32 x 32,768 + 32 x 256 x 64 x 128 + 256 x 128²) = 2,315,255,808, and
-    the SSM mixer's activations a token; a
+    x (32 x 32,768 + 32 x 256 x 64 x 128 + 256 x 128²) = 2,315,255,808, the
+    SSM mixer's activations a token, the last rows' logits (10 bytes x 8 x
+    50,304), the cuBLAS workspace (32 MiB) and the float32 copy of the
+    output projection (4 x 2,048 x 1,024); a
     smollm-135m decode cell at B = 8 filled in chunks of 2,048 adds 2,047 more
-    queries' activations, 8 x 2,047 x (12 x 576 + 3 x 1,536) x 2 bytes, and
-    their (query, key) block, 12 bytes x 8 x 9 heads x 2,047 x 32,768."""
+    queries' activations, 8 x 2,047 x (12 x 576 + 3 x 1,536) x 2 bytes, their
+    (query, key) block, 12 bytes x 8 x 9 heads x 2,047 x 32,768, and their
+    logits, 10 bytes x 8 x 2,047 x 49,152."""
+    monkeypatch.delenv("CUBLAS_WORKSPACE_CONFIG", raising=False)
     mesh = _meta_mesh()
     mamba = configs.get_config("mamba2-370m")
     spec = dataclasses.replace(SHAPES["prefill_32k"], global_batch=8)
@@ -427,12 +431,14 @@ def test_memory_estimate_counts_k5_scratch_and_the_fill_block_by_hand():
     # a token's bf16 projection (2 x 2048 + 2 x 128 + 32 wide) and six
     # float32 (2048) tensors of the mixer
     tokens = 8 * 32768 * (2 * 4384 + 4 * 6 * 2048)
-    assert est["activation_bytes_per_rank_estimate"] == tokens + 2_315_255_808
+    fixed = 10 * 8 * 50304 + 32 * 2 ** 20 + 4 * 2048 * 1024
+    assert est["activation_bytes_per_rank_estimate"] == tokens + 2_315_255_808 + fixed
     smol = configs.get_config("smollm-135m")
     spec = dataclasses.replace(SHAPES["decode_32k"], global_batch=8)
     one = dryrun.memory_estimate(smol, spec, mesh, 1)
     fill = dryrun.memory_estimate(smol, spec, mesh, 1, fill_chunk=2048)
-    extra = 8 * 2047 * (12 * 576 + 3 * 1536) * 2 + 12 * 8 * 9 * 2047 * 32768
+    extra = (8 * 2047 * (12 * 576 + 3 * 1536) * 2 + 12 * 8 * 9 * 2047 * 32768
+             + 10 * 8 * 2047 * 49152)
     assert fill["fill_chunk"] == 2048 and "fill_chunk" not in one
     assert fill["peak_bytes_per_rank_estimate"] - one["peak_bytes_per_rank_estimate"] == extra
     assert fill["state_bytes_per_rank_estimate"] == one["state_bytes_per_rank_estimate"]

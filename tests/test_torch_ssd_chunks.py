@@ -49,6 +49,10 @@ CASES = [
     (1, 512, 8, 1, 64, 128, 128),
     (1, 48, 3, 1, 12, 20, 12),
     (2, 40, 4, 2, 4, 36, 20),
+    # one narrow head over 4,096 chunks, as many as mamba2-370m's long_500k
+    # prefill (524,288 steps of chunk 128): pass 3 walks a chain of 4,096
+    # states
+    (1, 131072, 1, 1, 4, 4, 32),
 ]
 
 
