@@ -404,7 +404,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    against the step with one K4 call a layer: the loss within 1e-4, first
    moments within 2e-2 of each leaf's largest entry (phase 10's gate), K4 launches
    a step (2 x 2 x 30 x 32), a planted fault above the gate.
-12. Report: one JSON line ``{"kernels": [...]}`` (K1 and K2 with their
+12. ``long_500k``: the reference's last cell (``phase_long_500k``):
+   mamba2-370m's decode step and its 524,288-token prefill through K5,
+   jamba's group against a seeded 524,288 cache, and K4 at S = 524,288.
+13. Examples: the JAX package's four example flows through the port's
+   entry points (``repro_torch.examples``) at the reference's defaults:
+   ``quickstart`` at scale 0.5 (shgn and rgcn over ACM, the serving engine
+   with ACM and IMDB, a parameter swap and a ``GraphDelta`` swap),
+   ``hgnn_train_acm --na-executor banded`` at scale 1.0 for 20 steps,
+   ``restructure_demo`` on ACM, DBLP and IMDB, and ``lm_serve_demo`` (6
+   requests on reduced smollm-135m), each with K1, K2 and K4's counts set
+   to 0 just before it and read just after.  Gates: K1 and K2 launch in
+   quickstart and in training; quickstart's shgn logits within 1e-4 of the
+   same compile on the CPU; every served response bit for bit the rows of
+   a compiled forward at its ``params_version`` (one zeroed row planted
+   must fail that gate); training losses finite, the last below the first,
+   labels and masks bitwise the CPU's; restructure_demo's numbers equal to
+   its run with ``--device cpu``; every LM request yields ``max_new``
+   tokens.  Printed: each flow's wall time and launches, and the phase's
+   time (its budget, 40 s, is not gated).
+14. Report: one JSON line ``{"kernels": [...]}`` (K1 and K2 with their
    launches per train step by model, K1 with its launches in one
    dependency forward, rows for K1 and K2 over phase 3c's sliced packings,
    rows for K1 and K2 over phase 3d's spliced packing, rows for K1 and
@@ -415,7 +434,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    padded-route gate; K4's and K5's launches per
    data-parallel step and K4's per CP
    call, phase 10; phase 11's rows: K4 at 32k in each model, zigzag CP at
-   32k, K5 at 32k), the card line, and last the contract line ``{"ok":
+   32k, K5 at 32k; K1's, K2's and K4's launches in each example flow of
+   phase 13), the card line, and last the contract line ``{"ok":
    true, "device": {...}}``.
 
 Needs one CUDA card; exits non-zero without one, or without the repository
@@ -905,13 +925,16 @@ def na_kernels_on(pk, label: str, dev):
 def phase_kernels(graph, dblp, dev):
     """Phase 2: K1 and K2 against their plain versions on the card, on ACM
     PAP and on DBLP APTPA."""
-    from repro_torch.pipeline import FrontendPipeline, PipelineConfig
+    from repro_torch.pipeline import (FrontendPipeline, PipelineConfig,
+                                      SemanticGraphCache)
 
-    res = FrontendPipeline(PipelineConfig(pack=True)).run(graph, TARGETS)
+    res = FrontendPipeline(PipelineConfig(pack=True),
+                           cache=SemanticGraphCache()).run(graph, TARGETS)
     print("frontend (host, cold): " + ", ".join(
         f"{k} {v * 1e3:.1f} ms" for k, v in res.timings.items()))
     out = na_kernels_on(res.packed["PAP"], "ACM PAP", dev)
-    res = FrontendPipeline(PipelineConfig(pack=True)).run(dblp, ["APTPA"])
+    res = FrontendPipeline(PipelineConfig(pack=True),
+                           cache=SemanticGraphCache()).run(dblp, ["APTPA"])
     for k, other in zip(out, na_kernels_on(res.packed["APTPA"], "DBLP APTPA", dev)):
         k["max_abs_err"] = max(k["max_abs_err"], other["max_abs_err"])
         k["dblp_aptpa"] = {key: other[key] for key in (
@@ -6145,6 +6168,132 @@ def long_500k_rows(long: dict) -> list:
     ]
 
 
+# --------------------------------------------------------- phase 13 ----
+EXAMPLE_SCALE = 0.5  # quickstart's default scale
+EXAMPLE_STEPS = 20  # hgnn_train_acm's steps on the banded executor
+EXAMPLES_BUDGET_S = 40.0  # the phase's wall-time budget (printed, not gated)
+EXAMPLE_KERNELS = ("seg_sum_na", "edge_softmax_stats", "flash_attention")
+
+
+def example_counters():
+    """The launch counters of K1, K2 and K4, by kernel name."""
+    from repro_torch.kernels.edge_softmax import edge_softmax_stats
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.seg_sum import seg_sum_na
+
+    return dict(zip(EXAMPLE_KERNELS, (seg_sum_na, edge_softmax_stats, flash_attention)))
+
+
+def run_example(label: str, fn, launches: dict, seconds: dict):
+    """Run one example flow with K1, K2 and K4's counts set to 0 just
+    before it and read just after; keep its counts and wall time."""
+    counters = example_counters()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds[label] = time.perf_counter() - t0
+    launches[label] = {name: c.launches for name, c in counters.items()}
+    print(f"examples: {label} took {seconds[label]:.2f} s; launches {launches[label]}")
+    return out
+
+
+def served_mismatches(responses, forwards) -> list:
+    """The rids of responses whose logits are not, bit for bit, the rows of
+    the compiled forward at their (graph, params_version): every row for a
+    full-graph response, the first rows (the flow's subset requests ask for
+    ids 0 .. n-1) for a subset one."""
+    bad = []
+    for r in responses:
+        full = forwards[(r.graph, r.params_version)]
+        rows = full if r.mode == "full" else full[: r.logits.shape[0]]
+        if not np.array_equal(r.logits, rows):
+            bad.append(r.rid)
+    return bad
+
+
+def phase_examples(card: str) -> dict:
+    """Phase 13: the JAX package's four example flows, run on the card
+    through the port's entry points (``repro_torch.examples``) at the
+    reference's default arguments, each gated against the port on the CPU."""
+    from repro_torch.api import ExecutorSpec, Session, device_features
+    from repro_torch.examples import (hgnn_train_acm, lm_serve_demo, quickstart,
+                                      restructure_demo)
+    from repro_torch.train import propagated_feature_labels, semi_supervised_masks
+
+    t_phase = time.perf_counter()
+    launches, seconds = {}, {}
+    q = run_example("quickstart", lambda: quickstart.main([str(EXAMPLE_SCALE)]),
+                    launches, seconds)
+    for name in ("seg_sum_na", "edge_softmax_stats"):
+        require(launches["quickstart"][name] > 0, f"quickstart never launched {name}")
+    cpu = Session(ExecutorSpec(planner="ctt", sgb_backend="host", device="cpu"),
+                  cache=q["session"].cache)
+    c_cpu = cpu.compile(q["graph"], quickstart.TARGETS, q["shgn"].cfg)
+    ref = c_cpu.forward(c_cpu.init(0), device_features(q["graph"], "cpu"))
+    err = (q["logits"].cpu() - ref).abs().max().item()
+    print(f"examples: quickstart shgn logits {tuple(q['logits'].shape)}, max|cuda - cpu| = "
+          f"{err:.3e} (tolerance {LOGIT_ATOL})")
+    require(bool(torch.isfinite(q["logits"]).all()), "quickstart: non-finite logits")
+    require(err <= LOGIT_ATOL, "quickstart: card logits disagree with the CPU run")
+
+    acm_c, imdb_c = q["shgn"], q["imdb_tenant"].compiled
+    g2 = q["graph"].apply_delta(q["delta"])
+    feats = device_features(q["graph"])
+    forwards = {key: out.cpu().numpy() for key, out in {
+        ("acm", 1): acm_c.forward(acm_c.init(0), feats),
+        ("acm", 2): acm_c.forward(q["swapped_params"], feats),
+        ("acm", 3): q["acm"].compiled.forward(q["swapped_params"], device_features(g2)),
+        ("imdb", 1): imdb_c.forward(imdb_c.init(0), device_features(q["imdb"])),
+    }.items()}
+    served = [(r.rid, r.graph, r.mode, r.params_version) for r in q["responses"]]
+    bad = served_mismatches(q["responses"], forwards)
+    first = q["responses"][0]
+    zeroed = first.logits.copy()
+    zeroed[first.logits.shape[0] // 2] = 0.0
+    planted = served_mismatches([dataclasses.replace(first, logits=zeroed)], forwards)
+    print(f"examples: served {served}; rows not bitwise their version's forward: {bad}; "
+          f"with one row zeroed: {planted}")
+    require(not bad, f"quickstart: served rows differ from their forwards: {bad}")
+    require(planted == [first.rid], "quickstart: the served-rows gate passes a zeroed row")
+
+    tr = run_example("hgnn_train_acm", lambda: hgnn_train_acm.main(
+        ["--scale", "1.0", "--steps", str(EXAMPLE_STEPS), "--na-executor", "banded"]),
+        launches, seconds)
+    losses = tr["fit"]["losses"]
+    n = tr["compiled"].num_target
+    labels = propagated_feature_labels(tr["compiled"].semantic, hgnn_train_acm.TARGETS,
+                                       tr["graph"].features, n, device="cpu")
+    masks = semi_supervised_masks(n, seed=0, device="cpu")
+    same_labels = torch.equal(tr["labels"].cpu(), labels) and all(
+        torch.equal(tr["masks"][k].cpu(), masks[k]) for k in masks)
+    print(f"examples: hgnn_train_acm losses {losses[0]:.6f} -> {losses[-1]:.6f} over "
+          f"{len(losses)} steps; labels and masks bitwise the CPU's: {same_labels}")
+    for name in ("seg_sum_na", "edge_softmax_stats"):
+        require(launches["hgnn_train_acm"][name] > 0, f"hgnn_train_acm never launched {name}")
+    require(len(losses) == EXAMPLE_STEPS and all(math.isfinite(x) for x in losses),
+            "hgnn_train_acm: non-finite losses")
+    require(losses[-1] < losses[0], "hgnn_train_acm: the last loss is not below the first")
+    require(same_labels, "hgnn_train_acm: labels or masks differ from the CPU's")
+
+    rs = run_example("restructure_demo", lambda: restructure_demo.main([]), launches, seconds)
+    t0 = time.perf_counter()
+    rs_cpu = restructure_demo.main(["--device", "cpu"])
+    print(f"examples: restructure_demo again with --device cpu ({time.perf_counter() - t0:.2f} s): "
+          f"equal {rs == rs_cpu}")
+    require(rs == rs_cpu, "restructure_demo: numbers differ from the CPU run")
+
+    lm = run_example("lm_serve_demo", lambda: lm_serve_demo.main([]), launches, seconds)
+    short = {r.rid: len(lm["done"].get(r.rid, [])) for r in lm["requests"]
+             if len(lm["done"].get(r.rid, [])) != r.max_new}
+    require(not short, f"lm_serve_demo: requests short of max_new tokens: {short}")
+    total = time.perf_counter() - t_phase
+    print(f"phase 13 (examples): {total:.1f} s of wall time (budget {EXAMPLES_BUDGET_S:.0f} s), "
+          f"on {card}; flows {', '.join(f'{k} {v:.2f} s' for k, v in seconds.items())}")
+    return {"launches": launches, "seconds": seconds, "total_s": total, "quickstart_err": err}
+
+
 def _leaves(tree) -> list:
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -6325,6 +6474,12 @@ def main() -> int:
     for row in long_500k_rows(phase_long_500k(dev, card)):
         require(row["launches"] > 0, f"{row['name']} never launched on its 524,288 path")
         kernels.append(row)
+    torch.cuda.empty_cache()
+    examples = phase_examples(card)
+    for k in kernels:
+        if k["name"] in EXAMPLE_KERNELS:
+            k["launches_examples"] = {flow: counts[k["name"]]
+                                      for flow, counts in examples["launches"].items()}
     for k in kernels:
         k["kernel_ms"] = k["ms"]
     print(json.dumps({"kernels": kernels}))

@@ -80,13 +80,14 @@ def canonical_node_ids(node_ids, num_target: int, *,
     return arr.astype(np.int32, copy=False)
 
 
-def device_features(graph: HetGraph, device) -> Dict[str, torch.Tensor]:
+def device_features(graph: HetGraph, device="cuda") -> Dict[str, torch.Tensor]:
     """Copy a HetGraph's raw feature dict to ``device`` (the form every
-    compiled entry point takes).
+    compiled entry point takes); the card by default, ``"cpu"`` for the
+    plain versions.
 
     Example::
 
-        feats = device_features(graph, "cuda")   # {"P": (N_P, d_P), ...}
+        feats = device_features(graph)           # {"P": (N_P, d_P), ...}
         logits = compiled.forward(params, feats)
     """
     return {t: torch.from_numpy(x).to(device) for t, x in graph.features.items()}
@@ -193,6 +194,11 @@ class CompiledHGNN:
     def device(self) -> torch.device:
         """The device the model runs on."""
         return torch.device(self.spec.device)
+
+    @property
+    def semantic(self) -> Dict:
+        """The frontend's semantic graphs (label builders consume these)."""
+        return self.frontend.semantic
 
     @property
     def num_target(self) -> int:
@@ -432,10 +438,17 @@ class Session:
     float32 products stay float32, and it raises when no CUDA device is
     available rather than running on the CPU.  Pass a ``cache`` to share
     frontend products with another session.
+
+    ``max_memo`` bounds each of the session's frontend, compile and
+    shard-plan memos (LRU, like the cache's ``max_entries``); the default
+    keeps everything for the session's lifetime.  Eviction only drops the
+    session's reference: a ``CompiledHGNN`` already handed out keeps
+    working.
     """
 
     def __init__(self, spec: Optional[ExecutorSpec] = None,
-                 cache: Optional[SemanticGraphCache] = None):
+                 cache: Optional[SemanticGraphCache] = None,
+                 max_memo: Optional[int] = None):
         self.spec = spec or ExecutorSpec()
         if torch.device(self.spec.device).type == "cuda":
             if not torch.cuda.is_available():
@@ -446,11 +459,12 @@ class Session:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         self.cache = cache if cache is not None else SemanticGraphCache()
+        self.max_memo = max_memo
         self.pipeline = FrontendPipeline(self.spec.pipeline_config(),
                                          cache=self.cache)
-        self._frontends: Dict[Tuple[str, Tuple[str, ...]], FrontendResult] = {}
-        self._compiled: Dict[Tuple, CompiledHGNN] = {}
-        self._shard_plans: Dict[Tuple, ShardPlan] = {}
+        self._frontends: "OrderedDict[Tuple[str, Tuple[str, ...]], FrontendResult]" = OrderedDict()
+        self._compiled: "OrderedDict[Tuple, CompiledHGNN]" = OrderedDict()
+        self._shard_plans: "OrderedDict[Tuple, ShardPlan]" = OrderedDict()
         self._frontend_runs = 0
         self._frontend_served = 0
         self._compiles = 0
@@ -497,8 +511,17 @@ class Session:
         if plan is None:
             plan = build_shard_plan(graphs, num_devices, self.spec.shard,
                                     feature_dim=feature_dim)
-            self._shard_plans[pkey] = plan
+            self._memo_put(self._shard_plans, pkey, plan)
+        else:
+            self._shard_plans.move_to_end(pkey)
         return plan
+
+    def _memo_put(self, memo: OrderedDict, key, value) -> None:
+        memo[key] = value
+        memo.move_to_end(key)
+        if self.max_memo is not None:
+            while len(memo) > self.max_memo:
+                memo.popitem(last=False)
 
     def frontend(self, graph: HetGraph, targets: Sequence[str]) -> FrontendResult:
         """The frontend pass for ``(graph, targets)`` — run once per
@@ -507,9 +530,10 @@ class Session:
         res = self._frontends.get(key)
         if res is None:
             res = self.pipeline.run(graph, targets)
-            self._frontends[key] = res
+            self._memo_put(self._frontends, key, res)
             self._frontend_runs += 1
         else:
+            self._frontends.move_to_end(key)
             self._frontend_served += 1
         return res
 
@@ -539,6 +563,7 @@ class Session:
         self._compiles += 1
         hit = self._compiled.get(ckey)
         if hit is not None:
+            self._compiled.move_to_end(ckey)
             self._compiles_cached += 1
             return hit
         res = self.frontend(graph, targets)
@@ -552,7 +577,7 @@ class Session:
             plan = self._shard_plan_for(fp, ckey[1], graphs, len(devs), cfg.hidden)
         compiled = CompiledHGNN(self, self.spec, model, res, graphs, fp,
                                 shard_plan=plan, devices=devs, devkey=devkey)
-        self._compiled[ckey] = compiled
+        self._memo_put(self._compiled, ckey, compiled)
         return compiled
 
     def compile_delta(self, compiled: CompiledHGNN, graph: HetGraph,
@@ -596,7 +621,7 @@ class Session:
         new_graph, res = dres.graph, dres.result
         fp_new = new_graph.fingerprint()
         tkey = tuple(sorted(targets))
-        self._frontends[(fp_new, tkey)] = res
+        self._memo_put(self._frontends, (fp_new, tkey), res)
         self._frontend_runs += 1
         if self.spec.na_executor == "banded":
             graphs = res.banded_batches(self.spec.device)
@@ -622,7 +647,8 @@ class Session:
                              frozenset(dres.touched))
             successor._extractor = ext
         self._compiles += 1
-        self._compiled[(fp_new, tkey, cfg, compiled._devkey)] = successor
+        self._memo_put(self._compiled, (fp_new, tkey, cfg, compiled._devkey),
+                       successor)
         return successor, new_graph, dres
 
     def stats(self) -> SessionStats:

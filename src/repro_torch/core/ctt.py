@@ -110,3 +110,29 @@ class CallbackTrieTree:
             segs.append(seg)
             pos += len(seg) - 1
         return segs
+
+    def materialized(self) -> List[str]:
+        """All materialized metapaths (depth-first)."""
+        out: List[str] = []
+
+        def walk(node: _Node, prefix: str) -> None:
+            if node.terminal:
+                out.append(prefix)
+            for ch in sorted(node.children):
+                walk(node.children[ch], prefix + ch)
+
+        for ch in sorted(self.root.children):
+            walk(self.root.children[ch], ch)
+        return out
+
+    def nbytes(self) -> int:
+        """Rough CTT buffer footprint: one 8-byte entry per node (type
+        byte, next pointer, callback pointer, terminal flag), the figure
+        held against the paper's 5 KB CTT buffer (Table 3)."""
+        count = 0
+        stack = [self.root]
+        while stack:
+            node = stack.pop()
+            count += 1
+            stack.extend(node.children.values())
+        return count * 8

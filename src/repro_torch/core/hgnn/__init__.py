@@ -7,7 +7,9 @@ from repro_torch.core.hgnn.layers import (edge_softmax_weights,
                                           semantic_fusion_beta)
 from repro_torch.core.hgnn.models import (HGNN, BandedBatch, HGNNConfig,
                                           SemanticGraphBatch,
-                                          graphs_from_pipeline, init_params,
+                                          banded_graphs_from_pipeline,
+                                          graphs_from_pipeline, graphs_from_sgb,
+                                          init_params,
                                           package_batches, params_from_numpy)
 
 __all__ = [
@@ -15,9 +17,11 @@ __all__ = [
     "HGNN",
     "HGNNConfig",
     "SemanticGraphBatch",
+    "banded_graphs_from_pipeline",
     "edge_softmax_weights",
     "feature_projection",
     "graphs_from_pipeline",
+    "graphs_from_sgb",
     "init_params",
     "na_attention",
     "na_attention_banded",

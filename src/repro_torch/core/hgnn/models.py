@@ -21,7 +21,7 @@ import torch
 from repro_torch.core.hgnn.layers import (feature_projection, na_attention,
                                           na_attention_banded, na_mean,
                                           na_mean_banded, semantic_fusion_beta)
-from repro_torch.hetero.graph import Relation
+from repro_torch.hetero.graph import HetGraph, Relation
 from repro_torch.kernels.seg_sum import PackedEdges
 
 NA_EXECUTORS = ("jnp", "banded")
@@ -47,10 +47,15 @@ class SemanticGraphBatch:
 
     @staticmethod
     def from_relation(rel: Relation, metapath: str, edge_type_id: int,
-                      device) -> "SemanticGraphBatch":
-        """Build from a ``Relation``'s own (src, dst)-sorted edges."""
+                      device="cuda", order: Optional[np.ndarray] = None
+                      ) -> "SemanticGraphBatch":
+        """Build from a ``Relation``'s own (src, dst)-sorted edges, or from
+        them taken in ``order`` (an edge permutation) when one is given."""
+        src, dst = rel.src, rel.dst
+        if order is not None:
+            src, dst = src[order], dst[order]
         return SemanticGraphBatch.from_edge_stream(
-            metapath, rel.num_src, rel.num_dst, rel.src, rel.dst, edge_type_id, device)
+            metapath, rel.num_src, rel.num_dst, src, dst, edge_type_id, device)
 
     @staticmethod
     def from_edge_stream(metapath: str, num_src: int, num_dst: int,
@@ -146,6 +151,7 @@ def init_params(
     cfg: HGNNConfig,
     feature_dims: Dict[str, int],
     metapaths: List[str],
+    hidden_override: Optional[int] = None,
     device="cuda",
 ) -> Dict:
     """Build the parameter dict from a ``torch.Generator`` seeded with ``seed``.
@@ -154,10 +160,11 @@ def init_params(
     (normal draws times ``sqrt(2 / fan_in)`` for dense weights, times 0.1
     for attention vectors, zero biases); the values differ from
     ``jax.random``'s.  Draws happen on the CPU, so a seed gives the same
-    parameters on every device.
+    parameters on every device.  ``hidden_override`` replaces
+    ``cfg.hidden`` as the width when given.
     """
     gen = torch.Generator().manual_seed(int(seed))
-    h = cfg.hidden
+    h = hidden_override or cfg.hidden
 
     def normal(*shape, scale):
         return (torch.randn(*shape, generator=gen) * scale).to(device)
@@ -526,7 +533,31 @@ def package_batches(
     return out
 
 
+def graphs_from_sgb(
+    graph: HetGraph,
+    semantic: Dict[str, Relation],
+    targets: List[str],
+    restructured: bool = False,
+    restructured_graphs: Optional[Dict[str, object]] = None,
+    *,
+    device="cuda",
+) -> List[SemanticGraphBatch]:
+    """Package SGB outputs for the model on ``device``, optionally in the
+    restructurer's schedule (see :func:`package_batches`); ``graph`` is
+    unused, as packaging depends only on the semantic graphs."""
+    del graph
+    return package_batches(semantic, targets, restructured=restructured,
+                           restructured_graphs=restructured_graphs, device=device)
+
+
 def graphs_from_pipeline(result, device="cuda") -> List[SemanticGraphBatch]:
     """Segment-sum batches from a ``pipeline.FrontendResult`` on ``device``
     (built once on the result, shared by every model)."""
     return result.batches(device)
+
+
+def banded_graphs_from_pipeline(result, device="cuda") -> List[BandedBatch]:
+    """Banded batches from a ``pipeline.FrontendResult`` on ``device``, for
+    the banded NA executor: one ``PackedEdges`` per semantic graph, shared
+    by every model and layer."""
+    return result.banded_batches(device)

@@ -23,11 +23,12 @@ import numpy as np
 from repro_torch.hetero.graph import IDX, Relation
 
 
-def decouple(rel: Relation) -> Tuple[np.ndarray, np.ndarray]:
+def decouple(rel: Relation, seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
     """Maximum bipartite matching via greedy init + Kuhn augmentation.
 
     Returns ``(match_src, match_dst)``: for each source vertex the matched
-    destination (or -1), and vice versa.
+    destination (or -1), and vice versa.  ``seed`` is accepted for the
+    reference's signature and unused: the matching is deterministic.
     """
     row_ptr, cols = rel.to_csr()
     n_src, n_dst = rel.num_src, rel.num_dst
@@ -139,6 +140,21 @@ class Subgraph:
     src: np.ndarray
     dst: np.ndarray
 
+    @property
+    def num_edges(self) -> int:
+        """Edge count."""
+        return int(self.src.shape[0])
+
+    @property
+    def num_src(self) -> int:
+        """Source vertex count."""
+        return int(self.src_ids.shape[0])
+
+    @property
+    def num_dst(self) -> int:
+        """Destination vertex count."""
+        return int(self.dst_ids.shape[0])
+
 
 def _first_appearance_perm(id_lists: List[np.ndarray], n: int) -> np.ndarray:
     """New id of each global vertex = rank of its first appearance across
@@ -199,17 +215,19 @@ class RestructuredGraph:
             )
         return self._perms
 
-    def packed(self, renumbered: bool = True):
+    def packed(self, renumbered: bool = True,
+               weight: Optional[np.ndarray] = None):
         """Banded ``PackedEdges`` blocks for the NA kernels.
 
         Built from the scheduled (by default renumbered) edge stream; the
-        pipeline caches this per semantic graph.
+        pipeline caches this per semantic graph.  ``weight`` gives per-edge
+        weights in scheduled order (None: unweighted).
         """
         from repro_torch.kernels.seg_sum import pack_edge_blocks
 
         s, d = self.scheduled_edges(renumbered=renumbered)
         return pack_edge_blocks(s, d, self.original.num_src,
-                                self.original.num_dst)
+                                self.original.num_dst, weight=weight)
 
     def packed_delta(self, old_rg: "RestructuredGraph", old_packed,
                      renumbered: bool = True):

@@ -53,6 +53,11 @@ class Plan:
     targets: List[str]
     kind: str  # "naive" | "ctt" | "ctt_dp"
 
+    @property
+    def num_compositions(self) -> int:
+        """Number of composition steps."""
+        return len(self.steps)
+
 
 def _fold_name(segs: Sequence[str]) -> List[PlanStep]:
     """Left-fold segments (overlapping by one type) into composition steps."""
@@ -179,6 +184,10 @@ class SGBResult:
     wall_seconds: float
     backend: str = "host"
     device_stats: Optional[Dict[str, int]] = None  # tile-pruning counters
+
+    def target_graphs(self, targets: Sequence[str]) -> Dict[str, Relation]:
+        """The semantic graphs of ``targets``, in their order."""
+        return {t: self.graphs[t] for t in targets}
 
 
 class DeviceComposer:

@@ -22,6 +22,8 @@ import torch
 
 IDX = np.int32
 _IDX_BYTES = 4
+# Feature element size used for memory-traffic accounting (bf16).
+FEATURE_BYTES = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +50,11 @@ class CompositionCost:
     def zero() -> "CompositionCost":
         """The additive identity."""
         return CompositionCost(0, 0, 0)
+
+    @property
+    def total_bytes(self) -> int:
+        """Edge-list bytes read and written."""
+        return self.bytes_read + self.bytes_written
 
 
 @dataclasses.dataclass(frozen=True)
@@ -262,6 +269,14 @@ class HetGraph:
         """The one-hop relation called ``name``."""
         return self.relations[name]
 
+    def total_vertices(self) -> int:
+        """Vertex count over every type."""
+        return sum(self.num_vertices.values())
+
+    def total_edges(self) -> int:
+        """Edge count over every one-hop relation."""
+        return sum(r.num_edges for r in self.relations.values())
+
     def apply_delta(self, delta) -> "HetGraph":
         """Return a new canonical graph with a :class:`GraphDelta` applied.
 
@@ -280,3 +295,18 @@ class HetGraph:
         return all(
             metapath[i : i + 2] in self.relations for i in range(len(metapath) - 1)
         )
+
+    def enumerate_metapaths(self, max_hops: int, start: Optional[str] = None) -> List[str]:
+        """All valid metapaths up to ``max_hops`` relations (paper Fig. 2 x-axis)."""
+        paths: List[str] = []
+        level = [t for t in self.vertex_types if start is None or t == start]
+        for _ in range(max_hops):
+            nxt = []
+            for p in level:
+                last = p[-1]
+                for rel in self.relations.values():
+                    if rel.src_type == last:
+                        nxt.append(p + rel.dst_type)
+            paths.extend(q for q in nxt if len(q) >= 2)
+            level = nxt
+        return paths

@@ -24,6 +24,7 @@ from __future__ import annotations
 import ctypes
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.cuda_build import check, load_library, ptr
@@ -128,3 +129,17 @@ def edge_softmax_stats(packed: PackedEdges, logits_blocked: torch.Tensor
 
 
 edge_softmax_stats.launches = 0
+
+
+def block_logits(packed: PackedEdges, edge_logits_in_order: np.ndarray) -> np.ndarray:
+    """Scatter a flat (E,) logit array (in scheduled edge order) into the
+    (nb, EB) blocked layout of ``packed`` on the host; padding gets -1e30.
+    ``PackedEdges.scatter_blocks(logits, fill=-1e30)`` is the on-device
+    form the NA path uses."""
+    nb, eb = packed.src_local.shape
+    blk, slot = packed.edge_map()
+    if edge_logits_in_order.shape[0] != blk.shape[0]:
+        raise ValueError("one logit per edge of the packing is required")
+    out = np.full((nb, eb), NEG, np.float32)
+    out[blk, slot] = np.asarray(edge_logits_in_order, np.float32)
+    return out

@@ -157,6 +157,12 @@ class PackedEdges:
         """Number of destination tiles covering ``num_dst`` rows (at least 1)."""
         return max(1, -(-self.num_dst // self.dst_tile_rows))
 
+    def hbm_feature_bytes(self, d: int, elem_bytes: int = 4) -> int:
+        """Feature bytes of the GFP accounting: one ``(src_band, d)`` tile
+        per block.  ``elem_bytes`` defaults to 4 (fp32, what the NA kernels
+        gather and accumulate in); pass 2 for bf16 feature tiles."""
+        return self.num_blocks * self.src_band * d * elem_bytes
+
     def edge_map(self) -> Tuple[np.ndarray, np.ndarray]:
         """(edge_block_id, edge_slot) for the flat scheduled stream."""
         if self.edge_block_id is None or self.edge_slot is None:

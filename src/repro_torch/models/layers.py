@@ -218,9 +218,11 @@ def mla_attention(
 
 
 # ----------------------------------------------------------------- ffn -----
-def swiglu_mlp(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: ``(silu(x Wg) * (x Wu)) Wd``."""
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+def swiglu_mlp(p: Dict[str, torch.Tensor], x: torch.Tensor,
+               act=F.silu) -> torch.Tensor:
+    """Gated MLP ``(act(x Wg) * (x Wu)) Wd``; SwiGLU with the default
+    ``act``."""
+    return (act(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
 
 
 def gelu_mlp(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:

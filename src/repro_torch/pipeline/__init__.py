@@ -1,6 +1,7 @@
 """Frontend pipeline of the port: SGB -> Restructure -> packing as one
 cached engine (host numpy), with an incremental path for graph deltas."""
-from repro_torch.pipeline.cache import CacheStats, SemanticGraphCache
+from repro_torch.pipeline.cache import (CacheStats, SemanticGraphCache,
+                                        default_cache)
 from repro_torch.pipeline.frontend import (DeltaResult, FrontendPipeline,
                                            FrontendResult, PipelineConfig)
 
@@ -11,4 +12,5 @@ __all__ = [
     "FrontendResult",
     "PipelineConfig",
     "SemanticGraphCache",
+    "default_cache",
 ]

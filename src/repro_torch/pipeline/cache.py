@@ -32,6 +32,11 @@ class CacheStats:
     evictions: int = 0
     migrations: int = 0  # entries re-keyed in place by a graph delta
 
+    @property
+    def hit_rate(self) -> float:
+        """Hits over lookups (0 before the first lookup)."""
+        return self.hits / max(1, self.hits + self.misses)
+
     def snapshot(self) -> "CacheStats":
         """A copy of the counters."""
         return CacheStats(self.hits, self.misses, self.evictions, self.migrations)
@@ -75,6 +80,10 @@ class SemanticGraphCache:
 
     def __len__(self) -> int:
         return len(self._store)
+
+    def clear(self) -> None:
+        """Drop every entry (the counters and lineage stay)."""
+        self._store.clear()
 
     def nbytes(self) -> int:
         """Approximate resident bytes (numpy payloads of cached entries)."""
@@ -166,3 +175,14 @@ class SemanticGraphCache:
         if moved or stale:
             self.lineage[fp_new] = fp_old
         return moved, stale
+
+
+_DEFAULT: Optional[SemanticGraphCache] = None
+
+
+def default_cache() -> SemanticGraphCache:
+    """The process-wide cache shared by pipelines constructed without one."""
+    global _DEFAULT
+    if _DEFAULT is None:
+        _DEFAULT = SemanticGraphCache()
+    return _DEFAULT

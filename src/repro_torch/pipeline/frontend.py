@@ -29,7 +29,8 @@ from repro_torch.core.sgb import (SGBResult, execute_plan,
                                   execute_plan_delta, make_plan)
 from repro_torch.hetero.delta import GraphDelta
 from repro_torch.hetero.graph import HetGraph, Relation
-from repro_torch.pipeline.cache import CacheStats, SemanticGraphCache
+from repro_torch.pipeline.cache import (CacheStats, SemanticGraphCache,
+                                        default_cache)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,12 +146,13 @@ class DeltaResult:
 
 
 class FrontendPipeline:
-    """Cached SGB -> Restructure -> packing engine over one cache."""
+    """Cached SGB -> Restructure -> packing engine over one cache
+    (``default_cache()``, shared process-wide, unless one is given)."""
 
     def __init__(self, config: Optional[PipelineConfig] = None,
                  cache: Optional[SemanticGraphCache] = None):
         self.config = config or PipelineConfig()
-        self.cache = cache if cache is not None else SemanticGraphCache()
+        self.cache = cache if cache is not None else default_cache()
 
     def _sgb(self, graph: HetGraph, targets: Sequence[str], fp: str
              ) -> Tuple[Dict[str, Relation], Optional[SGBResult]]:
@@ -392,3 +394,22 @@ class FrontendPipeline:
                     cfg.renumbered, pk)
             out[mp] = pk
         return out, spliced
+
+    def run_dataset(self, name: str, targets: Sequence[str], seed: int = 0,
+                    scale: float = 1.0) -> FrontendResult:
+        """Frontend pass on a synthetic dataset; the HetGraph itself is
+        memoized per (dataset, seed, scale), so repeated requests skip
+        generation too."""
+        return self.run(_dataset(name, seed, scale), targets)
+
+
+_DATASETS: Dict[Tuple[str, int, float], HetGraph] = {}
+
+
+def _dataset(name: str, seed: int, scale: float) -> HetGraph:
+    key = (name, seed, float(scale))
+    if key not in _DATASETS:
+        from repro_torch.hetero import make_dataset
+
+        _DATASETS[key] = make_dataset(name, seed=seed, scale=scale)
+    return _DATASETS[key]

@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.core.hgnn.models import params_from_numpy
 from repro_torch.train.optim import (AdamWState, adamw_init, adamw_update,
-                                     warmup_cosine)
+                                     clip_by_global_norm, warmup_cosine)
 from repro_torch.train.tree import tree_flatten, tree_unflatten
 
 
@@ -43,6 +43,12 @@ def train_state_from_numpy(params, device) -> HGNNTrainState:
     package's, after ``jax.tree.map(np.asarray, ...)``)."""
     p = params_from_numpy(params, device)
     return HGNNTrainState(params=p, opt=adamw_init(p))
+
+
+def _resolve_executor(executor: Optional[Any], na_executor: str) -> str:
+    """An executor spec (duck-typed: anything with ``na_executor``) wins
+    over the string argument."""
+    return na_executor if executor is None else executor.na_executor
 
 
 def _to_device(a: np.ndarray, dtype, device) -> torch.Tensor:
@@ -153,18 +159,26 @@ def make_train_step(
     warmup: int = 20,
     total: int = 200,
     weight_decay: float = 0.0,
+    clip_norm: Optional[float] = None,
     na_executor: str = "banded",
+    executor: Optional[Any] = None,
 ) -> Callable[..., Tuple[HGNNTrainState, torch.Tensor]]:
     """The train step ``(state, features, labels, mask) -> (state, loss)``
     for one (model, graphs, executor); ``graphs`` must match the executor
     (``BandedBatch`` for "banded", ``SemanticGraphBatch`` for "jnp").
-    The learning rate is read at the step before its increment."""
+    ``executor`` (anything with an ``na_executor`` attribute, such as an
+    ``ExecutorSpec``) overrides ``na_executor``.  With ``clip_norm`` the
+    gradients are clipped to that global norm before AdamW.  The learning
+    rate is read at the step before its increment."""
+    na_executor = _resolve_executor(executor, na_executor)
     lr_fn = warmup_cosine(lr, warmup=warmup, total=total)
 
     def step(state: HGNNTrainState, features, labels, mask):
         loss, (grads,) = value_and_grad(
             lambda p: model.execute_loss(p, features, graphs, labels, mask=mask,
                                          na_executor=na_executor), state.params)
+        if clip_norm is not None:
+            grads, _ = clip_by_global_norm(grads, clip_norm)
         params, opt = adamw_update(grads, state.opt, state.params,
                                    lr_fn(state.opt.step), weight_decay=weight_decay)
         return HGNNTrainState(params=params, opt=opt), loss
@@ -172,9 +186,11 @@ def make_train_step(
     return step
 
 
-def make_eval_fn(model, graphs: List[Any], *,
-                 na_executor: str = "banded") -> Callable[..., torch.Tensor]:
+def make_eval_fn(model, graphs: List[Any], *, na_executor: str = "banded",
+                 executor: Optional[Any] = None) -> Callable[..., torch.Tensor]:
     """Masked accuracy ``(params, features, labels, mask) -> ()``."""
+    na_executor = _resolve_executor(executor, na_executor)
+
     @torch.no_grad()
     def accuracy(params, features, labels, mask):
         logits = model.execute(params, features, graphs, na_executor=na_executor)
@@ -196,6 +212,7 @@ def fit(
     lr: float = 3e-3,
     weight_decay: float = 0.0,
     na_executor: str = "banded",
+    executor: Optional[Any] = None,
     epoch_callback: Optional[Callable[[int, float], None]] = None,
     ckpt_dir: Optional[str] = None,
     ckpt_every: int = 1,
@@ -210,6 +227,7 @@ def fit(
     checkpoints resumes from the newest complete one; the loss history
     travels in the checkpoint, so ``losses`` covers every epoch.
     """
+    na_executor = _resolve_executor(executor, na_executor)
     state = init_train_state(model, seed, device=labels.device)
     ckpt = None
     start_epoch = 0

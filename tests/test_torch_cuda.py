@@ -1761,3 +1761,34 @@ def test_k4_past_byte_2_31_matches_plain_on_sampled_tiles(cuda_device):
                       "keys dropped": attention_plain(qt, kd, vd, causal=True)}
             for name, bad in faults.items():
                 assert not _k4_tile_passes(bad, want), (head, first, name)
+
+
+@pytest.mark.cuda
+def test_examples_run_on_the_card(cuda_device):
+    """``repro_torch.examples.quickstart`` at scale 0.2 on the card: K1 and
+    K2 launch, the shgn logits are within 1e-4 of the same compile on the
+    CPU, and every served response is bit for bit the rows of its
+    version's compiled forward."""
+    from repro_torch.api import ExecutorSpec, Session, device_features
+    from repro_torch.examples import quickstart
+
+    seg_sum_na.launches = edge_softmax_stats.launches = 0
+    q = quickstart.main(["0.2"])
+    assert seg_sum_na.launches > 0 and edge_softmax_stats.launches > 0
+    cpu = Session(ExecutorSpec(planner="ctt", sgb_backend="host", device="cpu"))
+    c_cpu = cpu.compile(q["graph"], quickstart.TARGETS, q["shgn"].cfg)
+    want = c_cpu.forward(c_cpu.init(0), device_features(q["graph"], "cpu"))
+    assert (q["logits"].cpu() - want).abs().max().item() <= 1e-4
+    feats = device_features(q["graph"])
+    g2 = q["graph"].apply_delta(q["delta"])
+    forwards = {
+        ("acm", 1): q["shgn"].forward(q["params"], feats),
+        ("acm", 2): q["shgn"].forward(q["swapped_params"], feats),
+        ("acm", 3): q["acm"].compiled.forward(q["swapped_params"], device_features(g2)),
+        ("imdb", 1): q["imdb_tenant"].compiled.forward(q["imdb_tenant"].compiled.init(0),
+                                                       device_features(q["imdb"])),
+    }
+    for r in q["responses"]:
+        full = forwards[(r.graph, r.params_version)].cpu().numpy()
+        rows = full if r.mode == "full" else full[: r.logits.shape[0]]
+        assert np.array_equal(r.logits, rows), r.rid

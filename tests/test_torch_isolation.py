@@ -56,7 +56,11 @@ def test_import_closure_is_free_of_jax_and_repro():
                 "repro_torch.train.train_step", "repro_torch.train.data",
                 "repro_torch.train.compress", "repro_torch.train.fault_tolerance",
                 "repro_torch.train._lm_pspecs", "repro_torch.launch.train",
-                "repro_torch.kernels.cp_attention", "repro_torch.launch.dryrun"):
+                "repro_torch.kernels.cp_attention", "repro_torch.launch.dryrun",
+                "repro_torch.examples", "repro_torch.examples.quickstart",
+                "repro_torch.examples.hgnn_train_acm",
+                "repro_torch.examples.restructure_demo",
+                "repro_torch.examples.lm_serve_demo"):
         assert mod in res["imported"]
 
 
