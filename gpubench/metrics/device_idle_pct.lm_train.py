@@ -1,0 +1,6 @@
+"""Share of the traced lm_train window in which the card ran nothing, in %."""
+from gbench import readers
+
+
+def read(rec):
+    return readers.device_idle_pct(rec)
