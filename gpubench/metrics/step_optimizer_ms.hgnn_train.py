@@ -1,0 +1,6 @@
+"""Device ms per HGNN train step in the program's span train.optimizer (clipping and AdamW)."""
+from gbench import spans
+
+
+def read(rec):
+    return spans.span_ms(rec, "train.optimizer")

@@ -18,6 +18,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.hgnn.layers import (feature_projection, na_attention,
                                           na_attention_banded, na_mean,
                                           na_mean_banded, semantic_fusion_beta)
@@ -284,7 +285,8 @@ class HGNN:
     def head(self, params: Dict, h: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Logits of every ``cfg.target_type`` row of ``h``."""
         head = params["head"]
-        return h[self.cfg.target_type] @ head["w"] + head["b"]
+        with tracing.span("hgnn.head"):
+            return h[self.cfg.target_type] @ head["w"] + head["b"]
 
     def hidden_states(
         self,
@@ -313,7 +315,9 @@ class HGNN:
         * ``"jnp"`` — plain segment sums over global edge lists (``graphs``
           are ``SemanticGraphBatch``), the JAX package's name for it.
 
-        Both are differentiable (see :meth:`execute_loss`).
+        Both are differentiable (see :meth:`execute_loss`).  Each layer's
+        FP and SF, and each of its NA calls, is a span (``hgnn.fp``,
+        ``hgnn.sf``, ``hgnn.na`` with the layer and metapath).
         """
         cfg = self.cfg
         if na_executor not in NA_EXECUTORS:
@@ -327,8 +331,9 @@ class HGNN:
                     f"inputs, got {type(g).__name__} for "
                     f"{getattr(g, 'metapath', '?')!r}")
         h = self.input_states(features, params["head"]["w"].device)
-        for lp in params["layers"]:
-            hp = self.project(lp, h)
+        for li, lp in enumerate(params["layers"]):
+            with tracing.span("hgnn.fp", layer=li):
+                hp = self.project(lp, h)
             z_by_dst: Dict[str, List[torch.Tensor]] = {}
             for g in graphs:
                 na_p = lp["na"][g.metapath]
@@ -336,26 +341,28 @@ class HGNN:
                 edge_bias = None
                 if cfg.model == "shgn":
                     edge_bias = lp["edge_emb"][g.edge_type_id] @ lp["a_edge"]
-                if banded:
-                    hb = h_src[g.src_gather]
-                    if cfg.model == "rgcn":
-                        zb = na_mean_banded(g.packed, hb, g.deg)
+                with tracing.span("hgnn.na", layer=li, metapath=g.metapath):
+                    if banded:
+                        hb = h_src[g.src_gather]
+                        if cfg.model == "rgcn":
+                            zb = na_mean_banded(g.packed, hb, g.deg)
+                        else:
+                            zb = na_attention_banded(
+                                hb, hp[g.dst_type][g.dst_gather],
+                                g.src_banded, g.dst_banded, g.packed,
+                                na_p["a_src"], na_p["a_dst"], edge_bias=edge_bias,
+                            )
+                        z = zb[g.dst_scatter]
+                    elif cfg.model == "rgcn":
+                        z = na_mean(h_src, g.src, g.dst, g.num_dst)
                     else:
-                        zb = na_attention_banded(
-                            hb, hp[g.dst_type][g.dst_gather],
-                            g.src_banded, g.dst_banded, g.packed,
-                            na_p["a_src"], na_p["a_dst"], edge_bias=edge_bias,
-                        )
-                    z = zb[g.dst_scatter]
-                elif cfg.model == "rgcn":
-                    z = na_mean(h_src, g.src, g.dst, g.num_dst)
-                else:
-                    z = na_attention(h_src, hp[g.dst_type], g.src, g.dst,
-                                     g.num_dst, na_p["a_src"], na_p["a_dst"],
-                                     edge_bias=edge_bias)
+                        z = na_attention(h_src, hp[g.dst_type], g.src, g.dst,
+                                         g.num_dst, na_p["a_src"], na_p["a_dst"],
+                                         edge_bias=edge_bias)
                 z_by_dst.setdefault(g.dst_type, []).append(z)
             layer_betas: Dict[str, torch.Tensor] = {}
-            h = self.fuse(lp, hp, z_by_dst, betas_out=layer_betas)
+            with tracing.span("hgnn.sf", layer=li):
+                h = self.fuse(lp, hp, z_by_dst, betas_out=layer_betas)
             if betas_out is not None:
                 betas_out.append(layer_betas)
         return h

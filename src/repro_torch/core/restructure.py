@@ -20,6 +20,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.hetero.graph import IDX, Relation
 
 
@@ -387,10 +388,17 @@ def recouple(
 
 
 def restructure(
-    rel: Relation, degree_order: bool = True, affinity: str = "barycenter"
+    rel: Relation, degree_order: bool = True, affinity: str = "barycenter",
+    metapath: str = "",
 ) -> RestructuredGraph:
-    """Full Graph Restructurer pass: decouple -> recouple -> validate."""
-    ms, md = decouple(rel)
-    rg = recouple(rel, ms, md, degree_order=degree_order, affinity=affinity)
-    rg.validate()
+    """Full Graph Restructurer pass: decouple -> recouple -> validate.
+    Each stage is a span carrying ``metapath`` (the relation's name when
+    not given) and the edge count."""
+    attrs = {"metapath": metapath or rel.name, "edges": rel.num_edges}
+    with tracing.span("frontend.restructure.decouple", **attrs):
+        ms, md = decouple(rel)
+    with tracing.span("frontend.restructure.recouple", **attrs):
+        rg = recouple(rel, ms, md, degree_order=degree_order, affinity=affinity)
+    with tracing.span("frontend.restructure.validate", **attrs):
+        rg.validate()
     return rg

@@ -24,6 +24,8 @@ import time
 from pathlib import Path
 from typing import Dict, List, Tuple
 
+from repro_torch import tracing
+
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS: Tuple[str, ...] = (
@@ -103,12 +105,21 @@ def _target(stem: str) -> Path:
 
 def build_all() -> Dict[str, Dict[str, object]]:
     """Compile every ``csrc/*.cu`` that has no up-to-date library, one
-    ``nvcc`` per source, all started together.
+    ``nvcc`` per source, all started together, in the span
+    ``kernels.build`` (with the stems ``built`` and found ``cached``).
 
     Returns ``{stem: {"path", "seconds", "built", "log"}}``; ``log`` is
     nvcc's output (ptxas register and shared-memory report) for a source
     built in this call.  Raises if any build fails.
     """
+    with tracing.span("kernels.build") as sp:
+        info = _build_all()
+        sp.set(built=sorted(k for k, v in info.items() if v["built"]),
+               cached=sorted(k for k, v in info.items() if not v["built"]))
+    return info
+
+
+def _build_all() -> Dict[str, Dict[str, object]]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
     procs = {}

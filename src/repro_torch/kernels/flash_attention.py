@@ -41,6 +41,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.kernels.cuda_build import check, load_library, ptr
 
 NEG = -1e30
@@ -275,12 +276,12 @@ def flash_attention_cuda(q, k, v, causal=True, window=None, softcap=None,
 def _fa_forward(q, k, v, out, scale, causal, window, softcap) -> None:
     """One ``fa_forward`` launch into ``out`` on the current stream of
     ``q``'s device, at q's and v's head dims, counted in
-    ``flash_attention.launches``."""
+    ``flash_attention.launches``, in the span ``kernels.k4``."""
     b, hq, s, dqk = q.shape
     hkv, t, dv = k.shape[1], k.shape[2], v.shape[3]
     strides = (ctypes.c_longlong * 12)(*_kernel_strides(q, k, v, out))
     lib = load_library("flash_attention")
-    with torch.cuda.device(q.device):
+    with torch.cuda.device(q.device), tracing.span("kernels.k4"):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.fa_forward(
             ptr(q), ptr(k), ptr(v), ptr(out), b, hq, hkv, s, t, dqk, dv,
@@ -348,5 +349,6 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
-        dq, dk, dv = attention_vjp(q, k, v, g, *ctx.args)
+        with tracing.span("lm.attn.backward"):
+            dq, dk, dv = attention_vjp(q, k, v, g, *ctx.args)
         return dq, dk, dv, None, None, None, None

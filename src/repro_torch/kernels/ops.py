@@ -27,6 +27,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels.edge_softmax import NEG, edge_softmax_stats
 from repro_torch.kernels.flash_attention import FlashAttention, flash_attention
 from repro_torch.kernels.seg_sum import (PackedEdges, edge_dots, needs_grad,
@@ -194,20 +195,21 @@ class AttentionPacked(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_out: torch.Tensor, g_alpha: torch.Tensor):
-        logits, m, s, h = ctx.saved_tensors
-        packed = ctx.packed
-        g_out = g_out.contiguous()
-        alpha = _alpha(packed, logits, m, s)
-        grad_alpha = edge_dots(packed, h, g_out) + g_alpha
-        ones = torch.ones((packed.num_src, 1), dtype=torch.float32, device=h.device)
-        t = seg_sum_forward(packed, ones,
-                            packed.scatter_blocks(alpha * grad_alpha))[:, 0]
-        dst_g = packed.device_blocked(h.device)["edge_dst"]
-        grad_logits = alpha * (grad_alpha - t[dst_g])
-        grad_h = None
-        if ctx.needs_input_grad[2]:
-            grad_h = seg_sum_transposed(packed, g_out, packed.scatter_blocks(alpha),
-                                        num_rows=h.shape[0])
+        with tracing.span("hgnn.na.backward", op="attention"):
+            logits, m, s, h = ctx.saved_tensors
+            packed = ctx.packed
+            g_out = g_out.contiguous()
+            alpha = _alpha(packed, logits, m, s)
+            grad_alpha = edge_dots(packed, h, g_out) + g_alpha
+            ones = torch.ones((packed.num_src, 1), dtype=torch.float32, device=h.device)
+            t = seg_sum_forward(packed, ones,
+                                packed.scatter_blocks(alpha * grad_alpha))[:, 0]
+            dst_g = packed.device_blocked(h.device)["edge_dst"]
+            grad_logits = alpha * (grad_alpha - t[dst_g])
+            grad_h = None
+            if ctx.needs_input_grad[2]:
+                grad_h = seg_sum_transposed(packed, g_out, packed.scatter_blocks(alpha),
+                                            num_rows=h.shape[0])
         return None, grad_logits, grad_h
 
 

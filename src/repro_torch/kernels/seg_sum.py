@@ -35,6 +35,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels.cuda_build import check, load_library, ptr
 
 EDGE_BLOCK = 256  # edges per block (EB)
@@ -856,15 +857,16 @@ class BandedMatvec(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        h, w = ctx.saved_tensors
-        packed = ctx.packed
-        grad_h = grad_w = None
-        if ctx.needs_input_grad[1]:
-            grad_h = seg_sum_transposed(packed, g, w, num_rows=h.shape[0])
-        if ctx.weight_grad and ctx.needs_input_grad[2]:
-            db = packed.device_blocked(g.device)
-            grad_w = torch.zeros_like(w)
-            grad_w[db["edge_blk"], db["edge_slot"]] = edge_dots(packed, h, g)
+        with tracing.span("hgnn.na.backward", op="matvec"):
+            h, w = ctx.saved_tensors
+            packed = ctx.packed
+            grad_h = grad_w = None
+            if ctx.needs_input_grad[1]:
+                grad_h = seg_sum_transposed(packed, g, w, num_rows=h.shape[0])
+            if ctx.weight_grad and ctx.needs_input_grad[2]:
+                db = packed.device_blocked(g.device)
+                grad_w = torch.zeros_like(w)
+                grad_w[db["edge_blk"], db["edge_slot"]] = edge_dots(packed, h, g)
         return None, grad_h, grad_w, None
 
 

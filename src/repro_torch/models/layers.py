@@ -21,6 +21,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.kernels import ops
 
 
@@ -290,6 +291,10 @@ def moe_ffn(
     (``moe_route``); a (token, slot) past its expert's capacity is dropped.
     The bf16 dispatch and combine tensors (G, Tg, E, C) are built slot by
     slot, then four bf16 einsums run dispatch, the experts and combine.
+    Routing, dispatch (the slot loop and its einsum), the experts and
+    combine are the spans ``lm.moe.route``, ``.dispatch``, ``.experts`` and
+    ``.combine``; the counters ``lm.moe.slots_filled`` (kept token slots)
+    and ``lm.moe.slots`` (G E C) give the share of capacity used.
     The two per-expert means, each ``(E,)`` float32 over these tokens, make
     the Switch load-balancing loss over the top-1 experts (``moe_aux``, the
     reference's ``aux``); a caller forms it, so that several ranks' means
@@ -303,19 +308,27 @@ def moe_ffn(
         raise ValueError(f"{t} tokens do not split into groups of {group_size}")
     g = t // group_size
     xt = x.reshape(g, group_size, d)
-    r = moe_route(p, xt, num_experts=num_experts, top_k=top_k,
-                  capacity_factor=capacity_factor)
+    with tracing.span("lm.moe.route"):
+        r = moe_route(p, xt, num_experts=num_experts, top_k=top_k,
+                      capacity_factor=capacity_factor)
     cap = r["cap"]
-    disp = torch.zeros((g, group_size, num_experts, cap), dtype=x.dtype, device=x.device)
-    comb = torch.zeros_like(disp)
-    for i in range(top_k):  # k is small; avoids a rank-5 one-hot
-        sel = r["keep"][:, :, i].to(x.dtype)  # (G, Tg, E): the slot's kept expert
-        # sel times the one-hot of the slot's queue position, as a scatter
-        term = torch.zeros_like(disp).scatter_(
-            -1, r["pos"][:, :, i, :, None].long(), sel[..., None])
-        disp = disp + term
-        comb = comb + term * r["gate_vals"][:, :, i][:, :, None, None].to(x.dtype)
-    out = moe_combine(comb, moe_experts(p, moe_dispatch(xt, disp))).reshape(b, s, d)
+    tracing.count("lm.moe.slots_filled", r["keep"])
+    tracing.count("lm.moe.slots", g * num_experts * cap)
+    with tracing.span("lm.moe.dispatch"):
+        disp = torch.zeros((g, group_size, num_experts, cap), dtype=x.dtype, device=x.device)
+        comb = torch.zeros_like(disp)
+        for i in range(top_k):  # k is small; avoids a rank-5 one-hot
+            sel = r["keep"][:, :, i].to(x.dtype)  # (G, Tg, E): the slot's kept expert
+            # sel times the one-hot of the slot's queue position, as a scatter
+            term = torch.zeros_like(disp).scatter_(
+                -1, r["pos"][:, :, i, :, None].long(), sel[..., None])
+            disp = disp + term
+            comb = comb + term * r["gate_vals"][:, :, i][:, :, None, None].to(x.dtype)
+        xe = moe_dispatch(xt, disp)
+    with tracing.span("lm.moe.experts"):
+        ye = moe_experts(p, xe)
+    with tracing.span("lm.moe.combine"):
+        out = moe_combine(comb, ye).reshape(b, s, d)
     me = r["gates"].mean(dim=(0, 1))
     fe = F.one_hot(r["idx"][..., 0], num_experts).float().mean(dim=(0, 1))
     return out, (me, fe)

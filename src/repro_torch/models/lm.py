@@ -36,6 +36,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch import tracing
 from repro_torch.kernels import ops
 from repro_torch.kernels.cp_attention import zigzag_positions
 from repro_torch.models import layers as L
@@ -341,9 +342,11 @@ class LM:
         one) and the float32 MoE aux loss summed over the layers (0 without
         MoE).  The input is ``tokens`` (B, S) or ``embeds`` (B, S, D), cast
         to bf16 with no gemma scaling; ``pos3`` (3, B, S) gives M-RoPE's
-        position components (default: the positions on all three)."""
+        position components (default: the positions on all three).  The
+        call is the span ``lm.forward``: a request's root."""
         train = _records_grad(params, embeds)
-        with contextlib.nullcontext() if train else torch.inference_mode():
+        with (contextlib.nullcontext() if train else torch.inference_mode()), \
+                tracing.span("lm.forward"):
             logits, cache, terms = self._forward(params, tokens, embeds, pos3, cache,
                                                  cache_pos, last_only, train)
             aux = torch.zeros((), dtype=torch.float32, device=logits.device)

@@ -19,11 +19,11 @@ it, so cached products serve every backend and device.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.restructure import RestructuredGraph, restructure
 from repro_torch.core.sgb import (SGBResult, execute_plan,
                                   execute_plan_delta, make_plan)
@@ -192,7 +192,7 @@ class FrontendPipeline:
             rg = self.cache.get_restructured(fp, mp, cfg.degree_order, cfg.affinity)
             if rg is None:
                 rg = restructure(rel, degree_order=cfg.degree_order,
-                                 affinity=cfg.affinity)
+                                 affinity=cfg.affinity, metapath=mp)
                 self.cache.put_restructured(fp, mp, cfg.degree_order, cfg.affinity, rg)
             out[mp] = rg
         return out
@@ -218,15 +218,17 @@ class FrontendPipeline:
                 raise ValueError(
                     f"metapath {t!r} invalid for dataset {graph.name}")
         before = self.cache.stats.snapshot()
-        t0 = time.perf_counter()
-        fp = graph.fingerprint()
-        semantic, sgb_res = self._sgb(graph, targets, fp)
-        t1 = time.perf_counter()
-        restructured = (
-            self._restructure(semantic, fp) if self.config.restructure else {})
-        t2 = time.perf_counter()
-        packed = self._pack(restructured, fp) if self.config.pack else {}
-        t3 = time.perf_counter()
+        # stage seconds, from the stage spans' own clock reads
+        timings: Dict[str, float] = {}
+        with tracing.timed("frontend.sgb", timings, "sgb"):
+            fp = graph.fingerprint()
+            semantic, sgb_res = self._sgb(graph, targets, fp)
+        with tracing.timed("frontend.restructure", timings, "restructure"):
+            restructured = (
+                self._restructure(semantic, fp) if self.config.restructure else {})
+        with tracing.timed("frontend.pack", timings, "pack"):
+            packed = self._pack(restructured, fp) if self.config.pack else {}
+        timings["total"] = sum(timings.values())
         return FrontendResult(
             targets=list(targets),
             config=self.config,
@@ -234,12 +236,7 @@ class FrontendPipeline:
             restructured=restructured,
             packed=packed,
             sgb=sgb_res,
-            timings={
-                "sgb": t1 - t0,
-                "restructure": t2 - t1,
-                "pack": t3 - t2,
-                "total": t3 - t0,
-            },
+            timings=timings,
             cache_stats=self.cache.stats.delta(before),
         )
 
@@ -268,36 +265,37 @@ class FrontendPipeline:
         """
         cfg = self.config
         before = self.cache.stats.snapshot()
-        t0 = time.perf_counter()
-        fp_old = graph.fingerprint()
-        new_graph = graph.apply_delta(delta)
-        for t in targets:
-            if not new_graph.metapath_is_valid(t):
-                raise ValueError(
-                    f"metapath {t!r} invalid for dataset {new_graph.name}")
-        fp_new = new_graph.fingerprint()
-        touched_rel = delta.touched_relations(graph)
+        timings: Dict[str, float] = {}
+        with tracing.timed("frontend.migrate", timings, "migrate"):
+            fp_old = graph.fingerprint()
+            new_graph = graph.apply_delta(delta)
+            for t in targets:
+                if not new_graph.metapath_is_valid(t):
+                    raise ValueError(
+                        f"metapath {t!r} invalid for dataset {new_graph.name}")
+            fp_new = new_graph.fingerprint()
+            touched_rel = delta.touched_relations(graph)
 
-        def untouched(mp: str) -> bool:
-            return not any(mp[i:i + 2] in touched_rel
-                           for i in range(len(mp) - 1))
+            def untouched(mp: str) -> bool:
+                return not any(mp[i:i + 2] in touched_rel
+                               for i in range(len(mp) - 1))
 
-        moved, stale = ((0, {}) if fp_new == fp_old
-                        else self.cache.migrate(fp_old, fp_new, untouched))
-        # stale entries are consumed by kind+metapath+knobs; the old
-        # fingerprint is lineage bookkeeping, not part of the lookup
-        stale = {(k[0],) + k[2:]: v for k, v in stale.items()}
-        t1 = time.perf_counter()
-        semantic, sgb_res = self._sgb_delta(
-            graph, new_graph, delta, targets, fp_new, stale)
-        t2 = time.perf_counter()
-        restructured = (
-            self._restructure(semantic, fp_new) if cfg.restructure else {})
-        t3 = time.perf_counter()
-        packed, spliced = (
-            self._pack_delta(restructured, fp_new, stale)
-            if cfg.pack else ({}, {}))
-        t4 = time.perf_counter()
+            moved, stale = ((0, {}) if fp_new == fp_old
+                            else self.cache.migrate(fp_old, fp_new, untouched))
+            # stale entries are consumed by kind+metapath+knobs; the old
+            # fingerprint is lineage bookkeeping, not part of the lookup
+            stale = {(k[0],) + k[2:]: v for k, v in stale.items()}
+        with tracing.timed("frontend.sgb", timings, "sgb"):
+            semantic, sgb_res = self._sgb_delta(
+                graph, new_graph, delta, targets, fp_new, stale)
+        with tracing.timed("frontend.restructure", timings, "restructure"):
+            restructured = (
+                self._restructure(semantic, fp_new) if cfg.restructure else {})
+        with tracing.timed("frontend.pack", timings, "pack"):
+            packed, spliced = (
+                self._pack_delta(restructured, fp_new, stale)
+                if cfg.pack else ({}, {}))
+        timings["total"] = sum(timings.values())
         result = FrontendResult(
             targets=list(targets),
             config=cfg,
@@ -305,13 +303,7 @@ class FrontendPipeline:
             restructured=restructured,
             packed=packed,
             sgb=sgb_res,
-            timings={
-                "migrate": t1 - t0,
-                "sgb": t2 - t1,
-                "restructure": t3 - t2,
-                "pack": t4 - t3,
-                "total": t4 - t0,
-            },
+            timings=timings,
             cache_stats=self.cache.stats.delta(before),
         )
         return DeltaResult(

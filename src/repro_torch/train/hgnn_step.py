@@ -18,6 +18,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.hgnn.models import params_from_numpy
 from repro_torch.train.optim import (AdamWState, adamw_init, adamw_update,
                                      clip_by_global_norm, warmup_cosine)
@@ -136,13 +137,17 @@ def value_and_grad(fn: Callable[..., torch.Tensor], *trees: Any
     """``fn(*trees)`` (a 0-d tensor) and its gradient with respect to every
     leaf of every tree, as ``jax.value_and_grad`` with one argnum per tree:
     a leaf with no path to the value gets zeros, not ``None``.  The trees
-    themselves are not modified."""
+    themselves are not modified.  ``fn`` runs in the span ``train.forward``
+    and the gradient in ``train.backward``, which adopts the spans that
+    autograd's device thread opens."""
     flats = [tree_flatten(t) for t in trees]
     live = [[x.detach().requires_grad_(True) for x in leaves] for leaves, _ in flats]
     args = [tree_unflatten(d, xs) for (_, d), xs in zip(flats, live)]
-    value = fn(*args)
+    with tracing.span("train.forward"):
+        value = fn(*args)
     every = [x for xs in live for x in xs]
-    grads = torch.autograd.grad(value, every, allow_unused=True)
+    with tracing.span("train.backward", adopt=True):
+        grads = torch.autograd.grad(value, every, allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g for x, g in zip(every, grads)]
     out, i = [], 0
     for (_, d), xs in zip(flats, live):
@@ -174,13 +179,15 @@ def make_train_step(
     lr_fn = warmup_cosine(lr, warmup=warmup, total=total)
 
     def step(state: HGNNTrainState, features, labels, mask):
-        loss, (grads,) = value_and_grad(
-            lambda p: model.execute_loss(p, features, graphs, labels, mask=mask,
-                                         na_executor=na_executor), state.params)
-        if clip_norm is not None:
-            grads, _ = clip_by_global_norm(grads, clip_norm)
-        params, opt = adamw_update(grads, state.opt, state.params,
-                                   lr_fn(state.opt.step), weight_decay=weight_decay)
+        with tracing.span("train.step"):
+            loss, (grads,) = value_and_grad(
+                lambda p: model.execute_loss(p, features, graphs, labels, mask=mask,
+                                             na_executor=na_executor), state.params)
+            with tracing.span("train.optimizer"):
+                if clip_norm is not None:
+                    grads, _ = clip_by_global_norm(grads, clip_norm)
+                params, opt = adamw_update(grads, state.opt, state.params,
+                                           lr_fn(state.opt.step), weight_decay=weight_decay)
         return HGNNTrainState(params=params, opt=opt), loss
 
     return step

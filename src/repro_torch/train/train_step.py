@@ -20,6 +20,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import moe_aux
@@ -217,7 +218,7 @@ def build_train_step(
                     f"{cfg.name}: a data rank's {tok.shape[0] * tok.shape[1]} tokens of "
                     f"a microbatch do not fill whole MoE routing groups of "
                     f"{cfg.moe_group_size}, so they would group unlike the one-rank step's")
-            with torch.enable_grad():
+            with torch.enable_grad(), tracing.span("train.forward", rank=r):
                 parts.append(model.loss_terms(tree_unflatten(treedef, xs), targets=tgt,
                                               **inputs(tok)))
             live.append((xs, treedef))
@@ -228,7 +229,8 @@ def build_train_step(
         for r, ((xs, treedef), (nll, terms)) in enumerate(zip(live, parts)):
             own = nll / n + AUX_WEIGHT * aux_share(terms, top1, n)
             loss = loss + own.detach().to(dev0)
-            g = torch.autograd.grad(own, xs, allow_unused=True)
+            with tracing.span("train.backward", adopt=True, rank=r):
+                g = torch.autograd.grad(own, xs, allow_unused=True)
             grads = _accumulate(grads, tree_unflatten(
                 treedef, [torch.zeros_like(x) if gi is None else gi for x, gi in zip(xs, g)]),
                 r, acc_dt)
@@ -248,19 +250,21 @@ def build_train_step(
         return loss / microbatches, (tree_map(lambda g: g / microbatches, grads),)
 
     def step(state: TrainState, tok, tgt=None):
-        if n == 1:
-            if tgt is None:
-                (tok, tgt), = tok
-            loss, (grads,) = one_rank(state, tok, tgt)
-        else:
-            loss, (grads,) = data_parallel(state, tok, tgt)
-        grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
-        residuals = state.residuals
-        if use_compression:
-            grads, residuals = C.compress_decompress(grads, residuals)
-        lr_t = lr(state.opt.step) if callable(lr) else lr
-        new_params, new_opt = adamw_update(grads, state.opt, state.params, lr_t,
-                                           inplace=donate)
+        with tracing.span("train.step"):
+            if n == 1:
+                if tgt is None:
+                    (tok, tgt), = tok
+                loss, (grads,) = one_rank(state, tok, tgt)
+            else:
+                loss, (grads,) = data_parallel(state, tok, tgt)
+            with tracing.span("train.optimizer"):
+                grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+                residuals = state.residuals
+                if use_compression:
+                    grads, residuals = C.compress_decompress(grads, residuals)
+                lr_t = lr(state.opt.step) if callable(lr) else lr
+                new_params, new_opt = adamw_update(grads, state.opt, state.params, lr_t,
+                                                   inplace=donate)
         return (TrainState(params=new_params, opt=new_opt, residuals=residuals),
                 {"loss": loss, "grad_norm": gnorm,
                  "lr": torch.as_tensor(lr_t, dtype=torch.float32)})

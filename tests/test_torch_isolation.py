@@ -60,7 +60,7 @@ def test_import_closure_is_free_of_jax_and_repro():
                 "repro_torch.examples", "repro_torch.examples.quickstart",
                 "repro_torch.examples.hgnn_train_acm",
                 "repro_torch.examples.restructure_demo",
-                "repro_torch.examples.lm_serve_demo"):
+                "repro_torch.examples.lm_serve_demo", "repro_torch.tracing"):
         assert mod in res["imported"]
 
 
